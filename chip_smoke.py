@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases; each raises on failure and the script then exits non-zero:
+  1. device  -- a CUDA card must be present; prints nvidia-smi's name and
+                power limit.
+  2. build   -- compiles x_detector_tpu_torch/csrc/*.cu with nvcc.
+  3. kernels -- each kernel against its plain PyTorch version on the card,
+                at the shapes config 3 gives it, with the tolerance stated;
+                both timed with CUDA events.
+  4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
+                the fused separable conv) from seeded uint8 images through
+                build_eval_fn, batches of 16: launch counts, detection
+                invariants, batch time; then the same weights at 128 px on
+                the card (bf16, kernels) against the CPU (fp32, plain
+                versions).
+The line before the last is one JSON object with the kernels' results; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+SEED = 0
+BATCH = 16
+SLICE_BATCHES = 3          # timed batches, after one warm-up batch
+WARMUP, REPS = 3, 20       # kernel timing
+
+# Kernel B2's calls per batch of config 3 at 800 px, B=16:
+# (H, W, Cin, Cout, dilation, calls without residual, calls with residual)
+B2_SHAPES = [
+    (200, 200, 128, 128, 1, 2, 2),      # stage1 sep0a/b, sep1a/b
+    (100, 100, 256, 256, 1, 1, 2),      # stage2 sep0b, sep1a/b
+    (50, 50, 512, 512, 1, 1, 2),        # stage3 sep0b, sep1a/b
+    (50, 50, 512, 1024, 2, 1, 0),       # stage4 sep0a
+    (50, 50, 1024, 1024, 2, 1, 2),      # stage4 sep0b, sep1a/b
+]
+# bf16 output: the kernel and the plain version round the same fp32 values,
+# but sum in other orders, so a tap or an output may land one bf16 step
+# (2^-8 relative) apart. Held to 1e-2 of the output's scale.
+B2_REL_TOL = 1e-2
+# PSROIAlign reads the same bf16 features in both versions and sums 16
+# fp32 products: only the fp32 summation order differs.
+B1_REL_TOL = 1e-5
+# The 128 px slice, bf16 with kernels on the card vs fp32 plain on the CPU,
+# through ~40 layers of random weights: bf16 keeps 8 significant bits.
+SLICE_REL_TOL = 1e-1
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, warmup: int = WARMUP, reps: int = REPS) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events after warm-up."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_rel_err(got: torch.Tensor, ref: torch.Tensor):
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    return err, scale
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
+        f", CUDA {torch.version.cuda}")
+    return smi
+
+
+def phase_build() -> float:
+    from x_detector_tpu_torch import _build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    seconds = time.perf_counter() - t0
+    log(f"build: {lib} in {seconds:.1f} s")
+    # ptxas's summary per kernel: registers, shared memory, spills
+    for line in (lib.parent / _build.LOG_NAME).read_text().splitlines():
+        if "Used" in line or "spill" in line:
+            log("  " + line.split("info    : ")[-1])
+    return seconds
+
+
+def phase_kernels() -> list:
+    from x_detector_tpu_torch.ops import fused_sepconv as fs
+    from x_detector_tpu_torch.ops import psroi_align as pa
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+
+    b2_err, b2_ms, b2_plain_ms = 0.0, 0.0, 0.0
+    for h, w, cin, cout, d, n_plain, n_res in B2_SHAPES:
+        x = randn(BATCH, h, w, cin).to(torch.bfloat16)
+        wd = randn(3, 3, cin) / 3.0
+        wp = randn(cin, cout) / cin ** 0.5
+        scale = 1.0 + 0.1 * randn(cout)
+        bias = 0.1 * randn(cout)
+        res = randn(BATCH, h, w, cout).to(torch.bfloat16)
+        for residual, calls in ((None, n_plain), (res, n_res)):
+            if not calls:
+                continue
+            kw = dict(dilation=d, relu=True, residual=residual)
+            got = fs.fused_separable_conv(x, wd, wp, scale, bias, **kw)
+            ref = fs.reference_separable_conv(x, wd, wp, scale, bias, **kw)
+            torch.cuda.synchronize()
+            err, sc = max_rel_err(got, ref)
+            tag = (f"B2 fused_sepconv {h}x{w} {cin}->{cout} d={d} "
+                   f"residual={residual is not None}")
+            if not err <= B2_REL_TOL * sc:
+                raise AssertionError(f"{tag}: max abs err {err:.3g} > "
+                                     f"{B2_REL_TOL} x scale {sc:.3g}")
+            ms = cuda_ms(lambda: fs.fused_separable_conv(x, wd, wp, scale,
+                                                         bias, **kw))
+            plain = cuda_ms(lambda: fs.reference_separable_conv(
+                x, wd, wp, scale, bias, **kw))
+            flop = 2.0 * BATCH * h * w * cin * (9 + cout)
+            log(f"{tag}: max abs err {err:.3g} (scale {sc:.3g}); kernel "
+                f"{ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{plain:.3f} ms; x{calls} per batch")
+            b2_err = max(b2_err, err)
+            b2_ms += calls * ms
+            b2_plain_ms += calls * plain
+            del got, ref
+
+    grid, c, size, r = 7, 10, 50, 512
+    feat = randn(BATCH, size, size, grid * grid * c).to(torch.bfloat16)
+    lo = torch.rand(BATCH, r, 2, generator=gen, device=dev) * 0.8
+    hw = torch.rand(BATCH, r, 2, generator=gen, device=dev) * 0.5
+    rois = torch.cat([lo, (lo + hw).clamp(max=1.0)], dim=-1)
+    edge = torch.tensor([[0.0, 0.0, 1.0, 1.0], [0.9, 0.9, 1.0, 1.0],
+                         [0.0, 0.5, 0.0, 0.5], [0.3, 0.3, 0.3, 0.3],
+                         [0.999, 0.0, 1.0, 0.001], [0.0, 0.0, 0.0, 0.0]],
+                        device=dev)
+    rois[:, :edge.shape[0]] = edge          # edge and zero-area rois
+    rois = rois.contiguous()
+    got = pa.batched_psroi_align(feat, rois, grid)
+    ref = pa.psroi_align_reference(feat, rois, grid)
+    torch.cuda.synchronize()
+    b1_err, sc = max_rel_err(got, ref)
+    if not b1_err <= B1_REL_TOL * sc:
+        raise AssertionError(f"B1 psroi_align: max abs err {b1_err:.3g} > "
+                             f"{B1_REL_TOL} x scale {sc:.3g}")
+    b1_ms = cuda_ms(lambda: pa.batched_psroi_align(feat, rois, grid))
+    b1_plain_ms = cuda_ms(lambda: pa.psroi_align_reference(feat, rois, grid))
+    log(f"B1 psroi_align [{BATCH},{size},{size},{grid * grid * c}] bf16 x "
+        f"[{BATCH},{r},4]: max abs err {b1_err:.3g} (scale {sc:.3g}); kernel "
+        f"{b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms; x1 per batch")
+    return [
+        {"name": "fused_sepconv", "route": "cuda",
+         "source": "x_detector_tpu_torch/csrc/fused_sepconv.cu",
+         "replaces": "x_detector_tpu/ops/pallas/fused_sepconv.py:120",
+         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms},
+        {"name": "psroi_align", "route": "cuda",
+         "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
+         "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:72",
+         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms},
+    ]
+
+
+def slice_model(model_cfg, device, seed: int = SEED):
+    """Config-3 model with seeded random weights and BatchNorm statistics
+    moved off their initial values, so the folded affine is not identity."""
+    from x_detector_tpu_torch.inference import build_model
+    from x_detector_tpu_torch.models.layers import BatchNorm2D
+    model = build_model(model_cfg, "cpu", seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2D):
+                n = m.weight.shape[0]
+                m.weight.add_(0.1 * torch.randn(n, generator=gen))
+                m.bias.add_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.add_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.mul_(1.0 + 0.5 * torch.rand(n, generator=gen))
+    return model.to(device)
+
+
+def check_detections(boxes, scores, classes, valid, batch: int,
+                     max_output: int) -> None:
+    """Shapes, finiteness and the NMS output contract."""
+    if boxes.shape != (batch, max_output, 4) or scores.shape != (
+            batch, max_output) or classes.shape != scores.shape or (
+            valid.shape != scores.shape):
+        raise AssertionError(f"detection shapes {tuple(boxes.shape)} "
+                             f"{tuple(scores.shape)} {tuple(classes.shape)}")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError("non-finite detections")
+    if (scores[:, 1:] > scores[:, :-1]).any():
+        raise AssertionError("scores not descending")
+    if not torch.equal(valid, classes > 0):
+        raise AssertionError("valid != (class > 0)")
+    if (boxes < 0).any() or (boxes > 1).any():
+        raise AssertionError("boxes outside [0, 1]")
+
+
+def run_slice(cfg, device, batches: int = SLICE_BATCHES,
+              batch_size: int = BATCH, seed: int = SEED) -> dict:
+    """Drive the main path: seeded uint8 images -> preprocess_for_eval ->
+    build_eval_fn, one warm-up batch then ``batches`` timed ones. Returns
+    the kernels' launch counts over all of them, what they should be, the
+    timed seconds per batch and the detections of the last batch."""
+    from x_detector_tpu_torch.data.augment import preprocess_for_eval
+    from x_detector_tpu_torch.inference import build_eval_fn
+    from x_detector_tpu_torch.models.layers import SeparableConvBN
+    from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
+    from x_detector_tpu_torch.ops.psroi_align import batched_psroi_align
+    device = torch.device(device)
+    model = slice_model(cfg.model, device, seed)
+    detect = build_eval_fn(model, cfg, device)
+    fused_per_batch = sum(
+        1 for m in model.modules() if isinstance(m, SeparableConvBN)
+        and m.fused and m.strides == (1, 1))
+    size = cfg.model.image_size
+    gen = torch.Generator(device=device).manual_seed(seed)
+    images = [torch.randint(0, 256, (batch_size, size, size, 3),
+                            generator=gen, dtype=torch.uint8, device=device)
+              for _ in range(batches + 1)]
+    sync = (lambda: torch.cuda.synchronize(device)) if (
+        device.type == "cuda") else (lambda: None)
+    sync()
+    fused_separable_conv.launches = 0
+    batched_psroi_align.launches = 0
+    seconds = []
+    for u8 in images:
+        t0 = time.perf_counter()
+        det = detect(preprocess_for_eval(u8, cfg.data))
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        check_detections(*det, batch_size, cfg.model.nms.max_output)
+    launches = {"fused_sepconv": fused_separable_conv.launches,
+                "psroi_align": batched_psroi_align.launches}
+    return {"launches": launches,
+            "expected": {"fused_sepconv": fused_per_batch * len(images),
+                         "psroi_align": len(images)},
+            "seconds": seconds[1:], "detections": det}
+
+
+def slice_reference_check(model_cfg, device) -> float:
+    """The same seeded weights at 128 px: bf16 with kernels on ``device``
+    against fp32 plain versions on the CPU, on the RPN outputs (before any
+    discrete NMS choice)."""
+    from x_detector_tpu_torch.models.lighthead import LightHeadRCNN
+    cfg = dataclasses.replace(model_cfg, image_size=128)
+    gpu = slice_model(cfg, device).eval()
+    cpu = LightHeadRCNN(cfg, dtype=torch.float32).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randint(0, 256, (2, 128, 128, 3), generator=gen
+                      ).float() - 120.0
+    with torch.inference_mode():
+        got = gpu(x.to(device))
+        ref = cpu(x)
+    worst = 0.0
+    for key in ("rpn_cls", "rpn_loc"):
+        err, sc = max_rel_err(got[key].cpu(), ref[key])
+        log(f"slice 128px {key}: card bf16 vs CPU fp32 max abs err {err:.3g}"
+            f" (scale {sc:.3g})")
+        if not err <= SLICE_REL_TOL * sc:
+            raise AssertionError(f"slice {key}: {err:.3g} > {SLICE_REL_TOL}"
+                                 f" x scale {sc:.3g}")
+        worst = max(worst, err / sc)
+    return worst
+
+
+def main() -> int:
+    smi = phase_device()
+    from x_detector_tpu_torch.config import lighthead_xception
+    phase_build()
+    kernels = phase_kernels()
+
+    cfg = lighthead_xception(800)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_fused_sepconv=True))
+    torch.cuda.reset_peak_memory_stats()
+    res = run_slice(cfg, "cuda")
+    torch.cuda.synchronize()
+    n_batches = len(res["seconds"]) + 1
+    if res["expected"] != {"fused_sepconv": 14 * n_batches,
+                           "psroi_align": n_batches}:
+        raise AssertionError(f"config 3 should run B2 14 times and B1 once "
+                             f"per batch; the model gives {res['expected']}")
+    for name, want in res["expected"].items():
+        got = res["launches"][name]
+        if got != want:
+            raise AssertionError(f"{name} launched {got} times on the main "
+                                 f"path, expected {want}")
+    secs = res["seconds"]
+    mean = sum(secs) / len(secs)
+    n_valid = int(res["detections"][3].sum().item())
+    log(f"slice: config 3, batch {BATCH} at 800 px, fused sepconv: "
+        f"launches {res['launches']} over {n_batches} batches; batch "
+        f"times {[round(s * 1e3, 2) for s in secs]} ms, mean "
+        f"{mean * 1e3:.2f} ms = {BATCH / mean:.1f} images/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{n_valid} valid detections in the last batch")
+    slice_reference_check(cfg.model, "cuda")
+    torch.cuda.synchronize()
+
+    for k in kernels:
+        k["launches"] = res["launches"][k["name"]]
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

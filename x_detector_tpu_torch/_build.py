@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
+plain C interface, loaded with ``ctypes``; no PyTorch header is included, so
+the build takes seconds. The build happens at first use, into
+``build/torch_kernels/<hash>/`` at the root of the checkout, keyed by a hash
+of the sources and the flags: a changed source builds anew, an unchanged one
+loads the library already there. The compiler's report (``-Xptxas -v``:
+registers, shared memory and spills per kernel) is kept beside the library
+as ``nvcc.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+LIB_NAME = "libxdt_kernels.so"
+LOG_NAME = "nvcc.log"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (every entry returns a cudaError_t)
+SIGNATURES = {
+    # x, wd, wp, scale, bias, residual (or NULL), out,
+    # B, H, W, Cin, Cout, dilation, relu, stream
+    "xdt_fused_sepconv_bf16": [_P] * 7 + [_I] * 7 + [_P],
+    # features, rois, out, features_are_bf16,
+    # B, H, W, R, grid, C, samples, stream
+    "xdt_psroi_align_fwd": [_P] * 3 + [_I] * 8 + [_P],
+}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc, from PATH or CUDA_HOME, else a clear error."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
+        "CUDA kernels are compiled from x_detector_tpu_torch/csrc at first "
+        "use and need the CUDA toolkit")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; returns
+    the library's path (``nvcc.log`` beside it holds the compiler's
+    report)."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    (out_dir / LOG_NAME).write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)              # atomic: a reader never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error at launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

@@ -1,0 +1,190 @@
+"""Conv building blocks at inference (NCHW in channels_last memory).
+
+Tensors between blocks are NCHW tensors in ``torch.channels_last`` memory
+format, which is NHWC in memory, so the fused kernel reads them without a
+copy. Numerics follow the JAX package: fp32 parameters rounded to the
+compute ``dtype`` at use (bf16 on the card), and the inference BatchNorm
+folded into one per-channel ``x * inv + bias`` in the compute dtype.
+
+Module and parameter names mirror the flax tree (``Conv_0``, ``Conv_1``,
+``bn``) so that ``utils.convert.from_jax_variables`` maps one onto the other
+by name.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
+
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+
+def same_pads(size: Sequence[int], kernel: Sequence[int],
+              stride: Sequence[int], dilation: Sequence[int]) -> Pads:
+    """XLA "SAME" padding per spatial dim: the odd pixel goes after, so a
+    stride-2 3x3 on an even size pads (0, 1), not torch's symmetric 1."""
+    pads = []
+    for n, k, s, d in zip(size, kernel, stride, dilation):
+        out = -(-n // s)
+        total = max((out - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, pads: Union[str, Pads],
+           dtype: torch.dtype) -> torch.Tensor:
+    """``conv``'s parameters applied in ``dtype`` with explicit padding:
+    ``pads`` is "SAME" or ((top, bottom), (left, right))."""
+    if pads == "SAME":
+        pads = same_pads(x.shape[2:], conv.kernel_size, conv.stride,
+                         conv.dilation)
+    (top, bottom), (left, right) = pads
+    if top == bottom and left == right:
+        padding = (top, left)
+    else:
+        x = F.pad(x, (left, right, top, bottom))
+        padding = 0
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
+                 padding, conv.dilation, conv.groups)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+class BatchNorm2D(nn.Module):
+    """Inference BatchNorm: running stats fold into ``x * inv + bias``
+    evaluated in the input's dtype, with eps 1e-5."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fp32 per-channel (scale, bias) of the inference affine."""
+        inv = self.weight * torch.rsqrt(self.running_var + self.epsilon)
+        return inv, self.bias - self.running_mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv, bias = self.folded()
+        return (x * inv.to(x.dtype)[None, :, None, None]
+                + bias.to(x.dtype)[None, :, None, None])
+
+
+def _reject_quant(quant) -> None:
+    if quant is not None:
+        raise NotImplementedError(
+            f"backbone_quant={quant!r}: int8 QuantConv is ported in a later "
+            "PR")
+
+
+class ConvBN(nn.Module):
+    """Conv -> BatchNorm -> (optional) ReLU. ``use_bn=False`` gives the conv
+    a bias instead. ``padding`` is "SAME", "EXPLICIT" (symmetric
+    (k-1)//2 * d) or explicit ((top, bottom), (left, right)) pairs."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3),
+                 strides: Tuple[int, int] = (1, 1),
+                 dilation: Tuple[int, int] = (1, 1), relu: bool = True,
+                 use_bn: bool = True, padding: Union[str, Pads] = "SAME",
+                 quant=None, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        _reject_quant(quant)
+        if padding == "EXPLICIT":
+            padding = tuple(((k - 1) // 2 * d, (k - 1) // 2 * d)
+                            for k, d in zip(kernel, dilation))
+        self.padding, self.relu, self.dtype = padding, relu, dtype
+        self.Conv_0 = nn.Conv2d(in_features, features, kernel, strides,
+                                dilation=dilation, bias=not use_bn)
+        self.bn = BatchNorm2D(features) if use_bn else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv2d(x, self.Conv_0, self.padding, self.dtype)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x) if self.relu else x
+
+
+class SeparableConvBN(nn.Module):
+    """Depthwise 3x3 -> pointwise 1x1 -> one BatchNorm -> ReLU.
+
+    ``fused=True`` routes stride-1 calls through the fused kernel
+    (``ops/fused_sepconv.py``); stride-2 calls keep the two convs. The
+    parameters are the same either way. ``forward(x, residual)`` is the
+    Xception unit's epilogue ``relu(bn(x) + residual)`` (the module then has
+    ``relu=False``).
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 strides: Tuple[int, int] = (1, 1),
+                 dilation: Tuple[int, int] = (1, 1), relu: bool = True,
+                 dense: bool = False, fused: bool = False, quant=None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        _reject_quant(quant)
+        if dense:
+            raise NotImplementedError("dense separable stages are ported in "
+                                      "a later PR")
+        if dilation[0] != dilation[1]:
+            raise ValueError(f"square dilation only, got {dilation}")
+        self.strides, self.dilation = tuple(strides), tuple(dilation)
+        self.relu, self.fused, self.dtype = relu, fused, dtype
+        self.Conv_0 = nn.Conv2d(in_features, in_features, 3, strides,
+                                dilation=dilation, groups=in_features,
+                                bias=False)
+        self.Conv_1 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.bn = BatchNorm2D(features)
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if residual is not None and self.relu:
+            raise ValueError("the residual epilogue owns the ReLU: build the "
+                             "module with relu=False")
+        if self.fused and self.strides == (1, 1):
+            scale, bias = self.bn.folded()
+            out = fused_separable_conv(
+                x.to(self.dtype).permute(0, 2, 3, 1).contiguous(),
+                self.Conv_0.weight[:, 0].permute(1, 2, 0).contiguous(),
+                self.Conv_1.weight[:, :, 0, 0].t().contiguous(),
+                scale.contiguous(), bias.contiguous(),
+                dilation=self.dilation[0],
+                relu=self.relu or residual is not None,
+                residual=None if residual is None else
+                residual.to(self.dtype).permute(0, 2, 3, 1).contiguous())
+            return out.permute(0, 3, 1, 2)          # channels_last NCHW view
+        x = conv2d(x, self.Conv_0, "SAME", self.dtype)
+        x = conv2d(x, self.Conv_1, "SAME", self.dtype)
+        x = self.bn(x)
+        if residual is not None:
+            return F.relu(x + residual)
+        return F.relu(x) if self.relu else x
+
+
+def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default initialisation, in place: lecun-normal conv and dense
+    kernels (truncated normal at +-2 sigma, variance 1/fan_in), zero biases,
+    BatchNorm scale 1 and bias 0, running mean 0 and variance 1. Modules are
+    visited in registration order, so one generator seed gives one model."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm2D):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
