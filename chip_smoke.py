@@ -8,14 +8,26 @@ Phases; each raises on failure and the script then exits non-zero:
                 power limit.
   2. build   -- compiles x_detector_tpu_torch/csrc/*.cu with nvcc.
   3. kernels -- each kernel against its plain PyTorch version on the card,
-                at the shapes config 3 gives it, with the tolerance stated;
-                both timed with CUDA events.
+                at the shapes its main path gives it (config 3 for the
+                forward kernels, config 4 for PSROIAlign's backward, which
+                must also give the same bits twice), with the tolerance
+                stated; both timed with CUDA events.
   4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
                 the fused separable conv) from seeded uint8 images through
                 build_eval_fn, batches of 16: launch counts, detection
                 invariants, batch time; then the same weights at 128 px on
                 the card (bf16, kernels) against the CPU (fp32, plain
                 versions).
+  5. train   -- config 4 (the same model, training, batch 16 at 800 px):
+                synthetic batches made on the card on a 960 px canvas ->
+                preprocess_batch_for_train -> the train step, one warm-up
+                and TRAIN_STEPS timed steps: launch counts, finite losses,
+                changed parameters, step time, images/s, peak memory; then
+                one step at 128 px on the card (bf16, kernels) from the same
+                weights, batch and RPN draws as the CPU (fp32, plain
+                versions; and bf16, as a control): PSROIAlign's backward in
+                that step against the plain backward of its inputs, the
+                loss, and the thin map's gradients and updates.
 The line before the last is one JSON object with the kernels' results; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -24,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -33,6 +46,8 @@ import torch
 SEED = 0
 BATCH = 16
 SLICE_BATCHES = 3          # timed batches, after one warm-up batch
+TRAIN_STEPS = 3            # timed train steps, after one warm-up step
+CANVAS_SCALE = 1.2         # raw train canvases: 960 px for 800 px inputs
 WARMUP, REPS = 3, 20       # kernel timing
 
 # Kernel B2's calls per batch of config 3 at 800 px, B=16:
@@ -51,9 +66,24 @@ B2_REL_TOL = 1e-2
 # PSROIAlign reads the same bf16 features in both versions and sums 16
 # fp32 products: only the fp32 summation order differs.
 B1_REL_TOL = 1e-5
+# PSROIAlign's backward: both versions sum the same fp32 products in other
+# orders (1e-5 of the scale) and round once to bf16 on store, where a sum
+# that lands by a rounding boundary may go one bf16 step (2^-7 of the
+# value) the other way.
+B1_BWD_REL_TOL = 1e-5
+BF16_STEP = 2.0 ** -7
 # The 128 px slice, bf16 with kernels on the card vs fp32 plain on the CPU,
 # through ~40 layers of random weights: bf16 keeps 8 significant bits.
 SLICE_REL_TOL = 1e-1
+# One train step at 128 px, card (bf16, kernels) against CPU (fp32, plain
+# versions) from the same weights, batch and RPN draws. bf16 rounds, and
+# may flip a discrete choice (a proposal, an OHEM pick) that the loss then
+# averages; the control, the CPU in bf16 against the CPU in fp32, shows how
+# far that alone goes. Limits: total_loss relative, and the gradient and
+# update of each thin-map parameter (reached only through PSROIAlign's
+# backward) over the leaf's largest value.
+TRAIN_LOSS_REL_TOL = 2e-2
+TRAIN_LEAF_REL_TOL = 3e-1
 
 
 def log(*args) -> None:
@@ -151,15 +181,7 @@ def phase_kernels() -> list:
 
     grid, c, size, r = 7, 10, 50, 512
     feat = randn(BATCH, size, size, grid * grid * c).to(torch.bfloat16)
-    lo = torch.rand(BATCH, r, 2, generator=gen, device=dev) * 0.8
-    hw = torch.rand(BATCH, r, 2, generator=gen, device=dev) * 0.5
-    rois = torch.cat([lo, (lo + hw).clamp(max=1.0)], dim=-1)
-    edge = torch.tensor([[0.0, 0.0, 1.0, 1.0], [0.9, 0.9, 1.0, 1.0],
-                         [0.0, 0.5, 0.0, 0.5], [0.3, 0.3, 0.3, 0.3],
-                         [0.999, 0.0, 1.0, 0.001], [0.0, 0.0, 0.0, 0.0]],
-                        device=dev)
-    rois[:, :edge.shape[0]] = edge          # edge and zero-area rois
-    rois = rois.contiguous()
+    rois = config_rois(gen, BATCH, r, dev)
     got = pa.batched_psroi_align(feat, rois, grid)
     ref = pa.psroi_align_reference(feat, rois, grid)
     torch.cuda.synchronize()
@@ -172,6 +194,47 @@ def phase_kernels() -> list:
     log(f"B1 psroi_align [{BATCH},{size},{size},{grid * grid * c}] bf16 x "
         f"[{BATCH},{r},4]: max abs err {b1_err:.3g} (scale {sc:.3g}); kernel "
         f"{b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms; x1 per batch")
+
+    # B1 at config 4: 1000 training proposals per image, forward and backward
+    r = 1000
+    rois = config_rois(gen, BATCH, r, dev)
+    got = pa.batched_psroi_align(feat, rois, grid)
+    ref = pa.psroi_align_reference(feat, rois, grid)
+    torch.cuda.synchronize()
+    err, sc = max_rel_err(got, ref)
+    if not err <= B1_REL_TOL * sc:
+        raise AssertionError(f"B1 psroi_align at R={r}: max abs err "
+                             f"{err:.3g} > {B1_REL_TOL} x scale {sc:.3g}")
+    b1_err = max(b1_err, err)
+    fwd_ms = cuda_ms(lambda: pa.batched_psroi_align(feat, rois, grid))
+    log(f"B1 psroi_align [{BATCH},{size},{size},{grid * grid * c}] bf16 x "
+        f"[{BATCH},{r},4]: max abs err {err:.3g} (scale {sc:.3g}); kernel "
+        f"{fwd_ms:.3f} ms; x1 per train step")
+    g = randn(BATCH, r, grid, grid, c)
+    bwd = lambda: pa.psroi_align_backward(g, rois, size, size,
+                                          torch.bfloat16, grid)
+    got, again = bwd(), bwd()
+    ref = pa.psroi_align_backward_reference(g, rois, size, size,
+                                            torch.bfloat16, grid)
+    torch.cuda.synchronize()
+    bwd_err, sc = max_rel_err(got, ref)
+    over = ((got.float() - ref.float()).abs()
+            > B1_BWD_REL_TOL * sc + BF16_STEP * ref.float().abs())
+    if over.any():
+        raise AssertionError(
+            f"B1 psroi_align_backward: {int(over.sum())} elements beyond "
+            f"{B1_BWD_REL_TOL} x scale {sc:.3g} + one bf16 step; max abs "
+            f"err {bwd_err:.3g}")
+    if not torch.equal(got, again):
+        raise AssertionError("B1 psroi_align_backward: two runs on the same "
+                             "inputs differ")
+    bwd_ms = cuda_ms(bwd)
+    bwd_plain_ms = cuda_ms(lambda: pa.psroi_align_backward_reference(
+        g, rois, size, size, torch.bfloat16, grid))
+    log(f"B1 psroi_align_backward [{BATCH},{r},{grid},{grid},{c}] fp32 -> "
+        f"[{BATCH},{size},{size},{grid * grid * c}] bf16: max abs err "
+        f"{bwd_err:.3g} (scale {sc:.3g}), bitwise equal on a second run; "
+        f"kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms; x1 per step")
     return [
         {"name": "fused_sepconv", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/fused_sepconv.cu",
@@ -181,7 +244,25 @@ def phase_kernels() -> list:
          "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
          "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:72",
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms},
+        {"name": "psroi_align_backward", "route": "cuda",
+         "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
+         "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:169",
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms},
     ]
+
+
+def config_rois(gen, batch: int, r: int, dev) -> torch.Tensor:
+    """[batch, r, 4] random normalized rois, the first six of each image
+    the edge and zero-area cases."""
+    lo = torch.rand(batch, r, 2, generator=gen, device=dev) * 0.8
+    hw = torch.rand(batch, r, 2, generator=gen, device=dev) * 0.5
+    rois = torch.cat([lo, (lo + hw).clamp(max=1.0)], dim=-1)
+    edge = torch.tensor([[0.0, 0.0, 1.0, 1.0], [0.9, 0.9, 1.0, 1.0],
+                         [0.0, 0.5, 0.0, 0.5], [0.3, 0.3, 0.3, 0.3],
+                         [0.999, 0.0, 1.0, 0.001], [0.0, 0.0, 0.0, 0.0]],
+                        device=dev)
+    rois[:, :edge.shape[0]] = edge          # edge and zero-area rois
+    return rois.contiguous()
 
 
 def slice_model(model_cfg, device, seed: int = SEED):
@@ -228,15 +309,12 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     timed seconds per batch and the detections of the last batch."""
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
     from x_detector_tpu_torch.inference import build_eval_fn
-    from x_detector_tpu_torch.models.layers import SeparableConvBN
     from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
     from x_detector_tpu_torch.ops.psroi_align import batched_psroi_align
     device = torch.device(device)
     model = slice_model(cfg.model, device, seed)
     detect = build_eval_fn(model, cfg, device)
-    fused_per_batch = sum(
-        1 for m in model.modules() if isinstance(m, SeparableConvBN)
-        and m.fused and m.strides == (1, 1))
+    fused_per_batch = fused_blocks(model)
     size = cfg.model.image_size
     gen = torch.Generator(device=device).manual_seed(seed)
     images = [torch.randint(0, 256, (batch_size, size, size, 3),
@@ -289,6 +367,192 @@ def slice_reference_check(model_cfg, device) -> float:
     return worst
 
 
+def fused_blocks(model) -> int:
+    """B2 launches per forward of ``model`` in its current mode."""
+    from x_detector_tpu_torch.models.layers import SeparableConvBN
+    return sum(1 for m in model.modules()
+               if isinstance(m, SeparableConvBN) and m.takes_fused_route)
+
+
+def kernel_counters():
+    from x_detector_tpu_torch.ops import psroi_align as pa
+    from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
+    return {"fused_sepconv": fused_separable_conv,
+            "psroi_align": pa.batched_psroi_align,
+            "psroi_align_backward": pa.psroi_align_backward}
+
+
+def train_config(image_size: int = 800, batch_size: int = BATCH):
+    """Config 4: the lighthead_xception preset training at batch 16 with no
+    warmup (``tools/bench_train.py``'s configuration)."""
+    from x_detector_tpu_torch.config import lighthead_xception
+    cfg = lighthead_xception(image_size)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=batch_size, warmup_steps=0))
+
+
+def run_train(cfg, device, steps: int = TRAIN_STEPS,
+              seed: int = SEED) -> dict:
+    """Drive the training path: synthetic batches made on ``device`` on a
+    1.2x canvas -> preprocess_batch_for_train -> the train step, one
+    warm-up step then ``steps`` timed ones. Returns the kernels' launch
+    counts over all of them, what they should be, the timed seconds per
+    step, the losses and whether every parameter tensor moved. Expected:
+    per microbatch, one forward (one PSROIAlign, and the fused blocks the
+    model in training mode takes) and one backward of PSROIAlign."""
+    from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
+    from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
+    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_train_step)
+    device = torch.device(device)
+    state = create_model_and_state(cfg, device, seed=seed)
+    step = make_train_step(state.model, cfg)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    canvas = int(cfg.data.image_size * CANVAS_SCALE)
+    batch_size = cfg.train.batch_size
+    sync = (lambda: torch.cuda.synchronize(device)) if (
+        device.type == "cuda") else (lambda: None)
+    counters = kernel_counters()
+    sync()
+    for fn in counters.values():
+        fn.launches = 0
+    seconds, losses = [], []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        raw = synthetic_batch_device(gen, batch_size, canvas,
+                                     cfg.data.max_gt_boxes)
+        batch = preprocess_batch_for_train(gen, raw, cfg.data)
+        state, metrics = step(state, batch, gen)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        losses.append({k: v.item() for k, v in metrics.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    moved = [not torch.equal(b, p.detach()) for b, p in
+             zip(before, state.model.parameters())]
+    forwards = (steps + 1) * cfg.train.grad_accum_steps
+    return {"launches": launches,
+            "expected": {"fused_sepconv": forwards * fused_blocks(state.model),
+                         "psroi_align": forwards,
+                         "psroi_align_backward": forwards},
+            "seconds": seconds[1:], "losses": losses,
+            "moved": sum(moved), "params": len(moved)}
+
+
+def train_step_capture(cfg, device, dtype, batch, priorities) -> dict:
+    """One train step of ``cfg``'s seeded model on ``device`` in ``dtype``.
+    Returns the metrics, each thin-map parameter's gradient and update, and
+    what PSROIAlign's backward took and gave in that step: the proposals,
+    autograd's upstream gradient (the pooled features' gradient times the
+    proposal mask) and the thin map's gradient, [B, H, W, k*k*C]."""
+    from x_detector_tpu_torch.train import losses as loss_lib
+    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_train_step)
+    state = create_model_and_state(cfg, device, seed=SEED, dtype=dtype)
+    model, cap = state.model, {}
+
+    def on_thin(mod, inp, out):
+        out.register_hook(
+            lambda g: cap.__setitem__("dfeat", g.permute(0, 2, 3, 1)))
+
+    def on_head(mod, inp):
+        inp[0].register_hook(lambda g: cap.__setitem__("dpooled", g))
+
+    def on_model(mod, inp, out):
+        cap["rois"] = out["proposals"].detach()
+        cap["valid"] = out["proposal_valid"]
+
+    handles = [model.thin_map.register_forward_hook(on_thin),
+               model.roi_head.register_forward_pre_hook(on_head),
+               model.register_forward_hook(on_model)]
+    before = {n: p.detach().clone()
+              for n, p in model.thin_map.named_parameters()}
+    try:
+        _, metrics = make_train_step(model, cfg)(
+            state, {k: v.to(device) for k, v in batch.items()},
+            priorities=loss_lib.RPNPriorities(
+                *(p.to(device) for p in priorities)))
+    finally:
+        for h in handles:
+            h.remove()
+    leaves = {n: (p.grad.cpu(), (p.detach() - before[n]).cpu())
+              for n, p in model.thin_map.named_parameters()}
+    upstream = cap.pop("dpooled") * cap.pop("valid")[..., None, None, None]
+    return dict(cap, upstream=upstream, leaves=leaves,
+                metrics={k: v.item() for k, v in metrics.items()})
+
+
+def train_reference_check(device) -> dict:
+    """Config 4's model at 128 px, batch 2: one train step on ``device``
+    (bf16, kernels) against the CPU in fp32 (plain versions) and, as the
+    control, the CPU in bf16, from the same weights, batch and RPN draws.
+    Holds (1) the thin map's gradient that PSROIAlign's backward gave on
+    ``device`` against the plain backward of what it took there; (2) the
+    loss and (3) the thin-map parameters' gradients and updates against
+    the fp32 CPU step. Returns the readings."""
+    from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
+    from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
+    from x_detector_tpu_torch.ops import anchors as anchor_lib
+    from x_detector_tpu_torch.ops import psroi_align as pa
+    from x_detector_tpu_torch.train import losses as loss_lib
+    cfg = train_config(128, batch_size=2)
+    gen = torch.Generator().manual_seed(SEED)
+    raw = synthetic_batch_device(gen, 2, int(128 * CANVAS_SCALE),
+                                 cfg.data.max_gt_boxes)
+    batch = preprocess_batch_for_train(gen, raw, cfg.data)
+    pri = loss_lib.draw_rpn_priorities(gen, 2, anchor_lib.rpn_anchors(
+        cfg.model.image_size, cfg.model.anchors).shape[0])
+    got = train_step_capture(cfg, device, torch.bfloat16, batch, pri)
+    ref = train_step_capture(cfg, "cpu", torch.float32, batch, pri)
+    ctl = train_step_capture(cfg, "cpu", torch.bfloat16, batch, pri)
+
+    dfeat = got["dfeat"]
+    want = pa.psroi_align_backward_reference(
+        got["upstream"], got["rois"], dfeat.shape[1], dfeat.shape[2],
+        torch.float32, cfg.model.roi_grid)
+    err = (dfeat.float() - want).abs()
+    scale = want.abs().max().item()
+    over = err > B1_BWD_REL_TOL * scale + BF16_STEP * want.abs()
+    if over.any() or not scale > 0:
+        raise AssertionError(
+            f"train 128px: PSROIAlign's backward in the step, "
+            f"{int(over.sum())} elements beyond {B1_BWD_REL_TOL} x scale "
+            f"{scale:.3g} + one bf16 step of the plain backward")
+    readings = {"bwd_err": err.max().item() / scale}
+    log(f"train 128px: PSROIAlign backward in the step vs plain on its "
+        f"inputs: max abs err {err.max().item():.3g} (scale {scale:.3g})")
+
+    def gaps(run):
+        loss = abs(run["metrics"]["total_loss"]
+                   - ref["metrics"]["total_loss"]) / abs(
+            ref["metrics"]["total_loss"])
+        leaf = [0.0, 0.0]
+        for name, pair in ref["leaves"].items():
+            for i, (a, b) in enumerate(zip(run["leaves"][name], pair)):
+                leaf[i] = max(leaf[i], ((a.float() - b).abs().max()
+                                        / b.abs().max()).item())
+        return loss, leaf[0], leaf[1]
+
+    for tag, run in (("card bf16", got), ("control: CPU bf16", ctl)):
+        loss, grad, update = gaps(run)
+        log(f"train 128px, {tag} vs CPU fp32: total_loss gap {loss:.3g}; "
+            f"thin-map leaves, worst gap of the leaf's largest value: "
+            f"gradient {grad:.3g}, update {update:.3g}; " + ", ".join(
+                f"{k} {v:.5g} / {ref['metrics'][k]:.5g}"
+                for k, v in run["metrics"].items()))
+        key = "" if run is got else "control_"
+        readings.update({key + "loss": loss, key + "leaf_grad": grad,
+                         key + "leaf_update": update})
+    if not readings["loss"] <= TRAIN_LOSS_REL_TOL:
+        raise AssertionError(f"train 128px total_loss: relative gap "
+                             f"{readings['loss']:.3g} > {TRAIN_LOSS_REL_TOL}")
+    worst = max(readings["leaf_grad"], readings["leaf_update"])
+    if not worst <= TRAIN_LEAF_REL_TOL:
+        raise AssertionError(f"train 128px thin-map gradient or update: gap "
+                             f"{worst:.3g} > {TRAIN_LEAF_REL_TOL}")
+    return readings
+
+
 def main() -> int:
     smi = phase_device()
     from x_detector_tpu_torch.config import lighthead_xception
@@ -299,8 +563,14 @@ def main() -> int:
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, backbone_fused_sepconv=True))
     torch.cuda.reset_peak_memory_stats()
+    backward = kernel_counters()["psroi_align_backward"]
+    backward.launches = 0
     res = run_slice(cfg, "cuda")
     torch.cuda.synchronize()
+    res["launches"]["psroi_align_backward"] = backward.launches
+    if backward.launches:
+        raise AssertionError(f"inference launched B1's backward "
+                             f"{backward.launches} times")
     n_batches = len(res["seconds"]) + 1
     if res["expected"] != {"fused_sepconv": 14 * n_batches,
                            "psroi_align": n_batches}:
@@ -323,8 +593,44 @@ def main() -> int:
     slice_reference_check(cfg.model, "cuda")
     torch.cuda.synchronize()
 
+    cfg = train_config()
+    torch.cuda.reset_peak_memory_stats()
+    train = run_train(cfg, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(train["seconds"]) + 1
+    if train["expected"] != {"fused_sepconv": 0, "psroi_align": n_steps,
+                             "psroi_align_backward": n_steps}:
+        raise AssertionError(f"config 4 should run B1's forward and backward "
+                             f"once per step and B2 never; the model gives "
+                             f"{train['expected']}")
+    for name, want in train["expected"].items():
+        got = train["launches"][name]
+        if got != want:
+            raise AssertionError(f"{name} launched {got} times on the train "
+                                 f"path, expected {want}")
+    for m in train["losses"]:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite train metrics {m}")
+    if train["moved"] != train["params"]:
+        raise AssertionError(f"only {train['moved']} of {train['params']} "
+                             "parameter tensors changed")
+    secs = train["seconds"]
+    mean = sum(secs) / len(secs)
+    canvas = int(800 * CANVAS_SCALE)
+    total = [round(m["total_loss"], 4) for m in train["losses"]]
+    log(f"train: config 4, batch {BATCH} at 800 px from {canvas} px "
+        f"canvases: launches {train['launches']} over {len(secs) + 1} "
+        f"steps; step times {[round(t * 1e3, 2) for t in secs]} ms, mean "
+        f"{mean * 1e3:.2f} ms = {BATCH / mean:.1f} images/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; total_loss {total}")
+    train_reference_check("cuda")
+    torch.cuda.synchronize()
+
     for k in kernels:
-        k["launches"] = res["launches"][k["name"]]
+        by_path = {"slice": res["launches"][k["name"]],
+                   "train": train["launches"][k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ the JAX suite's conftest:
 """
 
 import dataclasses
+import pathlib
+import sys
 
 import pytest
 
@@ -111,3 +113,97 @@ def test_model_with_kernels_matches_unfused_path(dev):
     for key in ("rpn_cls", "rpn_loc"):
         scale = max(1.0, ref[key].abs().max().item())
         assert (got[key] - ref[key]).abs().max().item() <= 5e-2 * scale, key
+
+
+def _rois(gen, b, r, dev):
+    lo = torch.rand(b, r, 2, generator=gen, device=dev) * 0.8
+    rois = torch.cat([lo, (lo + 0.4 * torch.rand(b, r, 2, generator=gen,
+                                                 device=dev)).clamp(max=1)],
+                     dim=-1)
+    rois[:, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])
+    rois[:, 1] = torch.tensor([0.3, 0.3, 0.3, 0.3])       # zero area
+    rois[:, 2] = torch.tensor([0.999, 0.0, 1.0, 0.001])   # edge sliver
+    return rois.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,r,grid,c,samples", [
+    (2, 13, 17, 300, 7, 10, 2),
+    (1, 50, 50, 1000, 7, 10, 2),        # config 4's map and roi count
+    (2, 9, 5, 40, 3, 3, 1),             # C below the smallest register tile
+    (1, 23, 11, 70, 7, 20, 4),          # C above 16, the most samples
+])
+def test_psroi_backward_kernel_matches_plain(dev, dtype, b, h, w, r, grid,
+                                             c, samples):
+    """The same fp32 products summed in another order (1e-5 of the scale),
+    then one rounding to the features' dtype: a bf16 result may land one
+    bf16 step (2^-7 of the value) the other way."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rois = _rois(gen, b, r, dev)
+    g = _rand(gen, b, r, grid, grid, c)
+    before = P.psroi_align_backward.launches
+    got = P.psroi_align_backward(g, rois, h, w, dtype, grid, samples)
+    ref = P.psroi_align_backward_reference(g, rois, h, w, dtype, grid,
+                                           samples)
+    torch.cuda.synchronize()
+    assert P.psroi_align_backward.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, w, grid * grid * c)
+    scale = max(1.0, ref.float().abs().max().item())
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    bound = 1e-5 * scale + step * ref.float().abs()
+    assert ((got.float() - ref.float()).abs() <= bound).all()
+
+
+def test_psroi_backward_kernel_is_bitwise_deterministic(dev):
+    """Two runs on the same inputs give the same bits (no atomics), over
+    more rois than one staged chunk holds."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rois = _rois(gen, 2, 2000, dev)
+    g = _rand(gen, 2, 2000, 7, 7, 10)
+    first = P.psroi_align_backward(g, rois, 50, 50, torch.float32, 7)
+    for _ in range(3):
+        again = P.psroi_align_backward(g, rois, 50, 50, torch.float32, 7)
+        assert torch.equal(first, again)
+
+
+def test_psroi_function_gradcheck_fp32(dev):
+    """``torch.autograd.gradcheck`` of the Function on the card at a tiny
+    fp32 shape. The forward is linear in the features, so central
+    differences are exact but for fp32 rounding of the outputs (~1e-7 of
+    them over eps 1e-2): held to 1e-3; gradcheck's own second backward
+    must give the same bits (nondet_tol 0)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feat = _rand(gen, 1, 5, 4, 18).requires_grad_()
+    rois = _rois(gen, 1, 5, dev)
+    assert torch.autograd.gradcheck(
+        lambda f: P.batched_psroi_align(f, rois, 3, 2), (feat,), eps=1e-2,
+        atol=1e-3, rtol=1e-3, nondet_tol=0.0)
+
+
+def test_psroi_backward_refuses_what_the_kernel_does_not_take(dev):
+    rois = torch.zeros(1, 3, 4, device=dev)
+    with pytest.raises(ValueError, match="C <= 32"):
+        P.psroi_align_backward(torch.zeros(1, 3, 7, 7, 40, device=dev), rois,
+                               8, 8, torch.float32, 7)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        P.psroi_align_backward(torch.zeros(1, 3, 7, 7, 4, device=dev), rois,
+                               8, 8, torch.float16, 7)
+
+
+def test_train_step_on_the_card_goes_through_the_kernels(dev):
+    """chip_smoke's train phase at 64 px, batch 2, on the card: one
+    PSROIAlign forward and backward launch per step, no fused conv."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    cfg = chip_smoke.train_config(64, batch_size=2)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_fused_sepconv=True,
+        backbone_widths=(32, 64, 96, 128), head_dim=64))
+    res = chip_smoke.run_train(cfg, dev, steps=2)
+    assert res["launches"] == res["expected"] == {
+        "fused_sepconv": 0, "psroi_align": 3, "psroi_align_backward": 3}
+    assert res["moved"] == res["params"]

@@ -97,7 +97,8 @@ def test_plain_bf16_rounding_order_matches_jax_kernel():
 def test_module_fused_matches_jax_module(dilation):
     """SeparableConvBN(fused=True) with the residual epilogue, weights
     carried over by from_jax_variables, BN statistics perturbed so the
-    folded affine is non-trivial."""
+    folded affine is non-trivial. Both modules in eval mode, as JAX's
+    ``train=False``: the fused route serves inference only."""
     import jax
     rng = np.random.default_rng(3)
     x = rng.normal(0, 1, (2, 12, 12, 8)).astype(np.float32)
@@ -113,14 +114,14 @@ def test_module_fused_matches_jax_module(dilation):
     ref = np.asarray(jmod.apply(variables, jnp.asarray(x), train=False,
                                 residual=jnp.asarray(res)))
     mod = SeparableConvBN(8, 12, dilation=(dilation, dilation), relu=False,
-                          fused=True, dtype=torch.float32)
+                          fused=True, dtype=torch.float32).eval()
     mod.load_state_dict(from_jax_variables(variables))
     with torch.inference_mode():
         xt = torch.from_numpy(x).permute(0, 3, 1, 2)
         rt = torch.from_numpy(res).permute(0, 3, 1, 2)
         got = mod(xt, residual=rt).permute(0, 2, 3, 1).numpy()
         unfused = SeparableConvBN(8, 12, dilation=(dilation, dilation),
-                                  relu=False, dtype=torch.float32)
+                                  relu=False, dtype=torch.float32).eval()
         unfused.load_state_dict(mod.state_dict())
         got_unfused = unfused(xt, residual=rt).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

@@ -1,5 +1,6 @@
-"""What the PyTorch port may import, its preset tree, its build errors, and a
-tiny CPU rehearsal of chip_smoke.py's slice."""
+"""What the PyTorch port may import, its preset tree, its build errors, its
+kernels' sources, and tiny CPU rehearsals of chip_smoke.py's slice and train
+phases."""
 
 import ast
 import dataclasses
@@ -8,6 +9,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -64,15 +66,20 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         _build.find_nvcc()
 
 
-def test_cpu_rehearsal_of_chip_smoke_slice():
-    """chip_smoke.run_slice at a tiny size on the CPU: the plain versions
-    serve every call, so the kernels' counters stay 0 while the expected
-    counts (what the card must show) follow from the model."""
+def _chip_smoke():
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def test_cpu_rehearsal_of_chip_smoke_slice():
+    """chip_smoke.run_slice at a tiny size on the CPU: the plain versions
+    serve every call, so the kernels' counters stay 0 while the expected
+    counts (what the card must show) follow from the model."""
+    chip_smoke = _chip_smoke()
     cfg = port_config.lighthead_xception(64)
     model = dataclasses.replace(
         cfg.model, backbone_fused_sepconv=True, large_sep_mid=16,
@@ -102,3 +109,68 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_cpu_rehearsal_of_chip_smoke_train():
+    """chip_smoke.run_train at 64 px, batch 2, on the CPU: every call takes
+    a plain version, so the counters stay 0, while the expected counts (one
+    PSROIAlign forward and backward per step; no fused conv, though the
+    model has fused blocks, since training takes the unfused route) follow
+    from the model and the microbatch count; the losses are finite and
+    every parameter moves."""
+    chip_smoke = _chip_smoke()
+    cfg = chip_smoke.train_config(64, batch_size=2)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_fused_sepconv=True, large_sep_mid=16,
+        head_dim=32, backbone_widths=(16, 32, 48, 64),
+        proposals=port_config.ProposalConfig(pre_nms_topk=300,
+                                             post_nms_topk=64, min_size=2.0)))
+    res = chip_smoke.run_train(cfg, "cpu", steps=1)
+    assert res["launches"] == {"fused_sepconv": 0, "psroi_align": 0,
+                               "psroi_align_backward": 0}
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
+                               "psroi_align_backward": 2}
+    assert len(res["seconds"]) == 1 and len(res["losses"]) == 2
+    for metrics in res["losses"]:
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert res["moved"] == res["params"] > 0
+    accum = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, grad_accum_steps=2))
+    assert chip_smoke.run_train(accum, "cpu", steps=0)["expected"] == {
+        "fused_sepconv": 0, "psroi_align": 2, "psroi_align_backward": 2}
+    assert _build.library.cache_info().currsize == 0   # nothing was built
+
+
+def test_cpu_rehearsal_of_chip_smoke_train_check():
+    """chip_smoke.train_reference_check with the CPU in the card's place
+    (bf16, plain versions): the backward taken in the step matches the
+    plain backward of its captured inputs to one bf16 step, and the gaps to
+    fp32 are those of the bf16 control, within the script's limits."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.train_reference_check("cpu")
+    assert res["bwd_err"] <= chip_smoke.BF16_STEP
+    for key in ("loss", "leaf_grad", "leaf_update"):
+        assert res[key] == res["control_" + key]
+    assert res["loss"] <= chip_smoke.TRAIN_LOSS_REL_TOL
+    assert max(res["leaf_grad"], res["leaf_update"]) <= (
+        chip_smoke.TRAIN_LEAF_REL_TOL)
+
+
+def test_chip_smoke_train_check_catches_a_wrong_backward(monkeypatch):
+    """A PSROIAlign backward 2% off in the train step fails the check."""
+    from x_detector_tpu_torch.ops import psroi_align as pa
+    chip_smoke = _chip_smoke()
+    right = pa.psroi_align_backward
+    monkeypatch.setattr(pa, "psroi_align_backward",
+                        lambda *a, **k: right(*a, **k) * 0.98)
+    with pytest.raises(AssertionError, match="PSROIAlign's backward"):
+        chip_smoke.train_reference_check("cpu")
+
+
+def test_kernel_sources_use_no_atomic_add():
+    """The backward gathers by destination: no source may scatter with
+    atomics (the same inputs must give the same bits)."""
+    sources = sorted((ROOT / "x_detector_tpu_torch" / "csrc").glob("*"))
+    assert sources
+    for path in sources:
+        assert "atomicAdd" not in path.read_text(), path.name

@@ -38,6 +38,9 @@ SIGNATURES = {
     # features, rois, out, features_are_bf16,
     # B, H, W, R, grid, C, samples, stream
     "xdt_psroi_align_fwd": [_P] * 3 + [_I] * 8 + [_P],
+    # grad, rois, dfeat, dfeat_is_bf16,
+    # B, H, W, R, grid, C, samples, stream
+    "xdt_psroi_align_bwd": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 

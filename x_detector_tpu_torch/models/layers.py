@@ -1,10 +1,12 @@
-"""Conv building blocks at inference (NCHW in channels_last memory).
+"""Conv building blocks, inference and training (NCHW in channels_last
+memory).
 
 Tensors between blocks are NCHW tensors in ``torch.channels_last`` memory
 format, which is NHWC in memory, so the fused kernel reads them without a
 copy. Numerics follow the JAX package: fp32 parameters rounded to the
-compute ``dtype`` at use (bf16 on the card), and the inference BatchNorm
-folded into one per-channel ``x * inv + bias`` in the compute dtype.
+compute ``dtype`` at use (bf16 on the card), and BatchNorm applied as one
+per-channel ``x * inv + bias`` in the compute dtype, from the running stats
+at inference and from the batch's in training (``module.training``).
 
 Module and parameter names mirror the flax tree (``Conv_0``, ``Conv_1``,
 ``bn``) so that ``utils.convert.from_jax_variables`` maps one onto the other
@@ -23,6 +25,10 @@ from torch import nn
 from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+# Running-stat momentum of BatchNorm, the JAX package's default
+# (x_detector_tpu/models/layers.py:205).
+_BN_MOMENTUM = 0.99
 
 
 def same_pads(size: Sequence[int], kernel: Sequence[int],
@@ -57,8 +63,13 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, pads: Union[str, Pads],
 
 
 class BatchNorm2D(nn.Module):
-    """Inference BatchNorm: running stats fold into ``x * inv + bias``
-    evaluated in the input's dtype, with eps 1e-5."""
+    """BatchNorm with eps 1e-5 as one ``x * inv + bias`` in the input's
+    dtype. At inference ``inv`` and ``bias`` fold the running stats. In
+    training they fold the batch's fp32 statistics over (N, H, W):
+    E[x], E[x^2] and the biased variance max(E[x^2] - E[x]^2, 0), with the
+    gradient flowing through both; the running stats move to
+    ``m * running + (1 - m) * batch`` with m = ``_BN_MOMENTUM``.
+    (``F.batch_norm`` would update with the unbiased variance.)"""
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
@@ -74,7 +85,19 @@ class BatchNorm2D(nn.Module):
         return inv, self.bias - self.running_mean * inv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv, bias = self.folded()
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            inv = self.weight * torch.rsqrt(var + self.epsilon)
+            bias = self.bias - mean * inv
+        else:
+            inv, bias = self.folded()
         return (x * inv.to(x.dtype)[None, :, None, None]
                 + bias.to(x.dtype)[None, :, None, None])
 
@@ -117,9 +140,10 @@ class ConvBN(nn.Module):
 class SeparableConvBN(nn.Module):
     """Depthwise 3x3 -> pointwise 1x1 -> one BatchNorm -> ReLU.
 
-    ``fused=True`` routes stride-1 calls through the fused kernel
-    (``ops/fused_sepconv.py``); stride-2 calls keep the two convs. The
-    parameters are the same either way. ``forward(x, residual)`` is the
+    ``fused=True`` routes stride-1 calls at inference through the fused
+    kernel (``ops/fused_sepconv.py``); training and stride-2 calls keep the
+    two convs. The parameters are the same either way.
+    ``forward(x, residual)`` is the
     Xception unit's epilogue ``relu(bn(x) + residual)`` (the module then has
     ``relu=False``).
     """
@@ -144,12 +168,17 @@ class SeparableConvBN(nn.Module):
         self.Conv_1 = nn.Conv2d(in_features, features, 1, bias=False)
         self.bn = BatchNorm2D(features)
 
+    @property
+    def takes_fused_route(self) -> bool:
+        """Whether ``forward`` now launches the fused kernel."""
+        return self.fused and not self.training and self.strides == (1, 1)
+
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if residual is not None and self.relu:
             raise ValueError("the residual epilogue owns the ReLU: build the "
                              "module with relu=False")
-        if self.fused and self.strides == (1, 1):
+        if self.takes_fused_route:
             scale, bias = self.bn.folded()
             out = fused_separable_conv(
                 x.to(self.dtype).permute(0, 2, 3, 1).contiguous(),

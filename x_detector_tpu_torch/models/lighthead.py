@@ -1,4 +1,4 @@
-"""Light-Head R-CNN (two-stage detector), inference.
+"""Light-Head R-CNN (two-stage detector), inference and training.
 
 The port of ``x_detector_tpu/models/lighthead.py``:
   backbone C4 -> RPN head (objectness 2A + box codes 4A per cell)
@@ -8,7 +8,10 @@ The port of ``x_detector_tpu/models/lighthead.py``:
   PSROIAlign(thin map, proposals, 7x7x10) -> flatten 490 -> FC 2048
       -> sibling FCs: class logits + box codes.
 Public tensors keep the JAX layouts: NHWC images, [B, R, 4] normalized
-boxes, pooled [B, R, k, k, C].
+boxes, pooled [B, R, k, k, C]. ``module.training`` plays JAX's ``train``:
+BatchNorm uses batch statistics and the proposal stage its training budgets.
+Proposals are made from detached RPN outputs, so the RPN trains only through
+its own losses.
 """
 
 from __future__ import annotations
@@ -69,10 +72,13 @@ class RPNHead(nn.Module):
 
 
 def generate_proposals(rpn_cls: torch.Tensor, rpn_loc: torch.Tensor,
-                       anchors: torch.Tensor, cfg, image_size: int
+                       anchors: torch.Tensor, cfg, image_size: int,
+                       training: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Static eval proposal stage: (boxes [B,R,4], scores [B,R],
-    valid [B,R]) with R = ``cfg.post_nms_topk_eval``, by exact greedy NMS."""
+    """Static proposal stage: (boxes [B,R,4], scores [B,R], valid [B,R])
+    with R = ``cfg.post_nms_topk`` (training) or ``cfg.post_nms_topk_eval``
+    from the top ``pre_nms_topk`` (or ``pre_nms_topk_eval``) scores, by
+    exact greedy NMS."""
     if cfg.fast_nms:
         raise NotImplementedError("ProposalConfig.fast_nms (MaxpoolNMS) is "
                                   "ported in a later PR")
@@ -82,10 +88,12 @@ def generate_proposals(rpn_cls: torch.Tensor, rpn_loc: torch.Tensor,
     wh_ok = (((boxes[..., 2] - boxes[..., 0]) >= min_sz)
              & ((boxes[..., 3] - boxes[..., 1]) >= min_sz))
     scores = torch.where(wh_ok, scores, 0.0)
-    k_pre = min(cfg.pre_nms_topk_eval, scores.shape[1])
+    k_pre = min(cfg.pre_nms_topk if training else cfg.pre_nms_topk_eval,
+                scores.shape[1])
+    k_post = cfg.post_nms_topk if training else cfg.post_nms_topk_eval
     top_s, top_i = nms_lib.topk_stable(scores, k_pre)
     top_b = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
-    res = nms_lib.nms_padded(top_b, top_s, cfg.post_nms_topk_eval,
+    res = nms_lib.nms_padded(top_b, top_s, k_post,
                              iou_threshold=cfg.nms_threshold,
                              score_threshold=0.0, presorted=True)
     return res.boxes, res.scores, res.valid
@@ -120,8 +128,8 @@ class RoIHead(nn.Module):
 
 
 class LightHeadRCNN(nn.Module):
-    """The whole two-stage pipeline at inference; returns the same dict of
-    outputs as the JAX model's ``apply(..., train=False)``."""
+    """The whole two-stage pipeline; returns the same dict of outputs as
+    the JAX model's ``apply(..., train=self.training)``."""
 
     def __init__(self, config, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -150,7 +158,8 @@ class LightHeadRCNN(nn.Module):
             raise ValueError(f"RPN grid {rpn_cls.shape[1]} != anchors "
                              f"{self.anchors.shape[0]}")
         props, prop_scores, prop_valid = generate_proposals(
-            rpn_cls, rpn_loc, self.anchors, cfg.proposals, cfg.image_size)
+            rpn_cls.detach(), rpn_loc.detach(), self.anchors, cfg.proposals,
+            cfg.image_size, training=self.training)
         thin = self.thin_map(feats["c5"])                  # [B, 490, h, w]
         # The kernel reads the bf16 map and widens it to fp32 on load: the
         # same values as casting the map to fp32 first, without the copy.

@@ -1,4 +1,4 @@
-"""PSROIAlign: position-sensitive RoI-align pooling (forward).
+"""PSROIAlign: position-sensitive RoI-align pooling, forward and backward.
 
 Semantics (those of ``x_detector_tpu/ops/psroi_align.py``):
   * ``features``: [B, H, W, k*k*C]; channel group g = i*k + j serves bin
@@ -9,9 +9,12 @@ Semantics (those of ``x_detector_tpu/ops/psroi_align.py``):
     ``[0, extent - 1]``, read bilinearly and averaged.
   * Output: [B, R, k, k, C] float32.
 
-``batched_psroi_align`` launches the CUDA kernel ``csrc/psroi_align.cu`` on
-CUDA tensors and runs the plain gather version ``psroi_align_reference`` on
-CPU tensors.
+``batched_psroi_align`` goes through ``PSROIAlignFunction``: on CUDA tensors
+its forward and backward launch the kernels of ``csrc/psroi_align.cu``; on
+CPU tensors they run the plain versions ``psroi_align_reference`` (a
+gather) and ``psroi_align_backward_reference`` (the transposed contractions
+of the JAX package's ``_bwd``). The gradient goes to the features only, in
+their dtype (fp32 sums, one rounding on store); the rois get none.
 """
 
 from __future__ import annotations
@@ -33,6 +36,13 @@ def _sample_coords(rois: torch.Tensor, grid: int, samples: int, extent: int,
            + 0.5) / samples
     norm = lo + (cell + sub) * span
     return (norm * extent - 0.5).clamp(0.0, extent - 1.0)
+
+
+def _interp_weights(coords: torch.Tensor, extent: int) -> torch.Tensor:
+    """[..., k, S] sample coords -> [..., k, extent] triangular weights
+    ``sum_s relu(1 - |p - coord_s|)``."""
+    pix = torch.arange(extent, dtype=coords.dtype, device=coords.device)
+    return (1.0 - (pix - coords[..., None]).abs()).clamp_min(0.0).sum(-2)
 
 
 def psroi_align_reference(features: torch.Tensor, rois: torch.Tensor,
@@ -68,11 +78,8 @@ def psroi_align_reference(features: torch.Tensor, rois: torch.Tensor,
     return acc.mean(dim=(3, 5))                          # [B, R, k, k, C]
 
 
-def batched_psroi_align(features: torch.Tensor, rois: torch.Tensor,
-                        grid: int = 7, samples: int = 2) -> torch.Tensor:
-    """[B, H, W, k*k*C] (bf16 or fp32) x [B, R, 4] fp32 -> [B, R, k, k, C]
-    fp32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which reads bf16 or fp32 features and accumulates in fp32."""
+def _forward(features: torch.Tensor, rois: torch.Tensor, grid: int,
+             samples: int) -> torch.Tensor:
     if features.device.type == "cpu":
         return psroi_align_reference(features, rois, grid, samples)
     if features.device.type != "cuda" or rois.device != features.device:
@@ -109,4 +116,99 @@ def batched_psroi_align(features: torch.Tensor, rois: torch.Tensor,
     return out
 
 
+def psroi_align_backward_reference(grad: torch.Tensor, rois: torch.Tensor,
+                                   height: int, width: int,
+                                   dtype: torch.dtype, grid: int = 7,
+                                   samples: int = 2) -> torch.Tensor:
+    """Plain backward: upstream [B, R, k, k, C] x rois [B, R, 4] -> the
+    features' gradient [B, H, W, k*k*C] in ``dtype``, as the JAX package's
+    ``_bwd`` computes it: ``sum_r wy[r,i,p] * (g[r,i,j,c] * wx[r,j,q])``
+    in fp32, times 1/S^2, one rounding to ``dtype``."""
+    b, r, k, _, c = grad.shape
+    rois = rois.float()
+    wy = _interp_weights(_sample_coords(rois, grid, samples, height, 0, 2),
+                         height)                            # [B, R, k, H]
+    wx = _interp_weights(_sample_coords(rois, grid, samples, width, 1, 3),
+                         width)                             # [B, R, k, W]
+    gw2 = torch.einsum("brijc,brjq->brijqc", grad.float(), wx)
+    dfeat = torch.einsum("brip,brijqc->bpqijc", wy, gw2) * (
+        1.0 / float(samples * samples))
+    return dfeat.reshape(b, height, width, k * k * c).to(dtype)
+
+
+def psroi_align_backward(grad: torch.Tensor, rois: torch.Tensor,
+                         height: int, width: int, dtype: torch.dtype,
+                         grid: int = 7, samples: int = 2) -> torch.Tensor:
+    """The features' gradient [B, H, W, k*k*C] in ``dtype`` (bf16 or fp32)
+    from the upstream gradient [B, R, k, k, C]. CPU tensors take the plain
+    version; CUDA tensors launch the deterministic gather kernel (fp32
+    sums in roi order, one rounding on store, no atomics)."""
+    if grad.device.type == "cpu":
+        return psroi_align_backward_reference(grad, rois, height, width,
+                                              dtype, grid, samples)
+    if grad.device.type != "cuda" or rois.device != grad.device:
+        raise ValueError(f"psroi_align_backward: grad on {grad.device}, "
+                         f"rois on {rois.device}; need one CUDA device")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the features' dtype must be bf16 or fp32, got "
+                        f"{dtype}")
+    b, r = rois.shape[:2]
+    c = grad.shape[-1]
+    grad = grad.float().contiguous()
+    if grad.shape != (b, r, grid, grid, c) or rois.dtype != torch.float32:
+        raise ValueError(f"grad {tuple(grad.shape)} / rois "
+                         f"{tuple(rois.shape)} {rois.dtype} do not fit")
+    if c > 32 or samples > 4:
+        raise ValueError(f"the backward kernel takes C <= 32 and samples "
+                         f"<= 4, got C={c}, samples={samples}")
+    out = torch.empty((b, height, width, grid * grid * c), dtype=dtype,
+                      device=grad.device)
+    if out.numel() == 0:
+        return out
+    if r == 0:
+        return out.zero_()
+    rois = rois.contiguous()
+    lib = _build.library()
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xdt_psroi_align_bwd(
+            grad.data_ptr(), rois.data_ptr(), out.data_ptr(),
+            int(dtype == torch.bfloat16), b, height, width, r, grid, c,
+            samples, stream)
+    _build.check(err, "psroi_align_backward")
+    psroi_align_backward.launches += 1
+    return out
+
+
+class PSROIAlignFunction(torch.autograd.Function):
+    """PSROIAlign with its hand backward (the port of the JAX package's
+    ``custom_vjp``): the gradient flows to the features only."""
+
+    @staticmethod
+    def forward(ctx, features, rois, grid: int, samples: int):
+        ctx.save_for_backward(rois)
+        ctx.shape = features.shape
+        ctx.dtype = features.dtype
+        ctx.grid, ctx.samples = grid, samples
+        return _forward(features, rois, grid, samples)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, = ctx.saved_tensors
+        _, h, w, _ = ctx.shape
+        dfeat = psroi_align_backward(grad, rois, h, w, ctx.dtype, ctx.grid,
+                                     ctx.samples)
+        return dfeat, None, None, None
+
+
+def batched_psroi_align(features: torch.Tensor, rois: torch.Tensor,
+                        grid: int = 7, samples: int = 2) -> torch.Tensor:
+    """[B, H, W, k*k*C] (bf16 or fp32) x [B, R, 4] fp32 -> [B, R, k, k, C]
+    fp32, differentiable in ``features``. CPU tensors take the plain
+    versions; CUDA tensors launch the kernels, which read bf16 or fp32
+    features and accumulate in fp32."""
+    return PSROIAlignFunction.apply(features, rois, grid, samples)
+
+
 batched_psroi_align.launches = 0
+psroi_align_backward.launches = 0

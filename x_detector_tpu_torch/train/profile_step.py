@@ -1,0 +1,257 @@
+"""Where config 4's train step spends its time on one CUDA card.
+
+    python -m x_detector_tpu_torch.train.profile_step
+
+Config 4 is ``lighthead_xception(800)`` training at batch 16 with no warmup,
+on synthetic batches made on the card on 960 px canvases. After two warm-up
+steps the script prints the card's name and power limit (``nvidia-smi``),
+then:
+
+  1. six host-clock step times, one synchronize per step, and peak memory;
+  2. each stage's wall time, with a synchronize at every stage edge;
+  3. from ``torch.profiler`` over two such staged steps: each stage's kernel
+     time, the device's idle share inside it and its largest kernel
+     families;
+  4. from ``torch.profiler`` over two whole steps without stage edges: the
+     device's idle share of the window and the share of PSROIAlign's
+     forward and backward kernels (B1).
+
+Every number is per step. The Chrome traces are written to ``build/``
+(git-ignored) under the working directory.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import pathlib
+import subprocess
+import time
+from typing import Dict, Iterable, List, Tuple
+
+import torch
+
+STAGE = "stage:"
+# Kernel families by substrings of the kernel's name, first match wins.
+FAMILIES = (
+    ("psroi", ("psroi",)),
+    ("conv", ("conv", "xmma", "cudnn", "cutlass", "implicit", "sm90_",
+              "nhwc", "dgrad", "wgrad")),
+    ("gemm", ("gemm",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reduce", ("reduce",)),
+    ("sort/topk", ("sort", "topk", "radix")),
+)
+FORWARD_PARTS = ("backbone", "rpn", "thin_map", "roi_head")
+TIMED_STEPS = 6
+OUT_DIR = pathlib.Path("build")
+
+
+def family(kernel_name: str) -> str:
+    low = kernel_name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def union_length(intervals: Iterable[Tuple[float, float]]) -> float:
+    """Total length covered by the (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def device_events(trace: List[dict]) -> List[dict]:
+    return [e for e in trace if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def stage_breakdown(trace: List[dict]) -> Dict[str, dict]:
+    """Per stage range (``record_function("stage:<name>")``): its own time
+    (children's ranges taken out), the union of the device work whose
+    midpoint falls in it and in none of its children, and that work's
+    kernel time by family, all in microseconds."""
+    ranges = [e for e in trace if e.get("ph") == "X" and e.get("cat") ==
+              "user_annotation" and str(e.get("name", "")).startswith(STAGE)]
+    inside = lambda c, r: c is not r and r["ts"] <= c["ts"] and (
+        c["ts"] + c["dur"] <= r["ts"] + r["dur"])
+    out: Dict[str, dict] = {}
+    for r in ranges:
+        kids = [c for c in ranges if inside(c, r)]
+        own = r["dur"] - sum(c["dur"] for c in kids if not any(
+            inside(c, k) for k in kids))
+        row = out.setdefault(r["name"][len(STAGE):],
+                             {"own": 0.0, "spans": [], "families": {}})
+        row["own"] += own
+    for ev in device_events(trace):
+        mid = ev["ts"] + ev["dur"] / 2
+        inner = [r for r in ranges if r["ts"] <= mid <= r["ts"] + r["dur"]]
+        if not inner:
+            continue
+        row = out[min(inner, key=lambda r: r["dur"])["name"][len(STAGE):]]
+        row["spans"].append((ev["ts"], ev["ts"] + ev["dur"]))
+        if ev["cat"] == "kernel":
+            fam = family(ev["name"])
+            row["families"][fam] = row["families"].get(fam, 0.0) + ev["dur"]
+    for row in out.values():
+        row["busy"] = union_length(row.pop("spans"))
+    return out
+
+
+@contextlib.contextmanager
+def staged(model, names: Dict[str, float]):
+    """Wrap the forward's parts and the proposal and PSROIAlign calls of
+    the Light-Head module so each runs between two synchronizes inside a
+    ``stage:`` range, adding its wall ms to ``names``; undone on exit."""
+    from x_detector_tpu_torch.models import lighthead
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(STAGE + name):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            names[name] = names.get(name, 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    saved = (lighthead.generate_proposals, lighthead.batched_psroi_align)
+    for part in FORWARD_PARTS:
+        sub = getattr(model, part)
+        sub.forward = timed("forward " + part, sub.forward)
+    lighthead.generate_proposals = timed("proposals + NMS", saved[0])
+    lighthead.batched_psroi_align = timed("psroi_align forward", saved[1])
+    try:
+        yield timed
+    finally:
+        for part in FORWARD_PARTS:
+            del getattr(model, part).forward
+        lighthead.generate_proposals, lighthead.batched_psroi_align = saved
+
+
+def main() -> None:
+    from x_detector_tpu_torch.config import lighthead_xception
+    from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
+    from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
+    from x_detector_tpu_torch.train import losses as loss_lib
+    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_lighthead_loss_fn,
+                                                    make_train_step)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda")
+    cfg = lighthead_xception(800)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=16, warmup_steps=0))
+    batch_size, canvas = cfg.train.batch_size, int(800 * 1.2)
+    state = create_model_and_state(cfg, dev, seed=0)
+    model = state.model
+    step = make_train_step(model, cfg)
+    loss_fn = make_lighthead_loss_fn(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def new_batch():
+        raw = synthetic_batch_device(gen, batch_size, canvas,
+                                     cfg.data.max_gt_boxes)
+        return preprocess_batch_for_train(gen, raw, cfg.data)
+
+    for _ in range(2):
+        step(state, new_batch(), gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(state, new_batch(), gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    mean = sum(times) / len(times)
+    print(f"1. step ms {[round(t, 2) for t in times]}, mean {mean:.2f} = "
+          f"{batch_size * 1e3 / mean:.1f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    def staged_steps(n, wall):
+        with staged(model, wall) as timed:
+            for _ in range(n):
+                raw = timed("data", synthetic_batch_device)(
+                    gen, batch_size, canvas, cfg.data.max_gt_boxes)
+                batch = timed("augment", preprocess_batch_for_train)(
+                    gen, raw, cfg.data)
+                pri = loss_lib.draw_rpn_priorities(gen, batch_size,
+                                                   model.anchors.shape[0])
+                model.zero_grad(set_to_none=True)
+                total, _, _ = timed("targets + losses", loss_fn)(batch, pri)
+                timed("backward", total.backward)()
+                timed("optimizer", state.apply_gradients)()
+
+    n = 2
+    wall: Dict[str, float] = {}
+    staged_steps(n, wall)
+    wall["targets + losses"] -= sum(
+        v for k, v in wall.items() if k.startswith("forward ")
+        or k in ("proposals + NMS", "psroi_align forward"))
+    print("2. stage wall ms, synchronized edges: " + json.dumps(
+        {k: round(v / n, 2) for k, v in sorted(
+            wall.items(), key=lambda kv: -kv[1])})
+        + f"; sum {sum(wall.values()) / n:.2f}", flush=True)
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        staged_steps(n, {})
+    path = OUT_DIR / "train_stages_trace.json"
+    prof.export_chrome_trace(str(path))
+    rows = stage_breakdown(json.loads(path.read_text())["traceEvents"])
+    if not any(r["busy"] for r in rows.values()):
+        raise SystemExit("the profiler recorded no device work")
+    print("3. per stage, profiled: kernel ms, idle share, families (ms)")
+    for name, row in sorted(rows.items(), key=lambda kv: -kv[1]["own"]):
+        fams = {f: round(us / n / 1e3, 2) for f, us in sorted(
+            row["families"].items(), key=lambda kv: -kv[1])}
+        print(f"   {name:22s} {sum(row['families'].values()) / n / 1e3:8.2f}"
+              f" {1 - row['busy'] / row['own'] if row['own'] else 0:7.3f}  "
+              f"{json.dumps(fams)}", flush=True)
+
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(n):
+            with torch.profiler.record_function("train_step"):
+                step(state, new_batch(), gen)
+                torch.cuda.synchronize()
+    path = OUT_DIR / "train_steps_trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())["traceEvents"]
+    marks = [e for e in trace if e.get("ph") == "X" and e.get("cat") ==
+             "user_annotation" and e.get("name") == "train_step"]
+    w0 = min(e["ts"] for e in marks)
+    w1 = max(e["ts"] + e["dur"] for e in marks)
+    dev_ev = device_events(trace)
+    busy = union_length((max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
+                        for e in dev_ev if e["ts"] + e["dur"] > w0
+                        and e["ts"] < w1)
+    kernels = [e for e in dev_ev if e["cat"] == "kernel"]
+    k_total = sum(e["dur"] for e in kernels)
+    b1 = sum(e["dur"] for e in kernels if family(e["name"]) == "psroi")
+    print(f"4. whole steps, profiled: window {(w1 - w0) / n / 1e3:.2f} ms, "
+          f"device busy {busy / n / 1e3:.2f} ms, idle share "
+          f"{1 - busy / (w1 - w0):.4f}; kernels {k_total / n / 1e3:.2f} ms,"
+          f" of which B1 forward + backward {b1 / n / 1e3:.3f} ms "
+          f"({100 * b1 / k_total:.2f}% of kernel time)", flush=True)
+
+
+if __name__ == "__main__":
+    main()
