@@ -11,7 +11,9 @@ Phases; each raises on failure and the script then exits non-zero:
                 at the shapes its main path gives it (config 3 for the
                 forward kernels, config 4 for PSROIAlign's backward, which
                 must also give the same bits twice), with the tolerance
-                stated; both timed with CUDA events.
+                stated; both timed with CUDA events, beside each kernel's
+                bound (utils/roofline.py) and, for B2, its first design
+                (the "wmma" route) and the unfused cuDNN pair as yardsticks.
   4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
                 the fused separable conv) from seeded uint8 images through
                 build_eval_fn, batches of 16: launch counts, detection
@@ -42,6 +44,8 @@ import sys
 import time
 
 import torch
+
+from x_detector_tpu_torch.utils import roofline
 
 SEED = 0
 BATCH = 16
@@ -131,8 +135,10 @@ def phase_build() -> float:
     log(f"build: {lib} in {seconds:.1f} s")
     # ptxas's summary per kernel: registers, shared memory, spills
     for line in (lib.parent / _build.LOG_NAME).read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            log("  " + line.split("info    : ")[-1])
+        if "Compiling entry function" in line:
+            log("  " + line.split("entry function ")[-1].split(" for ")[0])
+        elif "Used" in line or "spill" in line:
+            log("    " + line.split("info    : ")[-1].strip())
     return seconds
 
 
@@ -145,7 +151,8 @@ def phase_kernels() -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
 
-    b2_err, b2_ms, b2_plain_ms = 0.0, 0.0, 0.0
+    b2 = dict.fromkeys(("ms", "wmma_ms", "plain_ms", "cudnn_ms", "bound_ms",
+                        "bytes_bound_ms", "err"), 0.0)
     for h, w, cin, cout, d, n_plain, n_res in B2_SHAPES:
         x = randn(BATCH, h, w, cin).to(torch.bfloat16)
         wd = randn(3, 3, cin) / 3.0
@@ -153,31 +160,57 @@ def phase_kernels() -> list:
         scale = 1.0 + 0.1 * randn(cout)
         bias = 0.1 * randn(cout)
         res = randn(BATCH, h, w, cout).to(torch.bfloat16)
+        ops = {route: fs.prepare_weights(wd, wp, scale, bias, route=route)
+               for route in fs.ROUTES}
         for residual, calls in ((None, n_plain), (res, n_res)):
             if not calls:
                 continue
             kw = dict(dilation=d, relu=True, residual=residual)
-            got = fs.fused_separable_conv(x, wd, wp, scale, bias, **kw)
-            ref = fs.reference_separable_conv(x, wd, wp, scale, bias, **kw)
-            torch.cuda.synchronize()
-            err, sc = max_rel_err(got, ref)
             tag = (f"B2 fused_sepconv {h}x{w} {cin}->{cout} d={d} "
                    f"residual={residual is not None}")
-            if not err <= B2_REL_TOL * sc:
-                raise AssertionError(f"{tag}: max abs err {err:.3g} > "
-                                     f"{B2_REL_TOL} x scale {sc:.3g}")
-            ms = cuda_ms(lambda: fs.fused_separable_conv(x, wd, wp, scale,
-                                                         bias, **kw))
+            before = dict(fs.fused_separable_conv.route_launches)
+            got = fs.fused_separable_conv(x, wd, wp, scale, bias, **kw)
+            if fs.fused_separable_conv.route_launches["tma"] != (
+                    before["tma"] + 1):
+                raise AssertionError(f"{tag}: did not take the tma route")
+            ref = fs.reference_separable_conv(x, wd, wp, scale, bias, **kw)
+            old = fs.fused_separable_conv_prepared(x, ops["wmma"], **kw)
+            torch.cuda.synchronize()
+            err, sc = max_rel_err(got, ref)
+            old_err, _ = max_rel_err(old, ref)
+            if not max(err, old_err) <= B2_REL_TOL * sc:
+                raise AssertionError(f"{tag}: max abs err {err:.3g} (wmma "
+                                     f"route {old_err:.3g}) > {B2_REL_TOL} x "
+                                     f"scale {sc:.3g}")
+            ms = cuda_ms(lambda: fs.fused_separable_conv_prepared(
+                x, ops["tma"], **kw))
+            old_ms = cuda_ms(lambda: fs.fused_separable_conv_prepared(
+                x, ops["wmma"], **kw))
             plain = cuda_ms(lambda: fs.reference_separable_conv(
                 x, wd, wp, scale, bias, **kw))
+            cudnn = cuda_ms(unfused_cudnn(x, wd, wp, scale, bias, **kw))
+            bound, by = fs.bound_ms(BATCH, h, w, cin, cout,
+                                    residual is not None)
             flop = 2.0 * BATCH * h * w * cin * (9 + cout)
             log(f"{tag}: max abs err {err:.3g} (scale {sc:.3g}); kernel "
-                f"{ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
-                f"{plain:.3f} ms; x{calls} per batch")
-            b2_err = max(b2_err, err)
-            b2_ms += calls * ms
-            b2_plain_ms += calls * plain
-            del got, ref
+                f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), bound "
+                f"{bound:.4f} ms ({by}), {bound / ms:.1%} of it; first "
+                f"design (wmma route) {old_ms:.4f} ms; plain {plain:.4f} ms; "
+                f"yardstick, unfused cuDNN pair + epilogue (several calls, "
+                f"not used by the port) {cudnn:.4f} ms; x{calls} per batch")
+            for key, v in (("ms", ms), ("wmma_ms", old_ms),
+                           ("plain_ms", plain), ("cudnn_ms", cudnn),
+                           ("bound_ms", bound)):
+                b2[key] += calls * v
+            if by == "bytes":
+                b2["bytes_bound_ms"] += calls * bound
+            b2["err"] = max(b2["err"], err)
+            del got, ref, old
+    log(f"B2 per batch of config 3 (14 calls): kernel {b2['ms']:.4f} ms, "
+        f"first design (wmma route) {b2['wmma_ms']:.4f} ms, plain "
+        f"{b2['plain_ms']:.4f} ms, unfused cuDNN yardstick "
+        f"{b2['cudnn_ms']:.4f} ms, bound {b2['bound_ms']:.4f} ms "
+        f"({b2['bound_ms'] / b2['ms']:.1%} of it)")
 
     grid, c, size, r = 7, 10, 50, 512
     feat = randn(BATCH, size, size, grid * grid * c).to(torch.bfloat16)
@@ -191,9 +224,12 @@ def phase_kernels() -> list:
                              f"{B1_REL_TOL} x scale {sc:.3g}")
     b1_ms = cuda_ms(lambda: pa.batched_psroi_align(feat, rois, grid))
     b1_plain_ms = cuda_ms(lambda: pa.psroi_align_reference(feat, rois, grid))
+    b1_bound = psroi_bound(feat, rois)
     log(f"B1 psroi_align [{BATCH},{size},{size},{grid * grid * c}] bf16 x "
         f"[{BATCH},{r},4]: max abs err {b1_err:.3g} (scale {sc:.3g}); kernel "
-        f"{b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms; x1 per batch")
+        f"{b1_ms:.4f} ms, bound {b1_bound[0]:.4f} ms ({b1_bound[1]}), "
+        f"{b1_bound[0] / b1_ms:.1%} of it; plain {b1_plain_ms:.4f} ms; "
+        f"x1 per batch")
 
     # B1 at config 4: 1000 training proposals per image, forward and backward
     r = 1000
@@ -209,7 +245,8 @@ def phase_kernels() -> list:
     fwd_ms = cuda_ms(lambda: pa.batched_psroi_align(feat, rois, grid))
     log(f"B1 psroi_align [{BATCH},{size},{size},{grid * grid * c}] bf16 x "
         f"[{BATCH},{r},4]: max abs err {err:.3g} (scale {sc:.3g}); kernel "
-        f"{fwd_ms:.3f} ms; x1 per train step")
+        f"{fwd_ms:.4f} ms, bound "
+        f"{psroi_bound(feat, rois)[0]:.4f} ms; x1 per train step")
     g = randn(BATCH, r, grid, grid, c)
     bwd = lambda: pa.psroi_align_backward(g, rois, size, size,
                                           torch.bfloat16, grid)
@@ -231,24 +268,77 @@ def phase_kernels() -> list:
     bwd_ms = cuda_ms(bwd)
     bwd_plain_ms = cuda_ms(lambda: pa.psroi_align_backward_reference(
         g, rois, size, size, torch.bfloat16, grid))
+    bwd_bound = psroi_bound(feat, rois)
     log(f"B1 psroi_align_backward [{BATCH},{r},{grid},{grid},{c}] fp32 -> "
         f"[{BATCH},{size},{size},{grid * grid * c}] bf16: max abs err "
         f"{bwd_err:.3g} (scale {sc:.3g}), bitwise equal on a second run; "
-        f"kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms; x1 per step")
+        f"kernel {bwd_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms "
+        f"({bwd_bound[1]}), {bwd_bound[0] / bwd_ms:.1%} of it; plain "
+        f"{bwd_plain_ms:.4f} ms; x1 per step")
+    # B2's 14 calls mix bytes-bound and operations-bound shapes: bound_by
+    # names the resource behind the larger part of their summed bound
+    b2_by = ("bytes" if b2["bytes_bound_ms"] * 2 >= b2["bound_ms"]
+             else "operations")
     return [
         {"name": "fused_sepconv", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/fused_sepconv.cu",
          "replaces": "x_detector_tpu/ops/pallas/fused_sepconv.py:120",
-         "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms},
+         "max_abs_err": b2["err"], "ms": b2["ms"],
+         "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
+         "bound_by": b2_by, "library_ms": None,
+         "previous_design_ms": b2["wmma_ms"],
+         "unfused_cudnn_yardstick_ms": b2["cudnn_ms"]},
         {"name": "psroi_align", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
          "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:72",
-         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms},
+         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain_ms,
+         "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
+         "library_ms": None},
         {"name": "psroi_align_backward", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
          "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:169",
-         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms},
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+         "library_ms": None},
     ]
+
+
+def psroi_bound(feat, rois, samples: int = 2):
+    """roofline.bound_ms's pair for PSROIAlign at these shapes, forward or
+    backward: per fp32 bin, samples^2 bilinear points of 4 fp32
+    multiply-adds; the map (in or out) and the fp32 bins (out or in) each
+    move once, and the rois are read once."""
+    bins = rois.shape[0] * rois.shape[1] * feat.shape[-1]
+    return roofline.bound_ms(
+        bins * samples * samples * 4 * 2.0,
+        feat.numel() * feat.element_size() + rois.numel() * 4 + bins * 4,
+        roofline.FP32_FLOP_PER_S)
+
+
+def unfused_cudnn(x, wd, wp, scale, bias, *, dilation, relu, residual):
+    """The yardstick for B2: the model's unfused route at one shape, bf16
+    channels_last depthwise F.conv2d, then the 1x1 F.conv2d, then the
+    folded BN, the residual and the ReLU: several calls, which the port
+    does not take on this route. Returns a function of no arguments."""
+    import torch.nn.functional as F
+    cin, cout = wp.shape
+    d = int(dilation)
+    xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW
+    wdc = wd.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    wpc = wp.t()[:, :, None, None].to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    sc = scale.to(torch.bfloat16)[None, :, None, None]
+    bi = bias.to(torch.bfloat16)[None, :, None, None]
+    res = None if residual is None else residual.permute(0, 3, 1, 2)
+
+    def run():
+        y = F.conv2d(F.conv2d(xc, wdc, padding=d, dilation=d, groups=cin),
+                     wpc) * sc + bi
+        if res is not None:
+            y = y + res
+        return F.relu(y) if relu else y
+    return run
 
 
 def config_rois(gen, batch: int, r: int, dev) -> torch.Tensor:
@@ -305,11 +395,12 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
               batch_size: int = BATCH, seed: int = SEED) -> dict:
     """Drive the main path: seeded uint8 images -> preprocess_for_eval ->
     build_eval_fn, one warm-up batch then ``batches`` timed ones. Returns
-    the kernels' launch counts over all of them, what they should be, the
-    timed seconds per batch and the detections of the last batch."""
+    the kernels' launch counts over all of them (and B2's by route), what
+    they should be, the timed seconds per batch and the detections of the
+    last batch."""
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
     from x_detector_tpu_torch.inference import build_eval_fn
-    from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
+    from x_detector_tpu_torch.ops import fused_sepconv as fs
     from x_detector_tpu_torch.ops.psroi_align import batched_psroi_align
     device = torch.device(device)
     model = slice_model(cfg.model, device, seed)
@@ -323,7 +414,7 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     sync = (lambda: torch.cuda.synchronize(device)) if (
         device.type == "cuda") else (lambda: None)
     sync()
-    fused_separable_conv.launches = 0
+    fs.reset_launches()
     batched_psroi_align.launches = 0
     seconds = []
     for u8 in images:
@@ -332,9 +423,10 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
         sync()
         seconds.append(time.perf_counter() - t0)
         check_detections(*det, batch_size, cfg.model.nms.max_output)
-    launches = {"fused_sepconv": fused_separable_conv.launches,
+    launches = {"fused_sepconv": fs.fused_separable_conv.launches,
                 "psroi_align": batched_psroi_align.launches}
     return {"launches": launches,
+            "routes": dict(fs.fused_separable_conv.route_launches),
             "expected": {"fused_sepconv": fused_per_batch * len(images),
                          "psroi_align": len(images)},
             "seconds": seconds[1:], "detections": det}
@@ -581,11 +673,15 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"{name} launched {got} times on the main "
                                  f"path, expected {want}")
+    if res["routes"] != {"tma": 14 * n_batches, "wmma": 0}:
+        raise AssertionError(f"all 14 B2 calls per batch must take the tma "
+                             f"route; the routes were {res['routes']}")
     secs = res["seconds"]
     mean = sum(secs) / len(secs)
     n_valid = int(res["detections"][3].sum().item())
     log(f"slice: config 3, batch {BATCH} at 800 px, fused sepconv: "
-        f"launches {res['launches']} over {n_batches} batches; batch "
+        f"launches {res['launches']} (B2 by route {res['routes']}) over "
+        f"{n_batches} batches; batch "
         f"times {[round(s * 1e3, 2) for s in secs]} ms, mean "
         f"{mean * 1e3:.2f} ms = {BATCH / mean:.1f} images/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
@@ -626,6 +722,7 @@ def main() -> int:
     train_reference_check("cuda")
     torch.cuda.synchronize()
 
+    res["launches"]["fused_sepconv"] = res["routes"]["tma"]
     for k in kernels:
         by_path = {"slice": res["launches"][k["name"]],
                    "train": train["launches"][k["name"]]}

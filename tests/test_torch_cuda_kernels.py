@@ -37,30 +37,93 @@ def _rand(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * scale
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout,d,res", [
-    (2, 16, 11, 8, 16, 1, False),       # Cin, Cout below one tile
-    (1, 7, 5, 40, 130, 2, True),        # odd H/W, ragged Cin and Cout
-    (2, 9, 9, 64, 256, 2, True),
-    (1, 1, 1, 32, 128, 1, False),       # every tap but the centre is padding
-])
-def test_fused_sepconv_kernel_matches_plain(dev, b, h, w, cin, cout, d, res):
-    """bf16 output: one bf16 step (2^-8 relative) apart at most, from fp32
-    sums taken in another order; held to 1e-2 of the output's scale."""
-    gen = torch.Generator(device=dev).manual_seed(0)
+def _sepconv_args(gen, b, h, w, cin, cout, d, res):
     x = _rand(gen, b, h, w, cin).bfloat16()
     args = (x, _rand(gen, 3, 3, cin, scale=0.3),
             _rand(gen, cin, cout, scale=cin ** -0.5),
             1.0 + _rand(gen, cout, scale=0.1), _rand(gen, cout, scale=0.1))
     kw = dict(dilation=d, relu=True,
               residual=_rand(gen, b, h, w, cout).bfloat16() if res else None)
+    return args, kw
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,d,res", [
+    (2, 16, 11, 8, 16, 1, False),       # Cin, Cout below one chunk / slice
+    (1, 7, 5, 40, 130, 2, True),        # odd H/W, Cout % 8 != 0: wmma route
+    (2, 9, 9, 64, 256, 2, True),
+    (1, 1, 1, 32, 128, 1, False),       # every tap but the centre is padding
+    # config 3's shape families, at batch 1-2
+    (1, 200, 200, 128, 128, 1, False),
+    (1, 200, 200, 128, 128, 1, True),
+    (1, 100, 100, 256, 256, 1, False),
+    (1, 100, 100, 256, 256, 1, True),
+    (2, 50, 50, 512, 512, 1, False),
+    (2, 50, 50, 512, 512, 1, True),
+    (1, 50, 50, 512, 1024, 2, False),
+    (1, 50, 50, 1024, 1024, 2, False),
+    (1, 50, 50, 1024, 1024, 2, True),
+    (1, 37, 53, 64, 96, 1, True),       # tiles ragged in H and W and Cout
+    (2, 13, 29, 72, 24, 2, False),      # halos across both images' edges
+    (1, 20, 20, 1536, 256, 1, True),    # Cin above the wmma route's 1088
+])
+def test_fused_sepconv_kernel_matches_plain(dev, b, h, w, cin, cout, d, res):
+    """bf16 output: one bf16 step (2^-8 relative) apart at most, from fp32
+    sums taken in another order; held to 1e-2 of the output's scale. Each
+    call takes the route its channel counts give."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args, kw = _sepconv_args(gen, b, h, w, cin, cout, d, res)
+    route = F.route_for(cin, cout)
     before = F.fused_separable_conv.launches
+    by_route = dict(F.fused_separable_conv.route_launches)
     got = F.fused_separable_conv(*args, **kw)
     ref = F.reference_separable_conv(*args, **kw)
     torch.cuda.synchronize()
     assert F.fused_separable_conv.launches == before + 1
+    assert F.fused_separable_conv.route_launches[route] == by_route[route] + 1
     assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, cout)
     scale = max(1.0, ref.float().abs().max().item())
     assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+
+
+def test_fused_sepconv_ragged_shapes_are_ragged(dev):
+    """The plans behind the ragged cases above do leave partial tiles."""
+    p = F.plan_launch(1, 37, 53, 64, 96, 1, 132)
+    assert 37 % p.th and 53 % p.tw and 96 % F.BN
+    p = F.plan_launch(2, 13, 29, 72, 24, 2, 132)
+    assert 13 % p.th or 29 % p.tw
+
+
+def test_fused_sepconv_wmma_route_matches_plain_at_a_config_shape(dev):
+    """The first design, asked for explicitly, at stage 3's shape."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    args, kw = _sepconv_args(gen, 2, 50, 50, 512, 512, 1, True)
+    before = F.fused_separable_conv.route_launches["wmma"]
+    got = F.fused_separable_conv_prepared(
+        args[0], F.prepare_weights(*args[1:], route="wmma"), **kw)
+    ref = F.reference_separable_conv(*args, **kw)
+    torch.cuda.synchronize()
+    assert F.fused_separable_conv.route_launches["wmma"] == before + 1
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+
+
+def test_fused_sepconv_kernel_is_bitwise_deterministic(dev):
+    """No atomics: two runs on the same inputs give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    args, kw = _sepconv_args(gen, 2, 50, 50, 1024, 1024, 2, True)
+    first = F.fused_separable_conv(*args, **kw)
+    for _ in range(2):
+        assert torch.equal(first, F.fused_separable_conv(*args, **kw))
+
+
+def test_fused_sepconv_tma_route_refuses_misaligned_operands(dev):
+    x = torch.zeros(1 * 4 * 4 * 8 + 1, device=dev,
+                    dtype=torch.bfloat16)[1:].view(1, 4, 4, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        F.fused_separable_conv(x, torch.zeros(3, 3, 8, device=dev),
+                               torch.zeros(8, 8, device=dev),
+                               torch.ones(8, device=dev),
+                               torch.zeros(8, device=dev))
 
 
 def test_fused_sepconv_kernel_refuses_fp32_activations(dev):

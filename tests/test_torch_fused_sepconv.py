@@ -137,3 +137,156 @@ def test_wrapper_rejects_non_cuda_device_without_fallback():
         F.fused_separable_conv(a["x"], a["wd"], a["wp"], a["scale"],
                                a["bias"])
     assert F.fused_separable_conv.launches == 0
+
+
+# Kernel B2's calls per batch of config 3 at 800 px (H, W, Cin, Cout, d), as
+# chip_smoke.B2_SHAPES lists them.
+CONFIG3_SHAPES = [(200, 200, 128, 128, 1), (100, 100, 256, 256, 1),
+                  (50, 50, 512, 512, 1), (50, 50, 512, 1024, 2),
+                  (50, 50, 1024, 1024, 2)]
+
+
+@pytest.mark.parametrize("h,w,cin,cout,d", CONFIG3_SHAPES)
+def test_tma_plan_fits_one_block_per_sm(h, w, cin, cout, d):
+    """At batch 16 the plan fits the 232,448 bytes of shared memory a block
+    may use, keeps 2 or more ring stages and takes at most one block per
+    SM of the 132."""
+    p = F.plan_launch(16, h, w, cin, cout, d, 132)
+    assert p.smem_bytes == F.smem_bytes(p.th, p.tw, d, p.stages, p.bn)
+    assert p.smem_bytes <= 232448 and 2 <= p.stages <= F.MAX_STAGES
+    assert p.th * p.tw <= F.ROWS and p.bn in (F.BN, 2 * F.BN)
+    assert p.grid == min(p.units, 132)
+    assert F.route_for(cin, cout) == "tma"
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,d", [
+    (2,) + s for s in CONFIG3_SHAPES] + [
+    (1, 37, 53, 64, 96, 1), (2, 13, 29, 72, 24, 2), (1, 1, 1, 32, 128, 1)])
+def test_tma_plan_tiles_cover_every_output_once(b, h, w, cin, cout, d):
+    """The work units, decoded as the kernel decodes them and clipped at
+    the image's edge and at Cout (as TMA clips its stores), write every
+    output element exactly once."""
+    p = F.plan_launch(b, h, w, cin, cout, d, 132)
+    seen = np.zeros((b, h, w, cout), np.int8)
+    for u in range(p.units):
+        bi, h0, w0, n0 = p.unit(u)
+        seen[bi, h0:h0 + p.th, w0:w0 + p.tw, n0:n0 + p.bn] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("h,w,cin,cout,res,ms,by", [
+    (200, 200, 128, 128, False, 0.098, "bytes"),
+    (200, 200, 128, 128, True, 0.147, "bytes"),
+    (100, 100, 256, 256, False, 0.049, "bytes"),
+    (100, 100, 256, 256, True, 0.073, "bytes"),
+    (50, 50, 512, 512, False, 0.025, "bytes"),
+    (50, 50, 512, 512, True, 0.037, "bytes"),
+    (50, 50, 512, 1024, False, 0.043, "operations"),
+    (50, 50, 1024, 1024, False, 0.086, "operations"),
+    (50, 50, 1024, 1024, True, 0.086, "operations"),
+])
+def test_bound_matches_the_roofline_of_each_config3_shape(h, w, cin, cout,
+                                                          res, ms, by):
+    """max(2 P Cin (9 + Cout) / 989 TFLOP/s, bytes moved once / 3.35
+    TB/s) at batch 16, to the microsecond."""
+    got, binds = F.bound_ms(16, h, w, cin, cout, res)
+    assert round(got, 3) == ms and binds == by
+
+
+def test_plan_constants_mirror_the_kernel_source():
+    """ops/fused_sepconv.py restates the kernel's fixed geometry to plan
+    its launches; the two must agree."""
+    import re
+    from x_detector_tpu_torch import _build
+    src = (_build.CSRC / "fused_sepconv.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+    for name in ("KC", "BN", "ROWS", "BAR_BYTES"):
+        assert const[name] == getattr(F, name), name
+    assert const["MAX_STAGES"] >= F.MAX_STAGES
+
+
+def test_tma_route_takes_only_channel_counts_that_tma_can_address():
+    assert F.route_for(128, 128) == "tma"
+    assert F.route_for(40, 130) == F.route_for(12, 16) == "wmma"
+    a = _inputs(0, 1, 4, 4, 8, 12)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        F.prepare_weights(*(torch.from_numpy(a[k]) for k in
+                            ("wd", "wp", "scale", "bias")), route="tma")
+
+
+def test_prepared_weights_on_the_cpu_take_the_plain_version():
+    a = {k: torch.from_numpy(v) for k, v in _inputs(4, 2, 6, 7, 8, 16).items()}
+    ops = F.prepare_weights(a["wd"], a["wp"], a["scale"], a["bias"])
+    assert ops.route == "tma" and ops.wp_kernel is None
+    got = F.fused_separable_conv_prepared(a["x"], ops, dilation=2,
+                                          residual=a["residual"])
+    ref = F.reference_separable_conv(a["x"], a["wd"], a["wp"], a["scale"],
+                                     a["bias"], dilation=2,
+                                     residual=a["residual"])
+    assert torch.equal(got, ref)
+
+
+def test_module_caches_fused_operands_per_weight_version():
+    """SeparableConvBN prepares the fused route's operands once and reuses
+    them until a parameter or buffer changes: after load_state_dict and
+    after an in-place update they are rebuilt, and always equal freshly
+    prepared ones."""
+    torch.manual_seed(0)
+    mod = SeparableConvBN(8, 16, fused=True, dtype=torch.float32).eval()
+
+    def fresh():
+        scale, bias = mod.bn.folded()
+        return F.prepare_weights(mod.Conv_0.weight[:, 0].permute(1, 2, 0),
+                                 mod.Conv_1.weight[:, :, 0, 0].t(), scale,
+                                 bias)
+
+    def same(ops, ref):
+        for got, want in zip(ops[:4], ref[:4]):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    first = mod.fused_weights()
+    assert mod.fused_weights() is first
+    same(first, fresh())
+    state = {k: v + 0.1 for k, v in mod.state_dict().items()}
+    mod.load_state_dict(state)
+    second = mod.fused_weights()
+    assert second is not first
+    same(second, fresh())
+    with torch.no_grad():
+        mod.bn.running_var.mul_(2.0)
+    third = mod.fused_weights()
+    assert third is not second
+    same(third, fresh())
+    x = torch.randn(2, 8, 5, 6)
+    with torch.inference_mode():
+        got = mod(x)
+        unfused = SeparableConvBN(8, 16, dtype=torch.float32).eval()
+        unfused.load_state_dict(mod.state_dict())
+        torch.testing.assert_close(got, unfused(x), rtol=1e-5, atol=1e-5)
+
+
+def test_unfused_cudnn_yardstick_computes_the_same_function():
+    """chip_smoke's yardstick for B2 (depthwise conv, 1x1 conv, folded BN,
+    residual, ReLU as separate calls) computes what the kernel computes; in
+    bf16 it rounds at two more places, so it is held at 5e-2 of the
+    scale."""
+    import pathlib
+    import sys
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    a = {k: torch.from_numpy(v) for k, v in _inputs(6, 2, 9, 7, 16, 24)
+         .items()}
+    x, res = a["x"].bfloat16(), a["residual"].bfloat16()
+    run = chip_smoke.unfused_cudnn(x, a["wd"], a["wp"], a["scale"],
+                                   a["bias"], dilation=2, relu=True,
+                                   residual=res)
+    got = run().permute(0, 2, 3, 1).float()
+    ref = F.reference_separable_conv(x, a["wd"], a["wp"], a["scale"],
+                                     a["bias"], dilation=2, residual=res)
+    scale = ref.float().abs().max().item()
+    assert (got - ref.float()).abs().max().item() <= 5e-2 * scale

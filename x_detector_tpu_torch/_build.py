@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface, loaded with ``ctypes``; no PyTorch header is included, so
-the build takes seconds. The build happens at first use, into
+Each ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``; no PyTorch header is included, so the
+build takes seconds. The build happens at first use, into
 ``build/torch_kernels/<hash>/`` at the root of the checkout, keyed by a hash
 of the sources and the flags: a changed source builds anew, an unchanged one
 loads the library already there. The compiler's report (``-Xptxas -v``:
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 LIB_NAME = "libxdt_kernels.so"
 LOG_NAME = "nvcc.log"
 
@@ -34,7 +35,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, wd, wp, scale, bias, residual (or NULL), out,
     # B, H, W, Cin, Cout, dilation, relu, stream
-    "xdt_fused_sepconv_bf16": [_P] * 7 + [_I] * 7 + [_P],
+    "xdt_fused_sepconv_wmma": [_P] * 7 + [_I] * 7 + [_P],
+    # the same, then the plan: th, tw, stages, smem_bytes, bn, grid;
+    # stream
+    "xdt_fused_sepconv_tma": [_P] * 7 + [_I] * 13 + [_P],
     # features, rois, out, features_are_bf16,
     # B, H, W, R, grid, C, samples, stream
     "xdt_psroi_align_fwd": [_P] * 3 + [_I] * 8 + [_P],
@@ -80,15 +84,26 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    objs = [out_dir / (src.stem + ".o") for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    codes = [proc.returncode for proc in procs]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    if not any(codes):
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        codes.append(link.returncode)
+    if any(codes):
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    (out_dir / LOG_NAME).write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"nvcc failed ({codes}):\n" + "\n".join(logs))
+    (out_dir / LOG_NAME).write_text("\n".join(logs))
     os.replace(tmp, lib)              # atomic: a reader never sees half a file
     return lib
 

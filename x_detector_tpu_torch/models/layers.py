@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
+from x_detector_tpu_torch.ops.fused_sepconv import (
+    fused_separable_conv_prepared, prepare_weights)
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -142,7 +143,9 @@ class SeparableConvBN(nn.Module):
 
     ``fused=True`` routes stride-1 calls at inference through the fused
     kernel (``ops/fused_sepconv.py``); training and stride-2 calls keep the
-    two convs. The parameters are the same either way.
+    two convs. The parameters are the same either way; the fused route's
+    operands (folded BN, taps, ``wp`` in the kernel's layout) are prepared
+    once per version of the parameters and buffers and cached.
     ``forward(x, residual)`` is the
     Xception unit's epilogue ``relu(bn(x) + residual)`` (the module then has
     ``relu=False``).
@@ -167,6 +170,23 @@ class SeparableConvBN(nn.Module):
                                 bias=False)
         self.Conv_1 = nn.Conv2d(in_features, features, 1, bias=False)
         self.bn = BatchNorm2D(features)
+        self._fused_cache = None            # (key, SepConvWeights)
+
+    def fused_weights(self):
+        """The fused route's operands, rebuilt when a parameter or buffer
+        was replaced (``.to``) or changed in place (``load_state_dict``, an
+        optimizer step): keyed on each tensor's storage and ``_version``."""
+        sources = (self.Conv_0.weight, self.Conv_1.weight, self.bn.weight,
+                   self.bn.bias, self.bn.running_mean, self.bn.running_var)
+        key = tuple((t.data_ptr(), t._version) for t in sources)
+        if self._fused_cache is None or self._fused_cache[0] != key:
+            with torch.no_grad():
+                scale, bias = self.bn.folded()
+                weights = prepare_weights(
+                    self.Conv_0.weight[:, 0].permute(1, 2, 0),
+                    self.Conv_1.weight[:, :, 0, 0].t(), scale, bias)
+            self._fused_cache = (key, weights)
+        return self._fused_cache[1]
 
     @property
     def takes_fused_route(self) -> bool:
@@ -179,13 +199,9 @@ class SeparableConvBN(nn.Module):
             raise ValueError("the residual epilogue owns the ReLU: build the "
                              "module with relu=False")
         if self.takes_fused_route:
-            scale, bias = self.bn.folded()
-            out = fused_separable_conv(
+            out = fused_separable_conv_prepared(
                 x.to(self.dtype).permute(0, 2, 3, 1).contiguous(),
-                self.Conv_0.weight[:, 0].permute(1, 2, 0).contiguous(),
-                self.Conv_1.weight[:, :, 0, 0].t().contiguous(),
-                scale.contiguous(), bias.contiguous(),
-                dilation=self.dilation[0],
+                self.fused_weights(), dilation=self.dilation[0],
                 relu=self.relu or residual is not None,
                 residual=None if residual is None else
                 residual.to(self.dtype).permute(0, 2, 3, 1).contiguous())

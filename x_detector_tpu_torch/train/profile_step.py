@@ -36,6 +36,7 @@ STAGE = "stage:"
 # Kernel families by substrings of the kernel's name, first match wins.
 FAMILIES = (
     ("psroi", ("psroi",)),
+    ("fused sepconv", ("sepconv",)),
     ("conv", ("conv", "xmma", "cudnn", "cutlass", "implicit", "sm90_",
               "nhwc", "dgrad", "wgrad")),
     ("gemm", ("gemm",)),
