@@ -14,6 +14,9 @@ Phases; each raises on failure and the script then exits non-zero:
                 stated; both timed with CUDA events, beside each kernel's
                 bound (utils/roofline.py) and, for B2, its first design
                 (the "wmma" route) and the unfused cuDNN pair as yardsticks.
+                B1's backward takes a dense gradient and one shaped like a
+                train step's (256 non-zero rows per image); "ms" is
+                the dense time, "ohem_shaped_ms" the other.
   4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
                 the fused separable conv) from seeded uint8 images through
                 build_eval_fn, batches of 16: launch counts, detection
@@ -145,6 +148,7 @@ def phase_build() -> float:
 def phase_kernels() -> list:
     from x_detector_tpu_torch.ops import fused_sepconv as fs
     from x_detector_tpu_torch.ops import psroi_align as pa
+    from x_detector_tpu_torch.psroi_bwd_variants import ohem_shaped
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -247,34 +251,43 @@ def phase_kernels() -> list:
         f"[{BATCH},{r},4]: max abs err {err:.3g} (scale {sc:.3g}); kernel "
         f"{fwd_ms:.4f} ms, bound "
         f"{psroi_bound(feat, rois)[0]:.4f} ms; x1 per train step")
+    # B1's backward twice: a dense gradient, and one shaped like a train
+    # step's, where OHEM leaves ohem_topk = 256 non-zero rows per image
     g = randn(BATCH, r, grid, grid, c)
-    bwd = lambda: pa.psroi_align_backward(g, rois, size, size,
-                                          torch.bfloat16, grid)
-    got, again = bwd(), bwd()
-    ref = pa.psroi_align_backward_reference(g, rois, size, size,
-                                            torch.bfloat16, grid)
-    torch.cuda.synchronize()
-    bwd_err, sc = max_rel_err(got, ref)
-    over = ((got.float() - ref.float()).abs()
-            > B1_BWD_REL_TOL * sc + BF16_STEP * ref.float().abs())
-    if over.any():
-        raise AssertionError(
-            f"B1 psroi_align_backward: {int(over.sum())} elements beyond "
-            f"{B1_BWD_REL_TOL} x scale {sc:.3g} + one bf16 step; max abs "
-            f"err {bwd_err:.3g}")
-    if not torch.equal(got, again):
-        raise AssertionError("B1 psroi_align_backward: two runs on the same "
-                             "inputs differ")
-    bwd_ms = cuda_ms(bwd)
+    bwd_err, bwd_ms = 0.0, {}
+    for tag, grad in (("dense", g), ("OHEM-shaped", ohem_shaped(gen, g)[0])):
+        bwd = lambda: pa.psroi_align_backward(grad, rois, size, size,
+                                              torch.bfloat16, grid)
+        got, again = bwd(), bwd()
+        ref = pa.psroi_align_backward_reference(grad, rois, size, size,
+                                                torch.bfloat16, grid)
+        torch.cuda.synchronize()
+        err, sc = max_rel_err(got, ref)
+        over = ((got.float() - ref.float()).abs()
+                > B1_BWD_REL_TOL * sc + BF16_STEP * ref.float().abs())
+        if over.any():
+            raise AssertionError(
+                f"B1 psroi_align_backward ({tag}): {int(over.sum())} "
+                f"elements beyond {B1_BWD_REL_TOL} x scale {sc:.3g} + one "
+                f"bf16 step; max abs err {err:.3g}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"B1 psroi_align_backward ({tag}): two runs"
+                                 " on the same inputs differ")
+        bwd_err = max(bwd_err, err)
+        bwd_ms[tag] = cuda_ms(bwd)
+        log(f"B1 psroi_align_backward ({tag}) [{BATCH},{r},{grid},{grid},"
+            f"{c}] fp32 -> [{BATCH},{size},{size},{grid * grid * c}] bf16: "
+            f"max abs err {err:.3g} (scale {sc:.3g}), bitwise equal on a "
+            f"second run; kernel {bwd_ms[tag]:.4f} ms")
+        del got, again, ref
     bwd_plain_ms = cuda_ms(lambda: pa.psroi_align_backward_reference(
         g, rois, size, size, torch.bfloat16, grid))
     bwd_bound = psroi_bound(feat, rois)
-    log(f"B1 psroi_align_backward [{BATCH},{r},{grid},{grid},{c}] fp32 -> "
-        f"[{BATCH},{size},{size},{grid * grid * c}] bf16: max abs err "
-        f"{bwd_err:.3g} (scale {sc:.3g}), bitwise equal on a second run; "
-        f"kernel {bwd_ms:.4f} ms, bound {bwd_bound[0]:.4f} ms "
-        f"({bwd_bound[1]}), {bwd_bound[0] / bwd_ms:.1%} of it; plain "
-        f"{bwd_plain_ms:.4f} ms; x1 per step")
+    log(f"B1 psroi_align_backward, dense: kernel {bwd_ms['dense']:.4f} ms, "
+        f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]}), "
+        f"{bwd_bound[0] / bwd_ms['dense']:.1%} of it; plain "
+        f"{bwd_plain_ms:.4f} ms; OHEM-shaped {bwd_ms['OHEM-shaped']:.4f} "
+        f"ms; x1 per step")
     # B2's 14 calls mix bytes-bound and operations-bound shapes: bound_by
     # names the resource behind the larger part of their summed bound
     b2_by = ("bytes" if b2["bytes_bound_ms"] * 2 >= b2["bound_ms"]
@@ -297,9 +310,10 @@ def phase_kernels() -> list:
         {"name": "psroi_align_backward", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
          "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:169",
-         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-         "library_ms": None},
+         "max_abs_err": bwd_err, "ms": bwd_ms["dense"],
+         "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
+         "bound_by": bwd_bound[1], "library_ms": None,
+         "ohem_shaped_ms": bwd_ms["OHEM-shaped"]},
     ]
 
 

@@ -20,6 +20,7 @@ from x_detector_tpu_torch.config import lighthead_xception  # noqa: E402
 from x_detector_tpu_torch.inference import build_model  # noqa: E402
 from x_detector_tpu_torch.ops import fused_sepconv as F  # noqa: E402
 from x_detector_tpu_torch.ops import psroi_align as P  # noqa: E402
+from x_detector_tpu_torch.psroi_bwd_variants import ohem_shaped  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -183,9 +184,10 @@ def _rois(gen, b, r, dev):
     rois = torch.cat([lo, (lo + 0.4 * torch.rand(b, r, 2, generator=gen,
                                                  device=dev)).clamp(max=1)],
                      dim=-1)
-    rois[:, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])
-    rois[:, 1] = torch.tensor([0.3, 0.3, 0.3, 0.3])       # zero area
-    rois[:, 2] = torch.tensor([0.999, 0.0, 1.0, 0.001])   # edge sliver
+    edge = torch.tensor([[0.0, 0.0, 1.0, 1.0],
+                         [0.3, 0.3, 0.3, 0.3],           # zero area
+                         [0.999, 0.0, 1.0, 0.001]])      # edge sliver
+    rois[:, :3] = edge[:r]
     return rois.contiguous()
 
 
@@ -210,11 +212,96 @@ def test_psroi_backward_kernel_matches_plain(dev, dtype, b, h, w, r, grid,
                                            samples)
     torch.cuda.synchronize()
     assert P.psroi_align_backward.launches == before + 1
-    assert got.dtype == dtype and got.shape == (b, h, w, grid * grid * c)
+    assert got.shape == (b, h, w, grid * grid * c)
+    _assert_backward_close(got, ref, dtype)
+
+
+def _assert_backward_close(got, ref, dtype):
+    """1e-5 of the scale, plus one bf16 step of the value in bf16."""
+    assert got.dtype == dtype and got.shape == ref.shape
     scale = max(1.0, ref.float().abs().max().item())
     step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     bound = 1e-5 * scale + step * ref.float().abs()
     assert ((got.float() - ref.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["ragged_tiles", "full_image_rois",
+                                  "one_roi", "c32_s4"])
+def test_psroi_backward_kernel_edge_cases(dev, dtype, case):
+    """A map whose H and W are not multiples of the tile; rois that all
+    cover the whole map (every roi reaches every tile, and the tile's list
+    overflows its shared-memory capacity twice); R = 1; C = 32 with S = 4
+    (more channels than one block's threads)."""
+    b, h, w, r, grid, c, samples = {
+        "ragged_tiles": (2, 37, 23, 500, 7, 10, 2),
+        "full_image_rois": (1, 50, 50, 1200, 7, 10, 2),
+        "one_roi": (2, 13, 17, 1, 7, 10, 2),
+        "c32_s4": (1, 20, 30, 200, 7, 32, 4)}[case]
+    plan = P.plan_backward(h, w, r, grid, c)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rois = _rois(gen, b, r, dev)
+    if case == "ragged_tiles":
+        assert h % plan.th and w % plan.tw
+    if case == "full_image_rois":
+        rois = torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev).expand(
+            b, r, 4).contiguous()
+        assert plan.cap * 2 < r
+    if case == "c32_s4":
+        assert plan.passes > 1
+    g = _rand(gen, b, r, grid, grid, c)
+    before = P.psroi_align_backward.launches
+    got = P.psroi_align_backward(g, rois, h, w, dtype, grid, samples)
+    ref = P.psroi_align_backward_reference(g, rois, h, w, dtype, grid,
+                                           samples)
+    torch.cuda.synchronize()
+    assert P.psroi_align_backward.launches == before + 1
+    _assert_backward_close(got, ref, dtype)
+
+
+def test_psroi_backward_kernel_zero_gradient_gives_exact_zeros(dev):
+    """Rows of +0.0 and -0.0 only: every element is written, as +0."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rois = _rois(gen, 2, 300, dev)
+    g = torch.zeros(2, 300, 7, 7, 10, device=dev)
+    g[:, ::2] = -0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        got = P.psroi_align_backward(g, rois, 13, 17, dtype, 7)
+        assert torch.equal(got, torch.zeros_like(got))
+        assert not torch.signbit(got).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_psroi_backward_kernel_ohem_shaped_gradient(dev, dtype):
+    """256 non-zero gradient rows of 1000 per image: within the tolerance
+    of the plain version, and the same bits as the kernel on the 256 kept
+    rois alone, in their order (a +-0 row changes no sum)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, r, keep = 2, 1000, 256
+    rois = _rois(gen, b, r, dev)
+    g, kept = ohem_shaped(gen, _rand(gen, b, r, 7, 7, 10), keep)
+    got = P.psroi_align_backward(g, rois, 50, 50, dtype, 7)
+    ref = P.psroi_align_backward_reference(g, rois, 50, 50, dtype, 7)
+    _assert_backward_close(got, ref, dtype)
+    small = P.psroi_align_backward(
+        torch.gather(g, 1, kept[..., None, None, None].expand(
+            b, keep, 7, 7, 10)).contiguous(),
+        torch.gather(rois, 1, kept[..., None].expand(b, keep, 4)).contiguous(),
+        50, 50, dtype, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, small)
+
+
+def test_psroi_backward_kernel_same_bits_at_config_4(dev):
+    """Config 4's shape (B=16, R=1000, 50x50 bf16 map, k=7, C=10): three
+    runs, the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rois = _rois(gen, 16, 1000, dev)
+    g = _rand(gen, 16, 1000, 7, 7, 10)
+    first = P.psroi_align_backward(g, rois, 50, 50, torch.bfloat16, 7)
+    for _ in range(2):
+        again = P.psroi_align_backward(g, rois, 50, 50, torch.bfloat16, 7)
+        assert torch.equal(first, again)
 
 
 def test_psroi_backward_kernel_is_bitwise_deterministic(dev):
@@ -251,6 +338,9 @@ def test_psroi_backward_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError, match="bf16 or fp32"):
         P.psroi_align_backward(torch.zeros(1, 3, 7, 7, 4, device=dev), rois,
                                8, 8, torch.float16, 7)
+    with pytest.raises(ValueError, match="grid 33"):
+        P.psroi_align_backward(torch.zeros(1, 3, 33, 33, 1, device=dev),
+                               rois, 8, 8, torch.float32, 33)
 
 
 def test_train_step_on_the_card_goes_through_the_kernels(dev):

@@ -42,9 +42,10 @@ SIGNATURES = {
     # features, rois, out, features_are_bf16,
     # B, H, W, R, grid, C, samples, stream
     "xdt_psroi_align_fwd": [_P] * 3 + [_I] * 8 + [_P],
-    # grad, rois, dfeat, dfeat_is_bf16,
-    # B, H, W, R, grid, C, samples, stream
-    "xdt_psroi_align_bwd": [_P] * 3 + [_I] * 8 + [_P],
+    # grad, rois, dfeat, roi extents (scratch), dfeat_is_bf16,
+    # B, H, W, R, grid, C, samples, then the plan: threads, cap,
+    # smem_bytes; stream
+    "xdt_psroi_align_bwd": [_P] * 4 + [_I] * 11 + [_P],
 }
 
 

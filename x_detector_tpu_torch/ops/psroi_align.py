@@ -15,13 +15,31 @@ CPU tensors they run the plain versions ``psroi_align_reference`` (a
 gather) and ``psroi_align_backward_reference`` (the transposed contractions
 of the JAX package's ``_bwd``). The gradient goes to the features only, in
 their dtype (fp32 sums, one rounding on store); the rois get none.
+
+The backward kernel's launch (pixel tile, threads, list capacity, shared
+memory) is planned here, on the host, by :func:`plan_backward`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from x_detector_tpu_torch import _build
+
+# The backward kernel's compiled pixel tile (TH, TW) and limits; they
+# mirror csrc/psroi_align.cu.
+BACKWARD_TILE = (5, 10)
+BACKWARD_MAX_THREADS = 512     # one thread per channel of the tile
+BACKWARD_MAX_GRID = 32         # bins per axis: one bit each in a mask
+BACKWARD_MAX_SAMPLES = 4
+SMEM_LIMIT = 232448            # dynamic shared memory a block may use (sm_90)
+SMEM_PER_SM = 233472           # what an SM shares among its blocks, 1 KB each
+_COUNT_BYTES = 32 * 4          # the kernel's warp counts
+_WORK_BYTES = 32 * 32 * 4      # and its warps' work lists
+_ENTRY_BYTES = 16              # per listed roi: its index and bin masks
 
 
 def _sample_coords(rois: torch.Tensor, grid: int, samples: int, extent: int,
@@ -136,13 +154,70 @@ def psroi_align_backward_reference(grad: torch.Tensor, rois: torch.Tensor,
     return dfeat.reshape(b, height, width, k * k * c).to(dtype)
 
 
+def backward_smem_bytes(th: int, tw: int, grid: int, cap: int) -> int:
+    """Dynamic shared memory of the backward kernel for a list of ``cap``
+    rois: the warp counts and work lists, then per roi its index, its row
+    and column bin masks and its weights over the tile's rows and columns
+    (each row of weights padded to 4 floats)."""
+    pad4 = lambda n: _ceil(n, 4) * 4
+    return _COUNT_BYTES + _WORK_BYTES + cap * (
+        _ENTRY_BYTES + 4 * grid * (pad4(th) + pad4(tw)))
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """Launch geometry of the backward kernel: blocks (tiles_h * tiles_w,
+    passes, B) of ``threads`` threads, each block a th x tw pixel tile and
+    ``threads`` of the k*k*C channels."""
+    th: int
+    tw: int
+    threads: int
+    passes: int            # blocks along the channels
+    cap: int               # rois the shared-memory list holds
+    smem_bytes: int
+    tiles_h: int
+    tiles_w: int
+
+    def tile(self, u: int):
+        """(row0, col0) of tile ``u``, as the kernel decodes blockIdx.x."""
+        return u // self.tiles_w * self.th, u % self.tiles_w * self.tw
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_backward(h: int, w: int, r: int, grid: int, c: int
+                  ) -> BackwardPlan:
+    """One thread per channel up to 512, further channels in further
+    blocks; a roi list as long as the shared memory of the blocks an SM
+    can hold allows, and at most what R needs."""
+    if not 1 <= grid <= BACKWARD_MAX_GRID:
+        raise ValueError(f"psroi_align_backward: grid {grid} outside "
+                         f"1..{BACKWARD_MAX_GRID}")
+    th, tw = BACKWARD_TILE
+    kkc = grid * grid * c
+    threads = min(BACKWARD_MAX_THREADS, _ceil(kkc, 32) * 32)
+    per_sm = min(4, BACKWARD_MAX_THREADS // threads)
+    budget = min(SMEM_LIMIT, SMEM_PER_SM // per_sm - 1024)
+    fixed = backward_smem_bytes(th, tw, grid, 0)
+    per_roi = backward_smem_bytes(th, tw, grid, 1) - fixed
+    cap = min((budget - fixed) // per_roi // 32 * 32, _ceil(r, 32) * 32)
+    return BackwardPlan(th, tw, threads, _ceil(kkc, threads), cap,
+                        backward_smem_bytes(th, tw, grid, cap),
+                        _ceil(h, th), _ceil(w, tw))
+
+
 def psroi_align_backward(grad: torch.Tensor, rois: torch.Tensor,
                          height: int, width: int, dtype: torch.dtype,
                          grid: int = 7, samples: int = 2) -> torch.Tensor:
     """The features' gradient [B, H, W, k*k*C] in ``dtype`` (bf16 or fp32)
     from the upstream gradient [B, R, k, k, C]. CPU tensors take the plain
-    version; CUDA tensors launch the deterministic gather kernel (fp32
-    sums in roi order, one rounding on store, no atomics)."""
+    version; CUDA tensors launch the deterministic tiled kernel (fp32 sums
+    in roi order, one rounding on store, no atomics): a pre-pass writes
+    each roi's sample extents (empty for a zero gradient row) into
+    scratch, then the tiles run with :func:`plan_backward`'s plan."""
     if grad.device.type == "cpu":
         return psroi_align_backward_reference(grad, rois, height, width,
                                               dtype, grid, samples)
@@ -158,7 +233,7 @@ def psroi_align_backward(grad: torch.Tensor, rois: torch.Tensor,
     if grad.shape != (b, r, grid, grid, c) or rois.dtype != torch.float32:
         raise ValueError(f"grad {tuple(grad.shape)} / rois "
                          f"{tuple(rois.shape)} {rois.dtype} do not fit")
-    if c > 32 or samples > 4:
+    if c > 32 or samples > BACKWARD_MAX_SAMPLES:
         raise ValueError(f"the backward kernel takes C <= 32 and samples "
                          f"<= 4, got C={c}, samples={samples}")
     out = torch.empty((b, height, width, grid * grid * c), dtype=dtype,
@@ -167,14 +242,17 @@ def psroi_align_backward(grad: torch.Tensor, rois: torch.Tensor,
         return out
     if r == 0:
         return out.zero_()
+    plan = plan_backward(height, width, r, grid, c)
     rois = rois.contiguous()
+    ext = torch.empty(b * r, 4, dtype=torch.float32, device=grad.device)
     lib = _build.library()
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xdt_psroi_align_bwd(
             grad.data_ptr(), rois.data_ptr(), out.data_ptr(),
-            int(dtype == torch.bfloat16), b, height, width, r, grid, c,
-            samples, stream)
+            ext.data_ptr(), int(dtype == torch.bfloat16), b, height, width,
+            r, grid, c, samples, plan.threads, plan.cap, plan.smem_bytes,
+            stream)
     _build.check(err, "psroi_align_backward")
     psroi_align_backward.launches += 1
     return out
