@@ -136,24 +136,98 @@ def test_fused_sepconv_kernel_refuses_fp32_activations(dev):
                                torch.zeros(8, device=dev))
 
 
+def _chip_smoke():
+    root = pathlib.Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    return chip_smoke
+
+
+# (B, H, W, R, grid, C, samples) of the forward's cases: the first design's
+# test, config 3 and config 4 at B = 2, odd C (the scalar path), C = 20 and
+# 32 with S = 1, 3 and 4, one roi, none, rois outside [0, 1], features at an
+# odd element offset (the scalar path), a table beyond 48 KB (k = 2240, S =
+# 2: 210 KB) and one beyond the shared memory (k*S = 4900: each lane makes
+# its taps)
+PSROI_FORWARD_CASES = {
+    "first_design": (2, 13, 17, 300, 7, 10, 2),
+    "config_3": (2, 50, 50, 512, 7, 10, 2),
+    "config_4": (2, 50, 50, 1000, 7, 10, 2),
+    "odd_c": (2, 9, 5, 40, 3, 3, 2),
+    "c20_s1": (2, 13, 17, 100, 7, 20, 1),
+    "c20_s4": (1, 23, 11, 70, 7, 20, 4),
+    "c32_s3": (1, 20, 30, 100, 7, 32, 3),
+    "c32_s4": (1, 20, 30, 60, 7, 32, 4),
+    "one_roi": (2, 13, 17, 1, 7, 10, 2),
+    "no_roi": (2, 13, 17, 0, 7, 10, 2),
+    "outside": (2, 13, 17, 200, 7, 10, 2),
+    "offset_view": (2, 13, 17, 300, 7, 10, 2),
+    "table_opt_in": (1, 2, 2, 1, 2240, 1, 2),
+    "untabled": (1, 2, 2, 1, 4900, 1, 1),
+}
+
+
+def _forward_rois(gen, case, b, r, dev):
+    """The first design's test's rois for its case; else chip_smoke's
+    (edge and zero-area rois first, the first r of them), with "outside"
+    also drawing rois from [-0.5, 1.5], some with their corners swapped."""
+    if case == "first_design":
+        lo = torch.rand(b, r, 2, generator=gen, device=dev) * 0.8
+        rois = torch.cat([lo, (lo + 0.3 * torch.rand(
+            b, r, 2, generator=gen, device=dev)).clamp(max=1)], dim=-1)
+        rois[:, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])
+        rois[:, 1] = torch.tensor([0.3, 0.3, 0.3, 0.3])     # zero area
+        return rois.contiguous()
+    rois = _chip_smoke().config_rois(gen, b, max(r, 6), dev)[:, :r]
+    if case == "outside":
+        rois[:, 6:] = torch.rand(b, r - 6, 4, generator=gen,
+                                 device=dev) * 2.0 - 0.5
+    return rois.contiguous()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_psroi_kernel_matches_plain(dev, dtype):
-    """Same features, same fp32 products, another summation order: 1e-5."""
+@pytest.mark.parametrize("case", list(PSROI_FORWARD_CASES))
+def test_psroi_kernel_matches_plain(dev, dtype, case):
+    """Same features, same taps, another summation order: 1e-5. The plain
+    version runs on the CPU copies: on the card PyTorch divides by a
+    Python scalar as a multiply by its fp32 reciprocal, which moves a
+    coordinate by an ulp and, on a 50-pixel noise map, an output by up to
+    1.5e-5; the kernel divides as the CPU does (and as the backward does).
+    One launch a call (none for R = 0), on the path the plan names."""
+    b, h, w, r, grid, c, samples = PSROI_FORWARD_CASES[case]
     gen = torch.Generator(device=dev).manual_seed(1)
-    feat = _rand(gen, 2, 13, 17, 490).to(dtype)
-    lo = torch.rand(2, 300, 2, generator=gen, device=dev) * 0.8
-    rois = torch.cat([lo, (lo + 0.3 * torch.rand(2, 300, 2, generator=gen,
-                                                 device=dev)).clamp(max=1)],
-                     dim=-1)
-    rois[:, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])
-    rois[:, 1] = torch.tensor([0.3, 0.3, 0.3, 0.3])       # zero area
-    rois = rois.contiguous()
+    feat = _rand(gen, b, h, w, grid * grid * c).to(dtype)
+    if case == "offset_view":
+        feat = torch.cat([feat.new_zeros(1), feat.flatten()])[1:].view(
+            feat.shape)
+        assert feat.is_contiguous() and feat.storage_offset() == 1
+    rois = _forward_rois(gen, case, b, r, dev)
+    if r:
+        aligned = feat.data_ptr() % (2 * feat.element_size()) == 0
+        plan = P.plan_forward(b, r, grid, c, samples, aligned)
+        assert plan.paired == (case not in ("odd_c", "offset_view",
+                                            "table_opt_in", "untabled"))
+        assert (plan.smem_bytes > 48 * 1024) == (case == "table_opt_in")
+        assert plan.tabled == (case != "untabled")
     before = P.batched_psroi_align.launches
-    got = P.batched_psroi_align(feat, rois, 7)
-    ref = P.psroi_align_reference(feat, rois, 7)
-    torch.cuda.synchronize()
-    assert P.batched_psroi_align.launches == before + 1
-    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    got = P.batched_psroi_align(feat, rois, grid, samples)
+    ref = P.psroi_align_reference(feat.cpu(), rois.cpu(), grid, samples)
+    assert P.batched_psroi_align.launches == before + (1 if r else 0)
+    assert got.shape == (b, r, grid, grid, c) and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_psroi_kernel_same_bits_at_config_4(dev):
+    """Config 4's shape (B=16, R=1000, 50x50 bf16 map, k=7, C=10): two
+    runs, the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    feat = _rand(gen, 16, 50, 50, 490).bfloat16()
+    rois = _chip_smoke().config_rois(gen, 16, 1000, dev)
+    first = P.batched_psroi_align(feat, rois, 7)
+    assert torch.equal(first, P.batched_psroi_align(feat, rois, 7))
 
 
 def test_model_with_kernels_matches_unfused_path(dev):
@@ -346,12 +420,7 @@ def test_psroi_backward_refuses_what_the_kernel_does_not_take(dev):
 def test_train_step_on_the_card_goes_through_the_kernels(dev):
     """chip_smoke's train phase at 64 px, batch 2, on the card: one
     PSROIAlign forward and backward launch per step, no fused conv."""
-    root = pathlib.Path(__file__).resolve().parent.parent
-    sys.path.insert(0, str(root))
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(str(root))
+    chip_smoke = _chip_smoke()
     cfg = chip_smoke.train_config(64, batch_size=2)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, backbone_fused_sepconv=True,

@@ -47,7 +47,7 @@ def _rois(rng, n):
 
 
 @pytest.mark.parametrize("grid,c,h,w", [(7, 10, 13, 17), (3, 4, 10, 12),
-                                        (7, 10, 4, 4)])
+                                        (7, 10, 4, 4), (3, 3, 10, 12)])
 def test_plain_matches_jax_pallas_kernel(rng, interpret_mode, grid, c, h, w):
     feats = rng.normal(0, 1, (2, h, w, grid * grid * c)).astype(np.float32)
     rois = np.stack([_rois(rng, K.BLOCK_R) for _ in range(2)])
@@ -59,11 +59,45 @@ def test_plain_matches_jax_pallas_kernel(rng, interpret_mode, grid, c, h, w):
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("samples", [1, 2, 3])
+def test_plain_matches_jax_pallas_kernel_at_four_samples(rng,
+                                                         interpret_mode):
+    """S = 4, which the forward kernel takes at run time (it fixes only S
+    = 2 at compile time): the TPU kernel in interpret mode, a small map."""
+    grid, c, h, w = 3, 4, 10, 12
+    feats = rng.normal(0, 1, (2, h, w, grid * grid * c)).astype(np.float32)
+    rois = np.stack([_rois(rng, K.BLOCK_R) for _ in range(2)])
+    ref = np.asarray(K.batched_psroi_align_pallas(
+        jnp.asarray(feats), jnp.asarray(rois), grid=grid, samples=4))
+    got = P.batched_psroi_align(torch.from_numpy(feats),
+                                torch.from_numpy(rois), grid, 4).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("samples", [1, 2, 3, 4])
 def test_plain_matches_jax_gather_oracle(rng, samples):
     grid, c = 7, 10
     feat = rng.normal(0, 1, (9, 11, grid * grid * c)).astype(np.float32)
     rois = _rois(rng, 40)
+    ref = np.asarray(jax_reference(jnp.asarray(feat), jnp.asarray(rois),
+                                   grid=grid, samples=samples))
+    got = P.psroi_align_reference(torch.from_numpy(feat)[None],
+                                  torch.from_numpy(rois)[None], grid,
+                                  samples)[0].numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def _outside_rois(rng, n):
+    """Rois drawn from [-0.5, 1.5]: partly or wholly off the map, some with
+    their corners swapped."""
+    return rng.uniform(-0.5, 1.5, (n, 4)).astype(np.float32)
+
+
+@pytest.mark.parametrize("samples", [2, 4])
+def test_plain_matches_jax_gather_oracle_outside_the_map(rng, samples):
+    """Rois outside [0, 1] clamp as the JAX package clamps them."""
+    grid, c = 7, 10
+    feat = rng.normal(0, 1, (9, 11, grid * grid * c)).astype(np.float32)
+    rois = np.concatenate([EDGE_ROIS, _outside_rois(rng, 40)])
     ref = np.asarray(jax_reference(jnp.asarray(feat), jnp.asarray(rois),
                                    grid=grid, samples=samples))
     got = P.psroi_align_reference(torch.from_numpy(feat)[None],
@@ -90,6 +124,157 @@ def test_wrapper_rejects_non_cuda_device_without_fallback(rng):
     with pytest.raises(ValueError, match="CUDA"):
         P.batched_psroi_align(feat, rois, 7)
     assert P.batched_psroi_align.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's host side: its launch plan, its walk and its tap table
+# ---------------------------------------------------------------------------
+
+# (B, R, grid, C, samples): configs 3 and 4, then the card-only tests' shapes
+FORWARD_SHAPES = [(16, 512, 7, 10, 2), (16, 1000, 7, 10, 2),
+                  (2, 300, 7, 10, 2), (2, 512, 7, 10, 2),
+                  (2, 1000, 7, 10, 2), (2, 40, 3, 3, 2), (2, 100, 7, 20, 1),
+                  (1, 70, 7, 20, 4), (1, 100, 7, 32, 3), (1, 60, 7, 32, 4),
+                  (2, 1, 7, 10, 2), (2, 200, 7, 10, 2), (1, 1, 2240, 1, 2),
+                  (1, 1, 4900, 1, 1),
+                  (1, 5, 3, 2, 2)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,r,grid,c,samples", FORWARD_SHAPES)
+def test_forward_plan_covers_every_roi_once_and_fits(b, r, grid, c, samples,
+                                                     aligned):
+    """The blocks take every (image, roi) exactly once, none empty; the
+    tap table fits 232,448 bytes (or, where one roi's does not, none is
+    kept); pairs only for even C and aligned features."""
+    plan = P.plan_forward(b, r, grid, c, samples, aligned)
+    hits = np.zeros((b, r), np.int32)
+    for block in range(b * plan.blocks_per_image):
+        image, r0, n = plan.rois(block, r)
+        assert n >= 1
+        hits[image, r0:r0 + n] += 1
+    assert (hits == 1).all()
+    assert plan.paired == (c % 2 == 0 and aligned)
+    assert plan.lanes_per_roi == grid * grid * (c // 2 if plan.paired else c)
+    table = P.forward_table_bytes(grid, samples)
+    assert plan.tabled == (table <= P.SMEM_LIMIT)
+    assert plan.smem_bytes == (plan.rois_per_block * table if plan.tabled
+                               else 0) <= P.SMEM_LIMIT
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    assert plan.threads < plan.rois_per_block * plan.lanes_per_roi + 32
+    assert (plan.rois_per_block * plan.lanes_per_roi
+            + P.FORWARD_MAX_THREADS < 2 ** 31)
+
+
+def test_forward_plan_at_configs_3_and_4():
+    """Pairs of bf16 channels, a table a few KB, no block left short but an
+    image's last."""
+    for r in (512, 1000):
+        plan = P.plan_forward(16, r, 7, 10, 2, True)
+        assert plan.paired and plan.tabled and plan.lanes_per_roi == 245
+        assert plan.smem_bytes <= 48 * 1024          # no opt-in needed
+    assert not P.plan_forward(16, 512, 7, 10, 2, False).paired
+    assert not P.plan_forward(16, 512, 7, 5, 2, True).paired
+    with pytest.raises(ValueError, match="samples=0"):
+        P.plan_forward(1, 3, 7, 10, 0, True)
+
+
+def walk(plan, n: int, grid: int, c: int):
+    """The kernel's walk of a block of ``n`` rois, mirrored: for each
+    thread, its lanes e (blockDim.x apart) with the (roi, i, j, c) its
+    loop counters give."""
+    per_bin = c // 2 if plan.paired else c
+    per_roi = grid * grid * per_bin
+    t_roi, rest = divmod(plan.threads, per_roi)
+    t_c, t_i, t_j = rest % per_bin, rest // per_bin // grid, (
+        rest // per_bin % grid)
+    for t in range(plan.threads):
+        roi, rest = divmod(t, per_roi)
+        ch, i, j = rest % per_bin, rest // per_bin // grid, (
+            rest // per_bin % grid)
+        for e in range(t, n * per_roi, plan.threads):
+            yield e, (roi, i, j, ch)
+            ch += t_c
+            carry = ch >= per_bin
+            ch -= per_bin if carry else 0
+            j += t_j + carry
+            carry = j >= grid
+            j -= grid if carry else 0
+            i += t_i + carry
+            carry = i >= grid
+            i -= grid if carry else 0
+            roi += t_roi + carry
+
+
+@pytest.mark.parametrize("b,r,grid,c,samples", [
+    (16, 512, 7, 10, 2), (2, 40, 3, 3, 2), (1, 60, 7, 32, 4),
+    (2, 1, 7, 10, 2), (1, 5, 3, 2, 2)])
+def test_forward_walk_covers_every_output_once(b, r, grid, c, samples):
+    """The loop counters give each lane the (roi, i, j, c) that division
+    would, and the block's lanes cover its outputs once, in a full block
+    and in an image's last."""
+    plan = P.plan_forward(b, r, grid, c, samples, True)
+    per_bin = c // 2 if plan.paired else c
+    for n in {plan.rois_per_block, r - (plan.blocks_per_image - 1)
+              * plan.rois_per_block}:
+        lanes = [e for e, digits in walk(plan, n, grid, c)
+                 if digits == (e // (grid * grid * per_bin),
+                               e // per_bin // grid % grid,
+                               e // per_bin % grid, e % per_bin)]
+        assert sorted(lanes) == list(range(n * grid * grid * per_bin))
+
+
+def taps(rois: torch.Tensor, grid: int, samples: int, extent: int,
+         lo: int, hi: int):
+    """The kernel's tap table along one axis, mirrored (``make_tap``): for
+    each roi, cell and sample, the pixels of its two taps and their weights
+    1 - f and f, in fp32: ([R, k, S, 2] pixels, [R, k, S, 2] weights)."""
+    coords = P._sample_coords(rois, grid, samples, extent, lo, hi)
+    p0 = coords.floor()
+    f = coords - p0
+    pix = torch.stack([p0, (p0 + 1).clamp(max=extent - 1)], -1).long()
+    return pix, torch.stack([1.0 - f, f], -1)
+
+
+@pytest.mark.parametrize("samples", [1, 2, 3, 4])
+def test_tap_table_holds_the_triangular_weights(rng, samples):
+    """Summed over the samples, the taps' weights are ``_interp_weights``
+    (to an ulp: 1 - (p0 + 1 - c) against c - p0), and the forward from
+    them in the TPU kernel's separable form is the plain version's within
+    1e-5. Seeded, edge, zero-area, swapped and off-map rois."""
+    grid, c, h, w = 7, 3, 13, 17
+    rois = torch.from_numpy(np.concatenate([
+        EDGE_ROIS, random_rois(rng, 20), _outside_rois(rng, 20)]))
+    dense = []
+    for extent, lo, hi in ((h, 0, 2), (w, 1, 3)):
+        pix, wt = taps(rois, grid, samples, extent, lo, hi)
+        weights = torch.zeros(len(rois), grid, extent).scatter_add_(
+            -1, pix.flatten(2), wt.flatten(2))
+        want = P._interp_weights(P._sample_coords(
+            rois, grid, samples, extent, lo, hi), extent)
+        torch.testing.assert_close(weights, want, atol=1e-6, rtol=0)
+        dense.append(weights)
+    feat = torch.from_numpy(rng.normal(0, 1, (h, w, grid * grid * c)
+                                       ).astype(np.float32))
+    got = torch.einsum("rip,pqijc,rjq->rijc", dense[0],
+                       feat.view(h, w, grid, grid, c), dense[1]) / (
+        samples * samples)
+    ref = P.psroi_align_reference(feat[None], rois[None], grid, samples)[0]
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_forward_kernel_constants_mirror_the_source():
+    """The thread limit and the tap table's size the plan assumes are the
+    ones csrc/psroi_align.cu compiles and checks."""
+    src = (pathlib.Path(P.__file__).resolve().parent.parent / "csrc"
+           / "psroi_align.cu").read_text()
+    assert "constexpr int kMaxFwdThreads = 512;" in src
+    assert P.FORWARD_MAX_THREADS == 512
+    assert "struct Tap {\n  long long o0, o1;\n  float w0, w1;\n};" in src
+    assert P.FORWARD_TAP_BYTES == 2 * 8 + 2 * 4
+    assert ("2LL * rois_per_block * grid * samples * (long long)sizeof(Tap)"
+            in src)
+    assert P.forward_table_bytes(7, 2) == 2 * 7 * 2 * P.FORWARD_TAP_BYTES
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,9 @@ SIGNATURES = {
     # stream
     "xdt_fused_sepconv_tma": [_P] * 7 + [_I] * 13 + [_P],
     # features, rois, out, features_are_bf16,
-    # B, H, W, R, grid, C, samples, stream
-    "xdt_psroi_align_fwd": [_P] * 3 + [_I] * 8 + [_P],
+    # B, H, W, R, grid, C, samples, then the plan: threads, rois per block,
+    # paired, tabled, smem_bytes; stream
+    "xdt_psroi_align_fwd": [_P] * 3 + [_I] * 13 + [_P],
     # grad, rois, dfeat, roi extents (scratch), dfeat_is_bf16,
     # B, H, W, R, grid, C, samples, then the plan: threads, cap,
     # smem_bytes; stream

@@ -13,16 +13,54 @@
 // four-tap read equal to the triangular weights relu(1 - |p - px|) of
 // _interp_weights (psroi_align.py:99) that the TPU kernel contracts.
 //
-// Forward design: the direct gather form. One thread per output element
-// (b, r, i, j, c) with c fastest, so a warp reads C consecutive channels of
-// one pixel per tap. The TPU's slab / selector-matmul layout exists only to
-// feed the MXU and is not carried over. Features are bf16 or fp32 and
-// accumulate in fp32; the output is fp32.
+// Forward: out[b,r,i,j,c] = (1/S^2) sum over its S x S samples of the
+// bilinear read of feat[b, :, :, (i*k + j)*C + c]. Features are bf16 or
+// fp32 and accumulate in fp32; the output is fp32. The TPU's slab /
+// selector-matmul layout exists only to feed the MXU and is not carried
+// over: this is the direct gather.
 //
-// What bounds the forward: at config 3 (B=16, R=512, k=7, C=10, 50x50x490
-// maps) the output is 16 MB of fp32 and each image's thin map (2.45 MB in
-// bf16) sits in the 50 MB L2, so the bound is L2 gather traffic: S*S*4 = 16
-// reads per output element. It is small next to the backbone.
+// What bounded the first design (one thread an output element;
+// psroi_fwd_variants.py on an H100): not HBM (39.2 MB of map in and 16 MB
+// out at config 3, 0.0165 ms) but issue. Each thread decoded its index with
+// 64-bit divisions, and every thread of a roi recomputed the same sample
+// coordinates (four IEEE divisions a sample) and 64-bit addresses: with its
+// loads switched off it kept 75% of its 0.10 ms, with its coordinates from
+// constants 80%.
+//
+// Design (the host plans the launch: ops/psroi_align.py::plan_forward):
+//   * A block owns a run of rois of one image (2 at config 3: ~2 lanes of
+//     work a thread of 256; more lanes a thread left a tail of partly
+//     filled waves) and first writes their taps to shared memory, one
+//     thread a (roi, axis, cell, sample): the element offsets of the two
+//     neighbouring rows (or columns) and the weights 1 - f and f. The
+//     coordinate is rounded op by op with IEEE division, as the plain
+//     version does on the CPU and as the backward does (sample_coord_rn),
+//     so the forward and the backward read the same taps. A roi whose table
+//     exceeds the shared memory (k*S > 4842) makes its taps in each lane.
+//   * The threads walk the block's outputs, c fastest, blockDim.x lanes
+//     apart, by loop counters: a thread divides only to find its first lane
+//     and its step, in 32 bits. Lane e writes the block's e-th output, so a
+//     warp stores 256 contiguous bytes.
+//   * Where C is even and the map is aligned to two elements, a lane reads
+//     two channels a tap (__nv_bfloat162 or float2) and writes two outputs;
+//     else one. The wrapper picks the path from C and data_ptr().
+//   * S = 2 (every preset) is fixed at compile time, so a lane's 16 loads
+//     unroll and are in flight together; other S loop at run time.
+//
+// What bounds it now (config 3, on an H100): issue and latency, not HBM
+// and not the L2. With its loads switched off it keeps ~60% of its time (the
+// walk, the table and the 16 MB of stores); the gather asks for 9.7 M
+// 32-byte sectors (310 MB, counted from the rois; ~6.4 bins, each a 20-byte
+// run in its own line, per warp load), which at the 0.014 ms the loads add
+// would be ~22 TB/s if L1 served none of it. Reading each distinct pixel of
+// a bin once (a table of distinct rows and columns with summed weights)
+// cost more issue than the reads it saved, and was dropped.
+//
+// Switches for psroi_fwd_variants.py's measurements, each giving wrong
+// results on purpose: XDT_FWD_NO_LOAD (a value from the tap's address in
+// place of each load), XDT_FWD_CONST_TABLE (taps from the cell and sample
+// alone: no roi loads, no divisions) and XDT_FWD_RUNTIME_SAMPLES (S = 2 not
+// fixed at compile time).
 //
 // Backward: dfeat[b,p,q,(i,j),c] = (1/S^2) sum_r wy[r,i,p] * (g[b,r,i,j,c] *
 // wx[r,j,q]), with wy[r,i,p] = sum_s relu(1 - |p - y_s|) (the same weights
@@ -89,69 +127,6 @@
 #include <stdint.h>
 
 namespace {
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// Sample coordinate along one axis, as _sample_coords computes it.
-__device__ __forceinline__ float sample_coord(float lo, float hi, int cell,
-                                              int s, int grid, int samples,
-                                              int extent) {
-  float span = (hi - lo) / (float)grid;
-  float sub = ((float)s + 0.5f) / (float)samples;
-  float norm = lo + ((float)cell + sub) * span;
-  float px = norm * (float)extent - 0.5f;
-  return fminf(fmaxf(px, 0.0f), (float)(extent - 1));
-}
-
-template <typename T>
-__global__ void psroi_align_fwd_kernel(const T* __restrict__ feat,
-                                       const float* __restrict__ rois,
-                                       float* __restrict__ out, int B, int H,
-                                       int W, int R, int grid, int C,
-                                       int samples) {
-  const int64_t total = (int64_t)B * R * grid * grid * C;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % C);
-  int64_t t = idx / C;
-  const int j = (int)(t % grid);
-  t /= grid;
-  const int i = (int)(t % grid);
-  t /= grid;
-  const int r = (int)(t % R);
-  const int b = (int)(t / R);
-
-  const float* roi = rois + ((int64_t)b * R + r) * 4;
-  const float ymin = roi[0], xmin = roi[1], ymax = roi[2], xmax = roi[3];
-  const int kkc = grid * grid * C;
-  const T* base = feat + (int64_t)b * H * W * kkc + (i * grid + j) * C + c;
-
-  float acc = 0.0f;
-  for (int sy = 0; sy < samples; ++sy) {
-    const float y = sample_coord(ymin, ymax, i, sy, grid, samples, H);
-    const float y0f = fminf(fmaxf(floorf(y), 0.0f), (float)(H - 1));
-    const float fy = y - y0f;
-    const int y0 = (int)y0f;
-    const int y1 = min(y0 + 1, H - 1);
-    for (int sx = 0; sx < samples; ++sx) {
-      const float x = sample_coord(xmin, xmax, j, sx, grid, samples, W);
-      const float x0f = fminf(fmaxf(floorf(x), 0.0f), (float)(W - 1));
-      const float fx = x - x0f;
-      const int x0 = (int)x0f;
-      const int x1 = min(x0 + 1, W - 1);
-      const float v00 = load_f(base + ((int64_t)y0 * W + x0) * kkc);
-      const float v01 = load_f(base + ((int64_t)y0 * W + x1) * kkc);
-      const float v10 = load_f(base + ((int64_t)y1 * W + x0) * kkc);
-      const float v11 = load_f(base + ((int64_t)y1 * W + x1) * kkc);
-      acc += (1.0f - fy) * (1.0f - fx) * v00 + (1.0f - fy) * fx * v01 +
-             fy * (1.0f - fx) * v10 + fy * fx * v11;
-    }
-  }
-  out[idx] = acc / (float)(samples * samples);
-}
 
 template <typename T>
 __device__ __forceinline__ void store_f(T* p, float v);
@@ -524,27 +499,242 @@ int launch_tiles(const float* grad, const float* rois, const float4* ext,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The forward kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxFwdThreads = 512;
+
+// One sample's bilinear read along one axis: the element offsets of its two
+// neighbouring rows (or columns) in the map, and their weights 1 - f and f.
+// Its size is mirrored by ops/psroi_align.py's FORWARD_TAP_BYTES.
+struct Tap {
+  long long o0, o1;
+  float w0, w1;
+};
+
+// The tap of sample s of cell `cell` along an axis of `extent` pixels that
+// lie `stride` elements apart, rounded as the plain version rounds it: the
+// coordinate op by op (sample_coord_rn), its floor, clamped neighbour and
+// fraction, and 1 - fraction.
+__device__ __forceinline__ Tap make_tap(float lo, float hi, int cell, int s,
+                                        int grid, int samples, int extent,
+                                        long long stride) {
+#ifdef XDT_FWD_CONST_TABLE
+  const int p0 = min(cell * samples + s, extent - 1);
+  const float f = 0.5f;
+#else
+  const float p = sample_coord_rn(lo, cell_span(lo, hi, grid), cell,
+                                  __fdiv_rn((float)s + 0.5f, (float)samples),
+                                  extent);
+  const float p0f = floorf(p);
+  const int p0 = (int)p0f;
+  const float f = __fsub_rn(p, p0f);
+#endif
+  Tap t;
+  t.o0 = p0 * stride;
+  t.o1 = min(p0 + 1, extent - 1) * stride;
+  t.w0 = __fsub_rn(1.0f, f);
+  t.w1 = f;
+  return t;
+}
+
+// A lane's channels at one tap: one value (.y unused), or with kPaired two
+// neighbours in one 4-byte (bf16) or 8-byte (fp32) load.
+template <bool kPaired>
+__device__ __forceinline__ float2 load_lane(const float* p) {
+#ifdef XDT_FWD_NO_LOAD
+  return make_float2((float)(reinterpret_cast<uintptr_t>(p) & 64), 1.0f);
+#else
+  if constexpr (kPaired) return __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(__ldg(p), 0.0f);
+#endif
+}
+
+template <bool kPaired>
+__device__ __forceinline__ float2 load_lane(const __nv_bfloat16* p) {
+#ifdef XDT_FWD_NO_LOAD
+  return make_float2((float)(reinterpret_cast<uintptr_t>(p) & 64), 1.0f);
+#else
+  if constexpr (kPaired)
+    return __bfloat1622float2(
+        __ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+  return make_float2(__bfloat162float(__ldg(p)), 0.0f);
+#endif
+}
+
+// One block: rois [r0, r0 + n) of image b, n <= rois_per_block, where
+// blockIdx.x = b * blocks_per_image + r0 / rois_per_block. With kTabled the
+// block first writes its rois' taps to shared memory, one thread a tap,
+// [roi][axis y, x][cell][sample]; without (a table beyond the shared
+// memory) each lane makes the taps it reads. Then the threads walk the
+// rois' lanes of work (roi, i, j, c), c fastest, one or (kPaired) two
+// channels a lane, blockDim.x lanes apart, by loop counters; lane e writes
+// the block's e-th output (or pair), so the stores are contiguous. kS > 0
+// fixes the samples per axis, so a lane's S*S*4 loads unroll.
+template <typename T, bool kPaired, bool kTabled, int kS>
+__global__ void __launch_bounds__(kMaxFwdThreads)
+    psroi_align_fwd_kernel(const T* __restrict__ feat,
+                           const float* __restrict__ rois,
+                           float* __restrict__ out, int H, int W, int R,
+                           int grid, int C, int samples, int rois_per_block,
+                           int blocks_per_image) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tap* table = reinterpret_cast<Tap*>(smem);
+  const int S = kS > 0 ? kS : samples;
+  const int b = blockIdx.x / blocks_per_image;
+  const int r0 = (blockIdx.x - b * blocks_per_image) * rois_per_block;
+  const int n = min(rois_per_block, R - r0);
+  const int kkc = grid * grid * C;
+  const long long row = (long long)W * kkc;
+  const float* box = rois + ((long long)b * R + r0) * 4;
+  if (kTabled) {
+    for (int e = threadIdx.x; e < n * 2 * grid * S; e += blockDim.x) {
+      const int line = e / S;                    // (roi, axis, cell)
+      const int s = e - line * S;
+      const int roi_axis = line / grid;
+      const int cell = line - roi_axis * grid;
+      const float* bx = box + (roi_axis >> 1) * 4 + (roi_axis & 1);
+      table[e] = make_tap(bx[0], bx[2], cell, s, grid, S,
+                          roi_axis & 1 ? W : H,
+                          roi_axis & 1 ? (long long)kkc : row);
+    }
+    __syncthreads();
+  }
+
+  // The thread's first lane of work as (roi, i, j, c), and its step of
+  // blockDim.x lanes in the same digits: the only divisions of the walk.
+  const int per_bin = kPaired ? C / 2 : C;
+  const int per_roi = grid * grid * per_bin;
+  int roi = threadIdx.x / per_roi;
+  int rest = threadIdx.x - roi * per_roi;
+  int c = rest % per_bin, i = rest / per_bin / grid;
+  int j = rest / per_bin - i * grid;
+  const int step_roi = blockDim.x / per_roi;
+  rest = blockDim.x - step_roi * per_roi;
+  const int step_c = rest % per_bin, step_i = rest / per_bin / grid;
+  const int step_j = rest / per_bin - step_i * grid;
+
+  const T* fb = feat + (long long)b * H * row;
+  float* ob = out + ((long long)b * R + r0) * kkc;
+  const float inv = 1.0f / (float)(S * S);
+  for (int e = threadIdx.x; e < n * per_roi; e += blockDim.x) {
+    const T* base = fb + (i * grid + j) * C + (kPaired ? 2 * c : c);
+    const Tap* ty = table + (roi * 2 * grid + i) * S;
+    const Tap* tx = table + ((roi * 2 + 1) * grid + j) * S;
+    const float* bx = box + roi * 4;
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int sy = 0; sy < S; ++sy) {
+      const Tap y = kTabled ? ty[sy]
+                            : make_tap(bx[0], bx[2], i, sy, grid, S, H, row);
+      const T* p0 = base + y.o0;
+      const T* p1 = base + y.o1;
+#pragma unroll
+      for (int sx = 0; sx < S; ++sx) {
+        const Tap x = kTabled ? tx[sx]
+                              : make_tap(bx[1], bx[3], j, sx, grid, S, W,
+                                         (long long)kkc);
+        const float2 v00 = load_lane<kPaired>(p0 + x.o0);
+        const float2 v01 = load_lane<kPaired>(p0 + x.o1);
+        const float2 v10 = load_lane<kPaired>(p1 + x.o0);
+        const float2 v11 = load_lane<kPaired>(p1 + x.o1);
+        // the plain version's weights, (1 - fy) * (1 - fx) and so on
+        const float w00 = __fmul_rn(y.w0, x.w0), w01 = __fmul_rn(y.w0, x.w1);
+        const float w10 = __fmul_rn(y.w1, x.w0), w11 = __fmul_rn(y.w1, x.w1);
+        a0 = fmaf(w11, v11.x, fmaf(w10, v10.x, fmaf(w01, v01.x,
+                                                    fmaf(w00, v00.x, a0))));
+        if (kPaired)
+          a1 = fmaf(w11, v11.y, fmaf(w10, v10.y, fmaf(w01, v01.y,
+                                                      fmaf(w00, v00.y, a1))));
+      }
+    }
+    if (kPaired)
+      reinterpret_cast<float2*>(ob)[e] = make_float2(a0 * inv, a1 * inv);
+    else
+      ob[e] = a0 * inv;
+    // the next lane, blockDim.x on: add the step digit by digit
+    c += step_c;
+    int carry = c >= per_bin;
+    c -= carry ? per_bin : 0;
+    j += step_j + carry;
+    carry = j >= grid;
+    j -= carry ? grid : 0;
+    i += step_i + carry;
+    carry = i >= grid;
+    i -= carry ? grid : 0;
+    roi += step_roi + carry;
+  }
+}
+
+template <typename T, bool kPaired>
+int launch_fwd(const T* feat, const float* rois, float* out, int B, int H,
+               int W, int R, int grid, int C, int samples, int threads,
+               int rois_per_block, bool tabled, int smem_bytes,
+               cudaStream_t s) {
+#ifdef XDT_FWD_RUNTIME_SAMPLES
+  const bool two = false;
+#else
+  const bool two = samples == 2;
+#endif
+  auto kernel = !tabled ? psroi_align_fwd_kernel<T, kPaired, false, 0>
+                : two   ? psroi_align_fwd_kernel<T, kPaired, true, 2>
+                        : psroi_align_fwd_kernel<T, kPaired, true, 0>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int per_image = (R + rois_per_block - 1) / rois_per_block;
+  kernel<<<(unsigned)(B * per_image), threads, smem_bytes, s>>>(
+      feat, rois, out, H, W, R, grid, C, samples, rois_per_block, per_image);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// features [B, H, W, k*k*C] bf16 or fp32 and rois [B, R, 4] fp32 -> out [B,
+// R, k, k, C] fp32. The launch plan (threads per block, rois per block, the
+// paired path, the tap table and its shared memory bytes) comes from
+// ops/psroi_align.py::plan_forward; the paired path needs C even and
+// features aligned to two elements.
 extern "C" int xdt_psroi_align_fwd(const void* features, const void* rois,
                                    void* out, int features_are_bf16, int B,
                                    int H, int W, int R, int grid, int C,
-                                   int samples, void* stream) {
-  const int64_t total = (int64_t)B * R * grid * grid * C;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+                                   int samples, int threads,
+                                   int rois_per_block, int paired, int tabled,
+                                   int smem_bytes, void* stream) {
+  const long long table =
+      2LL * rois_per_block * grid * samples * (long long)sizeof(Tap);
+  const uintptr_t pair_bytes = features_are_bf16 ? 4 : 8;
+  if (B < 1 || H < 1 || W < 1 || R < 1 || grid < 1 || C < 1 ||
+      samples < 1 || threads < 32 || threads > kMaxFwdThreads ||
+      threads % 32 || rois_per_block < 1 ||
+      smem_bytes != (tabled ? table : 0) ||
+      (long long)B * ((R + rois_per_block - 1) / rois_per_block) >
+          0x7fffffffLL ||
+      (paired && (C % 2 || reinterpret_cast<uintptr_t>(features) % pair_bytes ||
+                  reinterpret_cast<uintptr_t>(out) % 8)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rois);
+  float* o = static_cast<float*>(out);
   if (features_are_bf16) {
-    psroi_align_fwd_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(features),
-        static_cast<const float*>(rois), static_cast<float*>(out), B, H, W, R,
-        grid, C, samples);
-  } else {
-    psroi_align_fwd_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(features), static_cast<const float*>(rois),
-        static_cast<float*>(out), B, H, W, R, grid, C, samples);
+    const auto* f = static_cast<const __nv_bfloat16*>(features);
+    return paired ? launch_fwd<__nv_bfloat16, true>(
+                        f, r, o, B, H, W, R, grid, C, samples, threads,
+                        rois_per_block, tabled, smem_bytes, s)
+                  : launch_fwd<__nv_bfloat16, false>(
+                        f, r, o, B, H, W, R, grid, C, samples, threads,
+                        rois_per_block, tabled, smem_bytes, s);
   }
-  return (int)cudaGetLastError();
+  const auto* f = static_cast<const float*>(features);
+  return paired ? launch_fwd<float, true>(f, r, o, B, H, W, R, grid, C,
+                                          samples, threads, rois_per_block,
+                                          tabled, smem_bytes, s)
+                : launch_fwd<float, false>(f, r, o, B, H, W, R, grid, C,
+                                           samples, threads, rois_per_block,
+                                           tabled, smem_bytes, s);
 }
 
 // grad [B, R, k, k, C] fp32 and rois [B, R, 4] fp32 -> dfeat [B, H, W, k*k*C]

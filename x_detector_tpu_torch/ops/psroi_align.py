@@ -16,8 +16,10 @@ gather) and ``psroi_align_backward_reference`` (the transposed contractions
 of the JAX package's ``_bwd``). The gradient goes to the features only, in
 their dtype (fp32 sums, one rounding on store); the rois get none.
 
-The backward kernel's launch (pixel tile, threads, list capacity, shared
-memory) is planned here, on the host, by :func:`plan_backward`.
+The kernels' launches are planned here, on the host: the forward's (threads,
+rois per block, the paired-channel path, the tap table's shared memory) by
+:func:`plan_forward`, the backward's (pixel tile, threads, list capacity,
+shared memory) by :func:`plan_backward`.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ SMEM_PER_SM = 233472           # what an SM shares among its blocks, 1 KB each
 _COUNT_BYTES = 32 * 4          # the kernel's warp counts
 _WORK_BYTES = 32 * 32 * 4      # and its warps' work lists
 _ENTRY_BYTES = 16              # per listed roi: its index and bin masks
+# The forward kernel's limits and defaults; they mirror csrc/psroi_align.cu.
+FORWARD_MAX_THREADS = 512
+FORWARD_THREADS = 256
+FORWARD_LANES_PER_THREAD = 2   # a block takes rois for ~2 lanes a thread
+FORWARD_TAP_BYTES = 24         # a Tap: two int64 offsets, two fp32 weights
+_INT_MAX = 2 ** 31 - 1
 
 
 def _sample_coords(rois: torch.Tensor, grid: int, samples: int, extent: int,
@@ -96,6 +104,68 @@ def psroi_align_reference(features: torch.Tensor, rois: torch.Tensor,
     return acc.mean(dim=(3, 5))                          # [B, R, k, k, C]
 
 
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """Launch geometry of the forward kernel: ``blocks_per_image`` blocks
+    an image of ``threads`` threads, each block ``rois_per_block`` rois
+    (the last of an image fewer) and their ``lanes_per_roi`` lanes of work,
+    one channel a lane, or two with ``paired``; with ``tabled`` the rois'
+    taps in ``smem_bytes`` of shared memory."""
+    threads: int
+    rois_per_block: int
+    paired: bool
+    tabled: bool
+    smem_bytes: int
+    blocks_per_image: int
+    lanes_per_roi: int
+
+    def rois(self, block: int, r: int):
+        """(image, first roi, rois) of block ``block``, as the kernel
+        decodes blockIdx.x, for ``r`` rois an image."""
+        b, u = divmod(block, self.blocks_per_image)
+        r0 = u * self.rois_per_block
+        return b, r0, min(self.rois_per_block, r - r0)
+
+
+def forward_table_bytes(grid: int, samples: int) -> int:
+    """Shared memory of one roi's taps: k*S samples along y and along x."""
+    return 2 * grid * samples * FORWARD_TAP_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def plan_forward(b: int, r: int, grid: int, c: int, samples: int,
+                 aligned: bool, rois_per_block: int = 0,
+                 threads: int = FORWARD_THREADS) -> ForwardPlan:
+    """Pairs of channels where C is even and the features are aligned to
+    two elements (``aligned``); enough rois a block for about
+    FORWARD_LANES_PER_THREAD lanes a thread (or ``rois_per_block``), as
+    far as their taps fit the shared memory a block may use; taps made by
+    each lane only where one roi's table exceeds it."""
+    if grid < 1 or c < 1 or samples < 1 or r < 1 or b < 1:
+        raise ValueError(f"psroi_align: nothing to plan for B={b}, R={r}, "
+                         f"grid={grid}, C={c}, samples={samples}")
+    if not 32 <= threads <= FORWARD_MAX_THREADS or threads % 32:
+        raise ValueError(f"psroi_align: {threads} threads a block")
+    paired = c % 2 == 0 and aligned
+    lanes_per_roi = grid * grid * (c // 2 if paired else c)
+    table = forward_table_bytes(grid, samples)
+    tabled = table <= SMEM_LIMIT
+    if not rois_per_block:
+        rois_per_block = FORWARD_LANES_PER_THREAD * threads // lanes_per_roi
+    if tabled:
+        rois_per_block = min(rois_per_block, SMEM_LIMIT // table)
+    # a block's lanes are counted in int32, blockDim.x past the last
+    rois_per_block = max(1, min(rois_per_block, r, (
+        _INT_MAX - FORWARD_MAX_THREADS) // lanes_per_roi))
+    blocks_per_image = _ceil(r, rois_per_block)
+    if b * blocks_per_image > _INT_MAX:
+        raise ValueError(f"psroi_align: {b} x {blocks_per_image} blocks")
+    threads = min(threads, _ceil(rois_per_block * lanes_per_roi, 32) * 32)
+    return ForwardPlan(threads, rois_per_block, paired, tabled,
+                       rois_per_block * table if tabled else 0,
+                       blocks_per_image, lanes_per_roi)
+
+
 def _forward(features: torch.Tensor, rois: torch.Tensor, grid: int,
              samples: int) -> torch.Tensor:
     if features.device.type == "cpu":
@@ -112,7 +182,7 @@ def _forward(features: torch.Tensor, rois: torch.Tensor, grid: int,
         raise ValueError(f"bad shapes {tuple(features.shape)} / "
                          f"{tuple(rois.shape)}")
     b, h, w, kkc = features.shape
-    if kkc % (grid * grid) or rois.shape[0] != b:
+    if grid < 1 or kkc % (grid * grid) or rois.shape[0] != b:
         raise ValueError(f"{kkc} channels do not split into {grid}x{grid} "
                          f"groups, or batch {b} != {rois.shape[0]}")
     if not (features.is_contiguous() and rois.is_contiguous()):
@@ -122,13 +192,18 @@ def _forward(features: torch.Tensor, rois: torch.Tensor, grid: int,
                       device=features.device)
     if out.numel() == 0:
         return out
+    # a view may start at any element: pairs only from an aligned pointer
+    pair = 2 * features.element_size()
+    plan = plan_forward(b, r, grid, c, samples,
+                        features.data_ptr() % pair == 0)
     lib = _build.library()
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xdt_psroi_align_fwd(
             features.data_ptr(), rois.data_ptr(), out.data_ptr(),
             int(features.dtype == torch.bfloat16), b, h, w, r, grid, c,
-            samples, stream)
+            samples, plan.threads, plan.rois_per_block, int(plan.paired),
+            int(plan.tabled), plan.smem_bytes, stream)
     _build.check(err, "psroi_align")
     batched_psroi_align.launches += 1
     return out
