@@ -8,14 +8,16 @@ Phases; each raises on failure and the script then exits non-zero:
                 power limit.
   2. build   -- compiles x_detector_tpu_torch/csrc/*.cu with nvcc.
   3. kernels -- each kernel against its plain PyTorch version on the card,
-                at the shapes its main path gives it (config 3 for the
-                forward kernels, config 4 for PSROIAlign's backward, which
-                must also give the same bits twice), with the tolerance
-                stated; both timed with CUDA events, beside each kernel's
-                bound (utils/roofline.py) and, for B2, its first design
-                (the "wmma" route) and the unfused cuDNN pair as yardsticks.
-                B1's forward runs at config 3's R = 512 and config 4's R =
-                1000, each also timed by the profiler's device time of the
+                at the shapes its main paths give it (configs 3 and 1 and
+                xdet_xception for the forward kernels, config 4 for
+                PSROIAlign's backward, which must also give the same bits
+                twice), with the tolerance stated; both timed with CUDA
+                events, beside each kernel's bound (utils/roofline.py) and,
+                for B2 at config 3's shapes, its first design (the "wmma"
+                route) and the unfused cuDNN pair as yardsticks.
+                B1's forward runs at config 3's R = 512, config 4's R =
+                1000 and config 1's B = 1 (held to the plain version run on
+                the CPU), each also timed by the profiler's device time of the
                 kernel ("device_ms", "r1000_device_ms"): near 0.05 ms the
                 events measure the wrapper's host time as much as the card.
                 B1's backward takes a dense gradient and one shaped like a
@@ -27,7 +29,22 @@ Phases; each raises on failure and the script then exits non-zero:
                 invariants, batch time; then the same weights at 128 px on
                 the card (bf16, kernels) against the CPU (fp32, plain
                 versions).
-  5. train   -- config 4 (the same model, training, batch 16 at 800 px):
+  5. config1 -- config 1 (Light-Head R-CNN + ResNet-50 at 800 px), one
+                image at a time: seeded uint8 375 x 500 images resized on
+                the card by preprocess_for_eval, then build_eval_fn; B1's
+                forward once per image, B2 never.
+  6. ssd     -- config 2 (SSD + ResNet-50 at 512 px, approx_prefilter as the
+                preset sets it), batches of 8: no kernel launches; the
+                anchor count and the valid detections.
+  7. xdet    -- xdet_xception at 512 px with the fused separable conv,
+                batches of 8: B2 13 times a batch on the "tma" route, B1
+                never. Phases 5-7 each print launch counts, batch time,
+                images/s and peak memory, then hold the same weights at
+                128 px on the card (bf16, kernels) against the CPU (fp32,
+                plain versions): config 1 on the RPN outputs, the SSD models
+                on cls_logits and box_codes.
+  8. train   -- config 4 (the same model as config 3, training, batch 16 at
+                800 px):
                 synthetic batches made on the card on a 960 px canvas ->
                 preprocess_batch_for_train -> the train step, one warm-up
                 and TRAIN_STEPS timed steps: launch counts, finite losses,
@@ -70,6 +87,17 @@ B2_SHAPES = [
     (50, 50, 512, 1024, 2, 1, 0),       # stage4 sep0a
     (50, 50, 1024, 1024, 2, 1, 2),      # stage4 sep0b, sep1a/b
 ]
+# ... and per batch of xdet_xception at 512 px, B=8, the SSD presets' batch
+# (stage 4 at stride 32, not dilated: 13 calls, not 14)
+SSD_BATCH = 8
+XDET_B2_SHAPES = [
+    (128, 128, 128, 128, 1, 2, 2),      # stage1 sep0a/b, sep1a/b
+    (64, 64, 256, 256, 1, 1, 2),        # stage2 sep0b, sep1a/b
+    (32, 32, 512, 512, 1, 1, 2),        # stage3 sep0b, sep1a/b
+    (16, 16, 1024, 1024, 1, 1, 2),      # stage4 sep0b, sep1a/b
+]
+CONFIG1_IMAGES = 3         # timed images of config 1, after one warm-up
+CONFIG1_RAW_HW = (375, 500)  # a VOC-sized image, resized to 800 px
 # bf16 output: the kernel and the plain version round the same fp32 values,
 # but sum in other orders, so a tap or an output may land one bf16 step
 # (2^-8 relative) apart. Held to 1e-2 of the output's scale.
@@ -83,8 +111,8 @@ B1_REL_TOL = 1e-5
 # value) the other way.
 B1_BWD_REL_TOL = 1e-5
 BF16_STEP = 2.0 ** -7
-# The 128 px slice, bf16 with kernels on the card vs fp32 plain on the CPU,
-# through ~40 layers of random weights: bf16 keeps 8 significant bits.
+# The 128 px slices, bf16 with kernels on the card vs fp32 plain on the CPU,
+# through ~40-60 layers of random weights: bf16 keeps 8 significant bits.
 SLICE_REL_TOL = 1e-1
 # One train step at 128 px, card (bf16, kernels) against CPU (fp32, plain
 # versions) from the same weights, batch and RPN draws. bf16 rounds, and
@@ -150,7 +178,6 @@ def phase_build() -> float:
 
 
 def phase_kernels() -> list:
-    from x_detector_tpu_torch.ops import fused_sepconv as fs
     from x_detector_tpu_torch.ops import psroi_align as pa
     from x_detector_tpu_torch.psroi_bwd_variants import ohem_shaped
     from x_detector_tpu_torch.psroi_fwd_variants import (
@@ -161,67 +188,12 @@ def phase_kernels() -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
 
-    b2 = dict.fromkeys(("ms", "wmma_ms", "plain_ms", "cudnn_ms", "bound_ms",
-                        "bytes_bound_ms", "err"), 0.0)
-    for h, w, cin, cout, d, n_plain, n_res in B2_SHAPES:
-        x = randn(BATCH, h, w, cin).to(torch.bfloat16)
-        wd = randn(3, 3, cin) / 3.0
-        wp = randn(cin, cout) / cin ** 0.5
-        scale = 1.0 + 0.1 * randn(cout)
-        bias = 0.1 * randn(cout)
-        res = randn(BATCH, h, w, cout).to(torch.bfloat16)
-        ops = {route: fs.prepare_weights(wd, wp, scale, bias, route=route)
-               for route in fs.ROUTES}
-        for residual, calls in ((None, n_plain), (res, n_res)):
-            if not calls:
-                continue
-            kw = dict(dilation=d, relu=True, residual=residual)
-            tag = (f"B2 fused_sepconv {h}x{w} {cin}->{cout} d={d} "
-                   f"residual={residual is not None}")
-            before = dict(fs.fused_separable_conv.route_launches)
-            got = fs.fused_separable_conv(x, wd, wp, scale, bias, **kw)
-            if fs.fused_separable_conv.route_launches["tma"] != (
-                    before["tma"] + 1):
-                raise AssertionError(f"{tag}: did not take the tma route")
-            ref = fs.reference_separable_conv(x, wd, wp, scale, bias, **kw)
-            old = fs.fused_separable_conv_prepared(x, ops["wmma"], **kw)
-            torch.cuda.synchronize()
-            err, sc = max_rel_err(got, ref)
-            old_err, _ = max_rel_err(old, ref)
-            if not max(err, old_err) <= B2_REL_TOL * sc:
-                raise AssertionError(f"{tag}: max abs err {err:.3g} (wmma "
-                                     f"route {old_err:.3g}) > {B2_REL_TOL} x "
-                                     f"scale {sc:.3g}")
-            ms = cuda_ms(lambda: fs.fused_separable_conv_prepared(
-                x, ops["tma"], **kw))
-            old_ms = cuda_ms(lambda: fs.fused_separable_conv_prepared(
-                x, ops["wmma"], **kw))
-            plain = cuda_ms(lambda: fs.reference_separable_conv(
-                x, wd, wp, scale, bias, **kw))
-            cudnn = cuda_ms(unfused_cudnn(x, wd, wp, scale, bias, **kw))
-            bound, by = fs.bound_ms(BATCH, h, w, cin, cout,
-                                    residual is not None)
-            flop = 2.0 * BATCH * h * w * cin * (9 + cout)
-            log(f"{tag}: max abs err {err:.3g} (scale {sc:.3g}); kernel "
-                f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), bound "
-                f"{bound:.4f} ms ({by}), {bound / ms:.1%} of it; first "
-                f"design (wmma route) {old_ms:.4f} ms; plain {plain:.4f} ms; "
-                f"yardstick, unfused cuDNN pair + epilogue (several calls, "
-                f"not used by the port) {cudnn:.4f} ms; x{calls} per batch")
-            for key, v in (("ms", ms), ("wmma_ms", old_ms),
-                           ("plain_ms", plain), ("cudnn_ms", cudnn),
-                           ("bound_ms", bound)):
-                b2[key] += calls * v
-            if by == "bytes":
-                b2["bytes_bound_ms"] += calls * bound
-            b2["err"] = max(b2["err"], err)
-            del got, ref, old
+    b2 = time_b2(B2_SHAPES, BATCH, randn, yardsticks=True)
     log(f"B2 per batch of config 3 (14 calls): kernel {b2['ms']:.4f} ms, "
         f"first design (wmma route) {b2['wmma_ms']:.4f} ms, plain "
         f"{b2['plain_ms']:.4f} ms, unfused cuDNN yardstick "
         f"{b2['cudnn_ms']:.4f} ms, bound {b2['bound_ms']:.4f} ms "
         f"({b2['bound_ms'] / b2['ms']:.1%} of it)")
-
     # B1's forward at config 3 (512 proposals per image) and config 4
     # (1000 training proposals per image; its backward follows): held to
     # the plain version on the card, and, for the record, on the CPU, where
@@ -293,19 +265,49 @@ def phase_kernels() -> list:
         f"{bwd_bound[0] / bwd_ms['dense']:.1%} of it; plain "
         f"{bwd_plain_ms:.4f} ms; OHEM-shaped {bwd_ms['OHEM-shaped']:.4f} "
         f"ms; x1 per step")
-    # B2's 14 calls mix bytes-bound and operations-bound shapes: bound_by
-    # names the resource behind the larger part of their summed bound
-    b2_by = ("bytes" if b2["bytes_bound_ms"] * 2 >= b2["bound_ms"]
-             else "operations")
+    # the shapes this slice added, after the earlier ones, whose inputs
+    # stay those of the earlier runs
+    xdet = time_b2(XDET_B2_SHAPES, SSD_BATCH, randn, yardsticks=False)
+    log(f"B2 per batch of xdet_xception (13 calls): kernel "
+        f"{xdet['ms']:.4f} ms, plain {xdet['plain_ms']:.4f} ms, bound "
+        f"{xdet['bound_ms']:.4f} ms ({xdet['bound_ms'] / xdet['ms']:.1%} "
+        f"of it)")
+    # B1's forward at config 1: one image, 512 proposals, held to the plain
+    # version run on the CPU
+    feat1 = randn(1, size, size, grid * grid * c).to(torch.bfloat16)
+    rois1 = config_rois(gen, 1, 512, dev)
+    fwd1 = lambda: pa.batched_psroi_align(feat1, rois1, grid)
+    got = fwd1()
+    err, sc = max_rel_err(got.cpu(), pa.psroi_align_reference(
+        feat1.cpu(), rois1.cpu(), grid))
+    if not err <= B1_REL_TOL * sc:
+        raise AssertionError(f"B1 psroi_align at config 1 (B=1, R=512): max "
+                             f"abs err {err:.3g} against the plain version "
+                             f"on the CPU > {B1_REL_TOL} x scale {sc:.3g}")
+    c1 = {"err": err, "ms": cuda_ms(fwd1), "device_ms": fwd_device_ms(fwd1),
+          "plain_ms": cuda_ms(lambda: pa.psroi_align_reference(
+              feat1, rois1, grid)),
+          "bound": psroi_bound(feat1, rois1)}
+    log(f"B1 psroi_align [1,{size},{size},{grid * grid * c}] bf16 x [1,512,4]"
+        f" (config 1): max abs err {err:.3g} against the plain version on "
+        f"the CPU (scale {sc:.3g}); kernel {c1['device_ms']:.4f} ms device "
+        f"time ({c1['ms']:.4f} ms by events around the wrapper), bound "
+        f"{c1['bound'][0]:.4f} ms ({c1['bound'][1]}), "
+        f"{c1['bound'][0] / c1['device_ms']:.1%} of it; plain "
+        f"{c1['plain_ms']:.4f} ms; x1 per image")
+    del got
     return [
         {"name": "fused_sepconv", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/fused_sepconv.cu",
          "replaces": "x_detector_tpu/ops/pallas/fused_sepconv.py:120",
          "max_abs_err": b2["err"], "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
-         "bound_by": b2_by, "library_ms": None,
+         "bound_by": b2["by"], "library_ms": None,
          "previous_design_ms": b2["wmma_ms"],
-         "unfused_cudnn_yardstick_ms": b2["cudnn_ms"]},
+         "unfused_cudnn_yardstick_ms": b2["cudnn_ms"],
+         "xdet_ms": xdet["ms"], "xdet_plain_ms": xdet["plain_ms"],
+         "xdet_bound_ms": xdet["bound_ms"], "xdet_bound_by": xdet["by"],
+         "xdet_max_abs_err": xdet["err"]},
         {"name": "psroi_align", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
          "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:72",
@@ -318,7 +320,10 @@ def phase_kernels() -> list:
          "r1000_bound_ms": b1[1000]["bound"][0],
          "r1000_plain_ms": b1[1000]["plain_ms"],
          "max_abs_err_cpu_plain": max(b1[512]["cpu_err"],
-                                      b1[1000]["cpu_err"])},
+                                      b1[1000]["cpu_err"], c1["err"]),
+         "config1_ms": c1["ms"], "config1_device_ms": c1["device_ms"],
+         "config1_bound_ms": c1["bound"][0],
+         "config1_plain_ms": c1["plain_ms"]},
         {"name": "psroi_align_backward", "route": "cuda",
          "source": "x_detector_tpu_torch/csrc/psroi_align.cu",
          "replaces": "x_detector_tpu/ops/pallas/psroi_align_kernel.py:169",
@@ -327,6 +332,87 @@ def phase_kernels() -> list:
          "bound_by": bwd_bound[1], "library_ms": None,
          "ohem_shaped_ms": bwd_ms["OHEM-shaped"]},
     ]
+
+
+def time_b2(shapes, batch: int, randn, yardsticks: bool) -> dict:
+    """Kernel B2 at each of ``shapes`` (H, W, Cin, Cout, d, calls without
+    residual, calls with it) and ``batch``: held to the plain version within
+    B2_REL_TOL of the output's scale on the "tma" route (and, with
+    ``yardsticks``, on the "wmma" route), then timed beside its bound, the
+    plain version and, with ``yardsticks``, the first design and the
+    unfused cuDNN pair. Returns the per-batch sums, weighted by the calls,
+    the worst error, and "by": the resource behind the larger part of the
+    summed bound, since the shapes mix bytes-bound and operations-bound
+    calls."""
+    from x_detector_tpu_torch.ops import fused_sepconv as fs
+    tot = dict.fromkeys(("ms", "wmma_ms", "plain_ms", "cudnn_ms",
+                         "bound_ms", "bytes_bound_ms", "err"), 0.0)
+    for h, w, cin, cout, d, n_plain, n_res in shapes:
+        x = randn(batch, h, w, cin).to(torch.bfloat16)
+        wd = randn(3, 3, cin) / 3.0
+        wp = randn(cin, cout) / cin ** 0.5
+        scale = 1.0 + 0.1 * randn(cout)
+        bias = 0.1 * randn(cout)
+        res = randn(batch, h, w, cout).to(torch.bfloat16)
+        routes = fs.ROUTES if yardsticks else ("tma",)
+        ops = {route: fs.prepare_weights(wd, wp, scale, bias, route=route)
+               for route in routes}
+        for residual, calls in ((None, n_plain), (res, n_res)):
+            if not calls:
+                continue
+            kw = dict(dilation=d, relu=True, residual=residual)
+            tag = (f"B2 fused_sepconv [{batch},{h},{w}] {cin}->{cout} d={d} "
+                   f"residual={residual is not None}")
+            before = dict(fs.fused_separable_conv.route_launches)
+            got = fs.fused_separable_conv(x, wd, wp, scale, bias, **kw)
+            if fs.fused_separable_conv.route_launches["tma"] != (
+                    before["tma"] + 1):
+                raise AssertionError(f"{tag}: did not take the tma route")
+            ref = fs.reference_separable_conv(x, wd, wp, scale, bias, **kw)
+            outs = {"tma": got}
+            if yardsticks:
+                outs["wmma"] = fs.fused_separable_conv_prepared(
+                    x, ops["wmma"], **kw)
+            torch.cuda.synchronize()
+            errs = {route: max_rel_err(out, ref) for route, out in
+                    outs.items()}
+            err, sc = errs["tma"]
+            worst = max(e for e, _ in errs.values())
+            if not worst <= B2_REL_TOL * sc:
+                raise AssertionError(f"{tag}: max abs err by route "
+                                     f"{ {k: v[0] for k, v in errs.items()} }"
+                                     f" > {B2_REL_TOL} x scale {sc:.3g}")
+            t = {"ms": cuda_ms(lambda: fs.fused_separable_conv_prepared(
+                     x, ops["tma"], **kw)),
+                 "plain_ms": cuda_ms(lambda: fs.reference_separable_conv(
+                     x, wd, wp, scale, bias, **kw))}
+            if yardsticks:
+                t["wmma_ms"] = cuda_ms(
+                    lambda: fs.fused_separable_conv_prepared(
+                        x, ops["wmma"], **kw))
+                t["cudnn_ms"] = cuda_ms(unfused_cudnn(x, wd, wp, scale, bias,
+                                                      **kw))
+            bound, by = fs.bound_ms(batch, h, w, cin, cout,
+                                    residual is not None)
+            flop = 2.0 * batch * h * w * cin * (9 + cout)
+            extra = (f"; first design (wmma route) {t['wmma_ms']:.4f} ms "
+                     f"(max abs err {errs['wmma'][0]:.3g}); yardstick, "
+                     f"unfused cuDNN pair + epilogue (several calls, not "
+                     f"used by the port) {t['cudnn_ms']:.4f} ms"
+                     if yardsticks else "")
+            log(f"{tag}: max abs err {err:.3g} (scale {sc:.3g}); kernel "
+                f"{t['ms']:.4f} ms ({flop / t['ms'] / 1e9:.1f} TFLOP/s), "
+                f"bound {bound:.4f} ms ({by}), {bound / t['ms']:.1%} of it; "
+                f"plain {t['plain_ms']:.4f} ms{extra}; x{calls} per batch")
+            for key, v in dict(t, bound_ms=bound).items():
+                tot[key] += calls * v
+            if by == "bytes":
+                tot["bytes_bound_ms"] += calls * bound
+            tot["err"] = max(tot["err"], err)
+            del got, ref, outs
+    tot["by"] = ("bytes" if tot["bytes_bound_ms"] * 2 >= tot["bound_ms"]
+                 else "operations")
+    return tot
 
 
 def psroi_bound(feat, rois, samples: int = 2):
@@ -382,8 +468,9 @@ def config_rois(gen, batch: int, r: int, dev) -> torch.Tensor:
 
 
 def slice_model(model_cfg, device, seed: int = SEED):
-    """Config-3 model with seeded random weights and BatchNorm statistics
-    moved off their initial values, so the folded affine is not identity."""
+    """The config's model with seeded random weights and BatchNorm
+    statistics moved off their initial values, so the folded affine is not
+    identity."""
     from x_detector_tpu_torch.inference import build_model
     from x_detector_tpu_torch.models.layers import BatchNorm2D
     model = build_model(model_cfg, "cpu", seed=seed)
@@ -418,30 +505,34 @@ def check_detections(boxes, scores, classes, valid, batch: int,
 
 
 def run_slice(cfg, device, batches: int = SLICE_BATCHES,
-              batch_size: int = BATCH, seed: int = SEED) -> dict:
-    """Drive the main path: seeded uint8 images -> preprocess_for_eval ->
-    build_eval_fn, one warm-up batch then ``batches`` timed ones. Returns
-    the kernels' launch counts over all of them (and B2's by route), what
-    they should be, the timed seconds per batch and the detections of the
-    last batch."""
+              batch_size: int = BATCH, seed: int = SEED,
+              raw_hw=None) -> dict:
+    """Drive an inference path: seeded uint8 images (``raw_hw`` high and
+    wide, the canvas by default) -> preprocess_for_eval -> build_eval_fn,
+    one warm-up batch then ``batches`` timed ones. Returns every kernel's
+    launch count over all of them (and B2's by route), what the model
+    should give (B2 a fused block a batch, B1's forward one a batch for
+    Light-Head, B1's backward none), the timed seconds per batch, the
+    anchor count and the detections of the last batch."""
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
     from x_detector_tpu_torch.inference import build_eval_fn
     from x_detector_tpu_torch.ops import fused_sepconv as fs
-    from x_detector_tpu_torch.ops.psroi_align import batched_psroi_align
     device = torch.device(device)
     model = slice_model(cfg.model, device, seed)
     detect = build_eval_fn(model, cfg, device)
-    fused_per_batch = fused_blocks(model)
     size = cfg.model.image_size
+    h, w = raw_hw or (size, size)
     gen = torch.Generator(device=device).manual_seed(seed)
-    images = [torch.randint(0, 256, (batch_size, size, size, 3),
-                            generator=gen, dtype=torch.uint8, device=device)
+    images = [torch.randint(0, 256, (batch_size, h, w, 3), generator=gen,
+                            dtype=torch.uint8, device=device)
               for _ in range(batches + 1)]
     sync = (lambda: torch.cuda.synchronize(device)) if (
         device.type == "cuda") else (lambda: None)
+    counters = kernel_counters()
     sync()
     fs.reset_launches()
-    batched_psroi_align.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     seconds = []
     for u8 in images:
         t0 = time.perf_counter()
@@ -449,38 +540,79 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
         sync()
         seconds.append(time.perf_counter() - t0)
         check_detections(*det, batch_size, cfg.model.nms.max_output)
-    launches = {"fused_sepconv": fs.fused_separable_conv.launches,
-                "psroi_align": batched_psroi_align.launches}
-    return {"launches": launches,
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n = len(images)
+    return {"launches": launches, "batches": n,
             "routes": dict(fs.fused_separable_conv.route_launches),
-            "expected": {"fused_sepconv": fused_per_batch * len(images),
-                         "psroi_align": len(images)},
-            "seconds": seconds[1:], "detections": det}
+            "expected": {"fused_sepconv": fused_blocks(model) * n,
+                         "psroi_align": n if cfg.model.family == "lighthead"
+                         else 0,
+                         "psroi_align_backward": 0},
+            "seconds": seconds[1:], "anchors": model.anchors.shape[0],
+            "detections": det}
 
 
-def slice_reference_check(model_cfg, device) -> float:
+def check_slice(tag: str, res: dict, per_batch: dict) -> None:
+    """Fails unless the model gives ``per_batch`` launches of each kernel a
+    batch, the path launched exactly that many, and every B2 launch took
+    the "tma" route."""
+    want = {name: v * res["batches"] for name, v in per_batch.items()}
+    if res["expected"] != want:
+        raise AssertionError(f"{tag} should launch {per_batch} a batch; the "
+                             f"model gives {res['expected']} over "
+                             f"{res['batches']} batches")
+    if res["launches"] != want:
+        raise AssertionError(f"{tag}: launches {res['launches']} on the main"
+                             f" path, expected {want}")
+    if res["routes"] != {"tma": want["fused_sepconv"], "wmma": 0}:
+        raise AssertionError(f"{tag}: every B2 call must take the tma route;"
+                             f" the routes were {res['routes']}")
+
+
+def report_slice(tag: str, res: dict, batch: int) -> None:
+    secs = res["seconds"]
+    mean = sum(secs) / len(secs)
+    n_valid = int(res["detections"][3].sum().item())
+    log(f"{tag}, batch {batch}: launches {res['launches']} (B2 by route "
+        f"{res['routes']}) over {res['batches']} batches; batch times "
+        f"{[round(t * 1e3, 2) for t in secs]} ms, mean {mean * 1e3:.2f} ms = "
+        f"{batch / mean:.1f} images/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{res['anchors']} anchors; {n_valid} valid detections in the last "
+        f"batch")
+
+
+def named_outputs(out) -> dict:
+    """A model's outputs by name: Light-Head's dict, SSD's pair."""
+    if isinstance(out, dict):
+        return out
+    return dict(zip(("cls_logits", "box_codes"), out))
+
+
+def slice_reference_check(model_cfg, device, keys) -> float:
     """The same seeded weights at 128 px: bf16 with kernels on ``device``
-    against fp32 plain versions on the CPU, on the RPN outputs (before any
-    discrete NMS choice)."""
-    from x_detector_tpu_torch.models.lighthead import LightHeadRCNN
+    against fp32 plain versions on the CPU, on the outputs ``keys`` (for
+    Light-Head the RPN's, before any discrete NMS choice; for SSD the raw
+    head outputs)."""
+    from x_detector_tpu_torch.inference import build_model
     cfg = dataclasses.replace(model_cfg, image_size=128)
     gpu = slice_model(cfg, device).eval()
-    cpu = LightHeadRCNN(cfg, dtype=torch.float32).eval()
+    cpu = build_model(cfg, "cpu", seed=None, dtype=torch.float32)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     gen = torch.Generator().manual_seed(SEED)
     x = torch.randint(0, 256, (2, 128, 128, 3), generator=gen
                       ).float() - 120.0
     with torch.inference_mode():
-        got = gpu(x.to(device))
-        ref = cpu(x)
+        got = named_outputs(gpu(x.to(device)))
+        ref = named_outputs(cpu(x))
     worst = 0.0
-    for key in ("rpn_cls", "rpn_loc"):
+    for key in keys:
         err, sc = max_rel_err(got[key].cpu(), ref[key])
-        log(f"slice 128px {key}: card bf16 vs CPU fp32 max abs err {err:.3g}"
-            f" (scale {sc:.3g})")
+        log(f"{model_cfg.name} 128px {key}: card bf16 vs CPU fp32 max abs "
+            f"err {err:.3g} (scale {sc:.3g})")
         if not err <= SLICE_REL_TOL * sc:
-            raise AssertionError(f"slice {key}: {err:.3g} > {SLICE_REL_TOL}"
-                                 f" x scale {sc:.3g}")
+            raise AssertionError(f"{model_cfg.name} 128px {key}: {err:.3g} >"
+                                 f" {SLICE_REL_TOL} x scale {sc:.3g}")
         worst = max(worst, err / sc)
     return worst
 
@@ -671,49 +803,63 @@ def train_reference_check(device) -> dict:
     return readings
 
 
+def fused(cfg):
+    """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
+    as config 3 runs it."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_fused_sepconv=True))
+
+
 def main() -> int:
     smi = phase_device()
-    from x_detector_tpu_torch.config import lighthead_xception
+    from x_detector_tpu_torch.config import (lighthead_resnet50,
+                                             lighthead_xception,
+                                             ssd_resnet50, xdet_xception)
     phase_build()
     kernels = phase_kernels()
 
-    cfg = lighthead_xception(800)
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, backbone_fused_sepconv=True))
+    paths = {}
+    # config 3, the first main path: B2 14 times and B1's forward once a
+    # batch
+    cfg = fused(lighthead_xception(800))
     torch.cuda.reset_peak_memory_stats()
-    backward = kernel_counters()["psroi_align_backward"]
-    backward.launches = 0
-    res = run_slice(cfg, "cuda")
+    paths["slice"] = res = run_slice(cfg, "cuda")
+    check_slice("config 3", res, {"fused_sepconv": 14, "psroi_align": 1,
+                                  "psroi_align_backward": 0})
+    report_slice("slice: config 3 at 800 px, fused sepconv", res, BATCH)
+    slice_reference_check(cfg.model, "cuda", ("rpn_cls", "rpn_loc"))
     torch.cuda.synchronize()
-    res["launches"]["psroi_align_backward"] = backward.launches
-    if backward.launches:
-        raise AssertionError(f"inference launched B1's backward "
-                             f"{backward.launches} times")
-    n_batches = len(res["seconds"]) + 1
-    if res["expected"] != {"fused_sepconv": 14 * n_batches,
-                           "psroi_align": n_batches}:
-        raise AssertionError(f"config 3 should run B2 14 times and B1 once "
-                             f"per batch; the model gives {res['expected']}")
-    for name, want in res["expected"].items():
-        got = res["launches"][name]
-        if got != want:
-            raise AssertionError(f"{name} launched {got} times on the main "
-                                 f"path, expected {want}")
-    if res["routes"] != {"tma": 14 * n_batches, "wmma": 0}:
-        raise AssertionError(f"all 14 B2 calls per batch must take the tma "
-                             f"route; the routes were {res['routes']}")
-    secs = res["seconds"]
-    mean = sum(secs) / len(secs)
-    n_valid = int(res["detections"][3].sum().item())
-    log(f"slice: config 3, batch {BATCH} at 800 px, fused sepconv: "
-        f"launches {res['launches']} (B2 by route {res['routes']}) over "
-        f"{n_batches} batches; batch "
-        f"times {[round(s * 1e3, 2) for s in secs]} ms, mean "
-        f"{mean * 1e3:.2f} ms = {BATCH / mean:.1f} images/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"{n_valid} valid detections in the last batch")
-    slice_reference_check(cfg.model, "cuda")
+
+    # config 1: one VOC-sized image at a time, resized to 800 px on the
+    # card; B1's forward once an image, B2 never
+    cfg = lighthead_resnet50(800)
+    torch.cuda.reset_peak_memory_stats()
+    paths["config1"] = res = run_slice(cfg, "cuda", batches=CONFIG1_IMAGES,
+                                       batch_size=1, raw_hw=CONFIG1_RAW_HW)
+    check_slice("config 1", res, {"fused_sepconv": 0, "psroi_align": 1,
+                                  "psroi_align_backward": 0})
+    report_slice(f"config1: Light-Head + ResNet-50 at 800 px from "
+                 f"{CONFIG1_RAW_HW[0]} x {CONFIG1_RAW_HW[1]} uint8 images",
+                 res, 1)
+    slice_reference_check(cfg.model, "cuda", ("rpn_cls", "rpn_loc"))
     torch.cuda.synchronize()
+
+    # config 2 (SSD + ResNet-50) and xdet_xception with the fused separable
+    # conv: no kernel, and B2 13 times a batch
+    for path, cfg, per_batch in (
+            ("ssd", ssd_resnet50(512), {"fused_sepconv": 0, "psroi_align": 0,
+                                        "psroi_align_backward": 0}),
+            ("xdet", fused(xdet_xception(512)), {"fused_sepconv": 13,
+                                                 "psroi_align": 0,
+                                                 "psroi_align_backward": 0})):
+        torch.cuda.reset_peak_memory_stats()
+        paths[path] = res = run_slice(cfg, "cuda", batch_size=SSD_BATCH)
+        check_slice(cfg.model.name, res, per_batch)
+        report_slice(f"{path}: {cfg.model.name} at 512 px, approx_prefilter="
+                     f"{cfg.model.nms.approx_prefilter} (the exact top-k)",
+                     res, SSD_BATCH)
+        slice_reference_check(cfg.model, "cuda", ("cls_logits", "box_codes"))
+        torch.cuda.synchronize()
 
     cfg = train_config()
     torch.cuda.reset_peak_memory_stats()
@@ -748,10 +894,10 @@ def main() -> int:
     train_reference_check("cuda")
     torch.cuda.synchronize()
 
-    res["launches"]["fused_sepconv"] = res["routes"]["tma"]
+    paths["train"] = train
     for k in kernels:
-        by_path = {"slice": res["launches"][k["name"]],
-                   "train": train["launches"][k["name"]]}
+        by_path = {path: run["launches"][k["name"]]
+                   for path, run in paths.items()}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     log(json.dumps({"kernels": kernels}))

@@ -66,6 +66,13 @@ def _sepconv_args(gen, b, h, w, cin, cout, d, res):
     (1, 37, 53, 64, 96, 1, True),       # tiles ragged in H and W and Cout
     (2, 13, 29, 72, 24, 2, False),      # halos across both images' edges
     (1, 20, 20, 1536, 256, 1, True),    # Cin above the wmma route's 1088
+    # xdet_xception's stage shapes at 512 px: stage 4 at stride 32, d = 1,
+    # the last at its batch of 8 (fewer work units than SMs)
+    (1, 128, 128, 128, 128, 1, True),
+    (2, 64, 64, 256, 256, 1, True),
+    (2, 32, 32, 512, 512, 1, False),
+    (8, 16, 16, 1024, 1024, 1, False),
+    (8, 16, 16, 1024, 1024, 1, True),
 ])
 def test_fused_sepconv_kernel_matches_plain(dev, b, h, w, cin, cout, d, res):
     """bf16 output: one bf16 step (2^-8 relative) apart at most, from fp32
@@ -147,15 +154,16 @@ def _chip_smoke():
 
 
 # (B, H, W, R, grid, C, samples) of the forward's cases: the first design's
-# test, config 3 and config 4 at B = 2, odd C (the scalar path), C = 20 and
-# 32 with S = 1, 3 and 4, one roi, none, rois outside [0, 1], features at an
-# odd element offset (the scalar path), a table beyond 48 KB (k = 2240, S =
-# 2: 210 KB) and one beyond the shared memory (k*S = 4900: each lane makes
-# its taps)
+# test, config 3 and config 4 at B = 2, config 1 at its B = 1, odd C (the
+# scalar path), C = 20 and 32 with S = 1, 3 and 4, one roi, none, rois
+# outside [0, 1], features at an odd element offset (the scalar path), a
+# table beyond 48 KB (k = 2240, S = 2: 210 KB) and one beyond the shared
+# memory (k*S = 4900: each lane makes its taps)
 PSROI_FORWARD_CASES = {
     "first_design": (2, 13, 17, 300, 7, 10, 2),
     "config_3": (2, 50, 50, 512, 7, 10, 2),
     "config_4": (2, 50, 50, 1000, 7, 10, 2),
+    "config_1": (1, 50, 50, 512, 7, 10, 2),
     "odd_c": (2, 9, 5, 40, 3, 3, 2),
     "c20_s1": (2, 13, 17, 100, 7, 20, 1),
     "c20_s4": (1, 23, 11, 70, 7, 20, 4),

@@ -174,6 +174,29 @@ def test_tma_plan_tiles_cover_every_output_once(b, h, w, cin, cout, d):
     assert (seen == 1).all()
 
 
+# Kernel B2's shapes in xdet_xception at 512 px (stage 4 at stride 32, not
+# dilated), batch 8, as chip_smoke.XDET_B2_SHAPES lists them.
+XDET_SHAPES = [(128, 128, 128, 128, 1), (64, 64, 256, 256, 1),
+               (32, 32, 512, 512, 1), (16, 16, 1024, 1024, 1)]
+
+
+@pytest.mark.parametrize("h,w,cin,cout,d", XDET_SHAPES)
+def test_tma_plan_at_xdet_shapes(h, w, cin, cout, d):
+    """At batch 8 each plan fits a block's shared memory, and its units
+    cover every output once. At 16 x 16 x 1024 there are fewer units than
+    SMs: the persistent grid then takes one block a unit."""
+    p = F.plan_launch(8, h, w, cin, cout, d, 132)
+    assert p.smem_bytes <= 232448 and 2 <= p.stages <= F.MAX_STAGES
+    assert p.grid == min(p.units, 132)
+    if h == 16:
+        assert p.units < 132 and p.grid == p.units
+    seen = np.zeros((8, h, w, cout), np.int8)
+    for u in range(p.units):
+        bi, h0, w0, n0 = p.unit(u)
+        seen[bi, h0:h0 + p.th, w0:w0 + p.tw, n0:n0 + p.bn] += 1
+    assert (seen == 1).all()
+
+
 @pytest.mark.parametrize("h,w,cin,cout,res,ms,by", [
     (200, 200, 128, 128, False, 0.098, "bytes"),
     (200, 200, 128, 128, True, 0.147, "bytes"),

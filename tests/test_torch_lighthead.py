@@ -173,8 +173,14 @@ def test_preprocess_for_eval_matches_jax():
     got = preprocess_for_eval(torch.from_numpy(u8), cfg)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError):
-        preprocess_for_eval(torch.zeros(1, 16, 32, 3), cfg)
+    # another size than the canvas is resized to it, as JAX does (two fp32
+    # contractions of up to 32 terms in another order: 1e-4 on [0, 255])
+    small = u8[:, :16]
+    ref = np.stack([np.asarray(jax_preprocess(jnp.asarray(im), cfg))
+                    for im in small])
+    got = preprocess_for_eval(torch.from_numpy(small), cfg)
+    assert got.shape == (2, 32, 32, 3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
 
 
 def test_build_model_seeded_init_is_flax_like():

@@ -98,10 +98,31 @@ def test_batched_multiclass_nms_per_class_boxes_matches_jax(rng):
     _assert_same(got, ref)      # 3 x 100 < 400 slots: the padded tail too
 
 
-def test_approx_prefilter_is_refused():
-    with pytest.raises(NotImplementedError):
-        N.batched_multiclass_nms(torch.zeros(1, 4, 4), torch.zeros(1, 4, 2),
-                                 10, approx_prefilter=True)
+@pytest.mark.parametrize("per_class_boxes", [False, True])
+def test_approx_prefilter_matches_jax(rng, per_class_boxes):
+    """``approx_prefilter=True`` against JAX's ``multiclass_nms`` with the
+    same flag, past the 256 candidates so that the prefilter runs: off the
+    TPU, XLA lowers ``lax.approx_max_k`` to an exact top-k, the port's
+    exact stable top-k. Distinct scores (on exact ties JAX's batched
+    fallback may pick other candidates than ``lax.top_k``); the result is
+    also the port's with the flag off."""
+    b, n, c = 2, 400, 3
+    boxes = np.stack([random_cluttered_boxes(rng, n)[0] for _ in range(b)])
+    if per_class_boxes:
+        boxes = np.stack([boxes] + [np.roll(boxes, k, axis=1)
+                                    for k in range(1, c)], axis=2)
+    scores = np.stack([rng.permutation(n * c) for _ in range(b)]
+                      ).reshape(b, n, c).astype(np.float32) / (n * c)
+    kw = dict(max_output=150, iou_threshold=0.45, score_threshold=0.01)
+    ref = jax_nms.batched_multiclass_nms(jnp.asarray(boxes),
+                                         jnp.asarray(scores),
+                                         approx_prefilter=True, **kw)
+    got = N.batched_multiclass_nms(T(boxes), T(scores),
+                                   approx_prefilter=True, **kw)
+    _assert_same(got, ref)
+    exact = N.batched_multiclass_nms(T(boxes), T(scores), **kw)
+    for g, e in zip(got, exact):
+        assert torch.equal(g, e)
 
 
 def test_generate_proposals_matches_jax(rng):

@@ -91,11 +91,49 @@ def test_cpu_rehearsal_of_chip_smoke_slice():
     cfg = dataclasses.replace(cfg, model=model, data=dataclasses.replace(
         cfg.data, image_size=64))
     res = chip_smoke.run_slice(cfg, "cpu", batches=1, batch_size=2)
-    assert res["launches"] == {"fused_sepconv": 0, "psroi_align": 0}
-    assert res["expected"] == {"fused_sepconv": 2 * 14, "psroi_align": 2}
+    assert res["launches"] == {"fused_sepconv": 0, "psroi_align": 0,
+                               "psroi_align_backward": 0}
+    assert res["expected"] == {"fused_sepconv": 2 * 14, "psroi_align": 2,
+                               "psroi_align_backward": 0}
     assert len(res["seconds"]) == 1
     assert res["detections"][3].any()
     assert _build.library.cache_info().currsize == 0   # nothing was built
+
+
+def _thin(cfg, **kw):
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_stages=(1, 1, 1, 1), **kw))
+
+
+@pytest.mark.parametrize("path", ["config1", "ssd", "xdet"])
+def test_cpu_rehearsal_of_chip_smoke_new_paths(path):
+    """chip_smoke's phases for config 1 (one 75 x 100 image resized to the
+    canvas), config 2 and xdet_xception (fused) at 128 px on thin
+    backbones, on the CPU: the counters stay 0, the expected counts follow
+    from each model (B1's forward once a batch for Light-Head only; B2 once
+    a fused block: 5 a batch on the thin Xception), and the 128 px check
+    runs its comparison (the CPU in bf16 against the CPU in fp32)."""
+    chip_smoke = _chip_smoke()
+    cfg, kw, keys, per_batch = {
+        "config1": (_thin(port_config.lighthead_resnet50(128)),
+                    dict(batch_size=1, raw_hw=(75, 100)),
+                    ("rpn_cls", "rpn_loc"), (0, 1)),
+        "ssd": (_thin(port_config.ssd_resnet50(128)), dict(batch_size=2),
+                ("cls_logits", "box_codes"), (0, 0)),
+        "xdet": (chip_smoke.fused(_thin(
+            port_config.xdet_xception(128),
+            backbone_widths=(32, 64, 96, 128))), dict(batch_size=2),
+                 ("cls_logits", "box_codes"), (5, 0)),
+    }[path]
+    res = chip_smoke.run_slice(cfg, "cpu", batches=1, **kw)
+    assert res["launches"] == dict.fromkeys(res["launches"], 0)
+    assert res["expected"] == {"fused_sepconv": 2 * per_batch[0],
+                               "psroi_align": 2 * per_batch[1],
+                               "psroi_align_backward": 0}
+    assert res["detections"][0].shape[0] == kw["batch_size"]
+    assert res["anchors"] == (960 if path == "config1" else 2046)
+    assert chip_smoke.slice_reference_check(cfg.model, "cpu", keys) <= (
+        chip_smoke.SLICE_REL_TOL)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

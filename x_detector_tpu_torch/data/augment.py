@@ -279,13 +279,18 @@ def preprocess_batch_for_train(generator: torch.Generator, batch: Batch,
 
 
 def preprocess_for_eval(images: torch.Tensor, cfg) -> torch.Tensor:
-    """Whiten canvas-size images: [..., S, S, 3] uint8 or float -> float32
-    minus ``cfg.pixel_means`` (RGB), on the images' device. ``cfg`` is a
-    DataConfig; S must be ``cfg.image_size``."""
-    if tuple(images.shape[-3:-1]) != (cfg.image_size, cfg.image_size):
-        raise NotImplementedError(
-            f"images of {tuple(images.shape[-3:-1])} need a resize to "
-            f"{cfg.image_size}: eval takes canvas-size images")
+    """Resize to the square eval size and whiten: [..., H, W, 3] uint8 or
+    float -> [..., S, S, 3] float32 minus ``cfg.pixel_means`` (RGB), on the
+    images' device, with S = ``cfg.image_size`` (``cfg`` is a DataConfig).
+    Images of another size than S x S go through the full-image bilinear
+    ``crop_and_resize``; canvas-size images skip it."""
+    s = cfg.image_size
+    if tuple(images.shape[-3:-1]) != (s, s):
+        lead, (h, w, c) = images.shape[:-3], images.shape[-3:]
+        flat = images.reshape(-1, h, w, c)
+        full = torch.tensor([0.0, 0.0, 1.0, 1.0], device=images.device
+                            ).expand(flat.shape[0], 4)
+        images = crop_and_resize(flat, full, s).reshape(*lead, s, s, c)
     means = torch.tensor(cfg.pixel_means, dtype=torch.float32,
                          device=images.device)
     return images.float() - means

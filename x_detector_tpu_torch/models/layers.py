@@ -63,6 +63,26 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, pads: Union[str, Pads],
     return y.contiguous(memory_format=torch.channels_last)
 
 
+def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
+             explicit_pad: bool = False) -> torch.Tensor:
+    """Max pooling of an NCHW tensor: ``explicit_pad`` pads (window-1)//2 on
+    every side, otherwise XLA "SAME" (``same_pads``). Padding is -inf, so
+    it never wins a max."""
+    if explicit_pad:
+        p = (window - 1) // 2
+        pads = ((p, p), (p, p))
+    else:
+        pads = same_pads(x.shape[2:], (window,) * 2, (stride,) * 2, (1, 1))
+    (top, bottom), (left, right) = pads
+    if top == bottom and left == right:     # torch pads with -inf itself
+        padding = (top, left)
+    else:
+        x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+        padding = 0
+    y = F.max_pool2d(x, window, stride, padding)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
 class BatchNorm2D(nn.Module):
     """BatchNorm with eps 1e-5 as one ``x * inv + bias`` in the input's
     dtype. At inference ``inv`` and ``bias`` fold the running stats. In

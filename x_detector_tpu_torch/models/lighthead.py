@@ -135,7 +135,8 @@ class LightHeadRCNN(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.backbone = make_backbone(cfg, dilate_c5=True, dtype=dtype)
-        c4_width, c5_width = self.backbone.widths[2:4]
+        widths = self.backbone.feature_widths
+        c4_width, c5_width = widths["c4"], widths["c5"]
         self.rpn = RPNHead(c4_width, cfg.anchors.num_anchors, mid=cfg.rpn_mid,
                            dtype=dtype)
         self.thin_map = LargeSeparableConv(c5_width, mid=cfg.large_sep_mid,

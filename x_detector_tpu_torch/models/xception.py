@@ -59,7 +59,9 @@ class XceptionLite(nn.Module):
                  dilate_c5: bool = True, fused_sepconv: bool = False,
                  quant=None, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.dtype, self.widths = dtype, tuple(widths)
+        self.dtype = dtype
+        self.feature_widths = {"c3": widths[1], "c4": widths[2],
+                               "c5": widths[3]}
         # Stem: [B,H,W,3] -> [B,H,W/4,12] (channels ordered (w mod 4, rgb)),
         # then a (12,3) conv at stride (4,1): the 12x12/stride-4 stem.
         self.stem = ConvBN(12, widths[0], (12, 3), strides=(4, 1),

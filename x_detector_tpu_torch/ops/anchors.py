@@ -1,15 +1,16 @@
-"""RPN anchor grid (numpy; a copy of ``x_detector_tpu/ops/anchors.py``).
+"""RPN and SSD anchor grids (numpy; a copy of
+``x_detector_tpu/ops/anchors.py``).
 
 Anchors are normalized corner boxes ``[ymin, xmin, ymax, xmax]`` relative to
 the square input image, unclipped, as one flat ``[num_anchors, 4]`` float32
-array in ``(row, col, anchor)`` order: the order in which the RPN head
-flattens its NHWC outputs.
+array in ``(row, col, anchor)`` order: the order in which the RPN and SSD
+heads flatten their NHWC outputs (SSD: level by level, stride 8 first).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -42,3 +43,41 @@ def rpn_anchors(image_size: int, config) -> np.ndarray:
     w = hw[None, None, :, 1]
     boxes = np.stack([cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], axis=-1)
     return boxes.reshape(-1, 4)                  # [F*F*A, 4]
+
+
+def ssd_anchors(image_size: int, config) -> np.ndarray:
+    """Multi-layer SSD anchors, flat [sum_l F_l^2 * A, 4] normalized corners.
+
+    Layer k gets scale ``s_k`` linearly interpolated from scale_min to
+    scale_max; each cell emits one anchor per ratio at scale s_k plus an
+    extra ratio-1 anchor at sqrt(s_k * s_{k+1}) (SSD paper section 2.2).
+    """
+    n = config.num_layers
+    scales = [config.scale_min
+              + (config.scale_max - config.scale_min) * k / max(n - 1, 1)
+              for k in range(n)]
+    scales.append(min(1.0, 2.0 * scales[-1] - (scales[-2] if n > 1
+                                               else 0.0)))
+    all_boxes = []
+    for k, stride in enumerate(config.strides):
+        feat = int(math.ceil(image_size / stride))
+        cy, cx = _grid_centers(feat, feat)
+        shapes = [(scales[k] * math.sqrt(r), scales[k] / math.sqrt(r))
+                  for r in config.ratios]
+        s_extra = math.sqrt(scales[k] * scales[k + 1])
+        shapes.append((s_extra, s_extra))
+        hw = np.array(shapes, dtype=np.float32)  # [A, 2]
+        cyk = cy[..., None]
+        cxk = cx[..., None]
+        h = hw[None, None, :, 0]
+        w = hw[None, None, :, 1]
+        boxes = np.stack(
+            [cyk - h / 2, cxk - w / 2, cyk + h / 2, cxk + w / 2], axis=-1)
+        all_boxes.append(boxes.reshape(-1, 4))
+    return np.concatenate(all_boxes, axis=0)
+
+
+def ssd_layer_anchor_counts(image_size: int, config) -> List[int]:
+    """Anchors per layer, in the order of :func:`ssd_anchors`."""
+    return [int(math.ceil(image_size / s)) ** 2 * config.anchors_per_cell
+            for s in config.strides]

@@ -136,11 +136,14 @@ def batched_multiclass_nms(boxes: torch.Tensor, class_scores: torch.Tensor,
     ``class_scores``: [B, N, C] probabilities of the C real classes. Each
     class keeps its ``nms_candidates`` best boxes before suppression. All
     B x C (image, class) rows go through one batched ``nms_padded``.
+
+    ``approx_prefilter`` asks the JAX package for ``lax.approx_max_k`` in
+    place of ``lax.top_k`` when it draws the candidates. XLA lowers
+    ``approx_max_k`` to an exact top-k on every backend but the TPU, so the
+    exact stable top-k taken here either way is what the reference itself
+    computes off the TPU.
     """
-    if approx_prefilter:
-        raise NotImplementedError(
-            "approx_prefilter is a TPU approximation; the port runs the "
-            "exact top-k (set NMSConfig.approx_prefilter=False)")
+    del approx_prefilter
     b, n, c = class_scores.shape
     if boxes.dim() == 3:
         boxes = boxes[:, :, None, :].expand(b, n, c, 4)

@@ -1,14 +1,18 @@
-"""Where config 3's inference batch spends its time on one CUDA card.
+"""Where an inference batch spends its time on one CUDA card.
 
-    python -m x_detector_tpu_torch.profile_infer
+    python -m x_detector_tpu_torch.profile_infer [--preset NAME]
 
-Config 3 is ``lighthead_xception(800)`` with ``backbone_fused_sepconv``,
-batch 16, seeded weights (flax's default initialisation) and seeded uint8
-images, through ``preprocess_for_eval`` and ``build_eval_fn``. After two
-warm-up batches the script prints the card's name and power limit
-(``nvidia-smi``), then:
+The preset (``PATHS``) sets the model, the batch and the raw images: config
+3 by default (``lighthead_xception(800)`` with ``backbone_fused_sepconv``,
+batch 16, canvas-size images); ``lighthead_resnet50`` is config 1 (batch
+1, 375 x 500 images resized to 800 px); ``ssd_resnet50`` config 2 and
+``xdet_xception`` (fused) the SSD family at 512 px, batch 8. Seeded weights
+(flax's default initialisation) and seeded uint8 images go through
+``preprocess_for_eval`` and ``build_eval_fn``. After two warm-up batches
+the script prints the card's name and power limit (``nvidia-smi``), then:
 
-  1. six host-clock batch times, one synchronize per batch;
+  1. six host-clock batch times, one synchronize per batch, and peak
+     memory;
   2. each stage's wall time, with a synchronize at every stage edge;
   3. from ``torch.profiler`` over two such staged batches: each stage's
      kernel time, the device's idle share inside it and its largest kernel
@@ -23,11 +27,12 @@ Every number is per batch. The Chrome traces are written to ``build/``
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -35,15 +40,37 @@ from x_detector_tpu_torch.train.profile_step import (OUT_DIR, device_events,
                                                      family, stage_breakdown,
                                                      staged, union_length)
 
-BATCH = 16
 TIMED_BATCHES = 6
+# preset -> (batch, raw image (H, W) or None for the canvas, fused B2)
+PATHS = {"lighthead_xception": (16, None, True),
+         "lighthead_resnet50": (1, (375, 500), False),
+         "ssd_resnet50": (8, None, False),
+         "xdet_xception": (8, None, True)}
 
 
-def main() -> None:
-    from x_detector_tpu_torch.config import lighthead_xception
+def forward_parts(model) -> Optional[Dict[str, str]]:
+    """The SSD model's stages by submodule (None: the Light-Head's)."""
+    from x_detector_tpu_torch.models.ssd import SSDModel
+    if not isinstance(model, SSDModel):
+        return None
+    parts = {"backbone": "forward backbone", "head": "forward head"}
+    for name, _ in model.named_children():
+        if name.startswith("extra"):
+            parts[name] = "forward extras"
+        elif name.startswith(("lateral", "fuse")):
+            parts[name] = "forward fusion"
+    return parts
+
+
+def main(argv=None) -> None:
+    from x_detector_tpu_torch.config import PRESETS
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
-    from x_detector_tpu_torch.inference import build_eval_fn, build_model
-    from x_detector_tpu_torch.models.lighthead import lighthead_postprocess
+    from x_detector_tpu_torch.inference import (build_eval_fn, build_model,
+                                                postprocess)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--preset", choices=sorted(PATHS),
+                        default="lighthead_xception")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -51,21 +78,26 @@ def main() -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
-    cfg = lighthead_xception(800)
+    batch, raw_hw, fused = PATHS[args.preset]
+    cfg = PRESETS[args.preset]()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, backbone_fused_sepconv=True))
+        cfg.model, backbone_fused_sepconv=fused))
     model = build_model(cfg.model, dev, seed=0)
     detect = build_eval_fn(model, cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     size = cfg.model.image_size
+    h, w = raw_hw or (size, size)
+    print(f"{args.preset} at {size} px, batch {batch}, from {h} x {w} uint8 "
+          f"images", flush=True)
 
     def images():
-        return torch.randint(0, 256, (BATCH, size, size, 3), generator=gen,
+        return torch.randint(0, 256, (batch, h, w, 3), generator=gen,
                              dtype=torch.uint8, device=dev)
 
     for _ in range(2):
         detect(preprocess_for_eval(images(), cfg.data))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(TIMED_BATCHES):
         u8 = images()
@@ -76,16 +108,18 @@ def main() -> None:
         times.append((time.perf_counter() - t0) * 1e3)
     mean = sum(times) / len(times)
     print(f"1. batch ms {[round(t, 2) for t in times]}, mean {mean:.2f} = "
-          f"{BATCH * 1e3 / mean:.1f} images/s", flush=True)
+          f"{batch * 1e3 / mean:.1f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     def staged_batches(n, wall):
-        with staged(model, wall) as timed, torch.inference_mode():
+        with staged(model, wall, forward_parts(model)) as timed, \
+                torch.inference_mode():
             for _ in range(n):
                 u8 = images()
                 x = timed("preprocess", preprocess_for_eval)(u8, cfg.data)
                 out = model(x)
-                timed("postprocess + NMS", lighthead_postprocess)(
-                    out, cfg.model)
+                timed("postprocess + NMS", postprocess)(model, out,
+                                                        cfg.model)
 
     n = 2
     wall: Dict[str, float] = {}

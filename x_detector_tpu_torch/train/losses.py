@@ -7,7 +7,7 @@ a leading batch of images and returns per-image losses ``[B]``. Every
 RPN sampling is split in two: :func:`draw_rpn_priorities` draws the uniform
 priorities from a ``torch.Generator``, and :func:`sample_rpn_minibatch`
 applies them, so a test can feed both packages the same draws. (``ssd_loss``
-is ported with the SSD family.)
+is not ported yet: the SSD family runs inference only.)
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ import json
 import pathlib
 import subprocess
 import time
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -108,10 +108,13 @@ def stage_breakdown(trace: List[dict]) -> Dict[str, dict]:
 
 
 @contextlib.contextmanager
-def staged(model, names: Dict[str, float]):
-    """Wrap the forward's parts and the proposal and PSROIAlign calls of
-    the Light-Head module so each runs between two synchronizes inside a
-    ``stage:`` range, adding its wall ms to ``names``; undone on exit."""
+def staged(model, names: Dict[str, float],
+           parts: Optional[Dict[str, str]] = None):
+    """Wrap the forward's parts (``parts``: submodule name -> stage name,
+    by default the Light-Head's ``FORWARD_PARTS``) and the Light-Head's
+    proposal and PSROIAlign calls so each runs between two synchronizes
+    inside a ``stage:`` range, adding its wall ms to ``names``; undone on
+    exit."""
     from x_detector_tpu_torch.models import lighthead
 
     def timed(name, fn):
@@ -126,16 +129,18 @@ def staged(model, names: Dict[str, float]):
             return out
         return run
 
+    if parts is None:
+        parts = {part: "forward " + part for part in FORWARD_PARTS}
     saved = (lighthead.generate_proposals, lighthead.batched_psroi_align)
-    for part in FORWARD_PARTS:
+    for part, name in parts.items():
         sub = getattr(model, part)
-        sub.forward = timed("forward " + part, sub.forward)
+        sub.forward = timed(name, sub.forward)
     lighthead.generate_proposals = timed("proposals + NMS", saved[0])
     lighthead.batched_psroi_align = timed("psroi_align forward", saved[1])
     try:
         yield timed
     finally:
-        for part in FORWARD_PARTS:
+        for part in parts:
             del getattr(model, part).forward
         lighthead.generate_proposals, lighthead.batched_psroi_align = saved
 

@@ -1,9 +1,9 @@
 """The Light-Head training step: forward -> target assignment -> losses ->
 backward -> SGD-momentum update.
 
-The port of ``x_detector_tpu/train/trainer.py`` (Light-Head family; SSD is
-ported with its head). Batches are dicts of fixed-shape tensors on the
-model's device:
+The port of ``x_detector_tpu/train/trainer.py`` (Light-Head family; the
+SSD family's loss and step are not ported yet). Batches are dicts of
+fixed-shape tensors on the model's device:
 
   image      [B, S, S, 3]   float32, whitened (NHWC)
   gt_boxes   [B, G, 4]      normalized corners, zero-padded
@@ -152,8 +152,12 @@ def create_model_and_state(cfg, device, seed: Optional[int] = 0,
     schedule, and the EMA shadow if ``cfg.train.ema_decay`` > 0. ``seed``
     as for ``inference.build_model`` (None: load the weights, then make the
     state with ``TrainState.create`` so that a shadow copies them). Other
-    families than Light-Head raise ``NotImplementedError``
-    (``build_model``)."""
+    families than Light-Head raise ``NotImplementedError``: the SSD family
+    runs inference only, until ``ssd_loss`` and its step are ported."""
+    if cfg.model.family != "lighthead":
+        raise NotImplementedError(f"training family {cfg.model.family!r}: "
+                                  "ssd_loss and the SSD step are not "
+                                  "ported yet")
     model = build_model(cfg.model, device, seed=seed, dtype=dtype).train()
     optimizer, schedule = make_optimizer(model, cfg.train)
     return TrainState.create(model, optimizer, schedule,
