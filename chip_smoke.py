@@ -54,17 +54,39 @@ Phases; each raises on failure and the script then exits non-zero:
                 versions; and bf16, as a control): PSROIAlign's backward in
                 that step against the plain backward of its inputs, the
                 loss, and the thin map's gradients and updates.
+  9. train_ssd -- config 2 (SSD + ResNet-50 training, batch 8 at 512 px,
+                EMA 0.99): synthetic batches made on the card on 614 px
+                canvases -> preprocess_batch_for_train -> the step, one
+                warm-up and TRAIN_STEPS timed steps: no kernel launches,
+                finite losses, positives matched, changed parameters, a
+                shadow that moved and is d * e + (1 - d) * p of its inputs;
+                step time, images/s, peak memory; then one step at 128 px
+                from the same weights and batch on the card (bf16) against
+                the CPU (fp32; and bf16, as a control): the loss and the SSD
+                head's gradients and updates.
+ 10. train_xdet -- the same for xdet_xception (no shadow; trained unfused,
+                so B2 never launches).
+ 11. cli     -- the train and evaluate CLIs in this process, into a
+                temporary directory: config 2 for 4 steps with a checkpoint
+                every 2, the checkpoint reloaded bit for bit (step and data
+                position 4), --resume to 6 steps, metrics.jsonl holding
+                steps 1-6; cli.evaluate on that directory (the EMA shadow, a
+                finite mAP in [0, 1]); then lighthead_xception (config 4's
+                model) for 2 steps: B1's forward and backward once a step.
 The line before the last is one JSON object with the kernels' results; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -123,6 +145,11 @@ SLICE_REL_TOL = 1e-1
 # backward) over the leaf's largest value.
 TRAIN_LOSS_REL_TOL = 2e-2
 TRAIN_LEAF_REL_TOL = 3e-1
+# The EMA shadow after a step against d * e + (1 - d) * p of the step's
+# inputs, recomputed: the two products and the sum round, fused or not, so
+# within four fp32 ulps of the shadow's largest value.
+EMA_ULPS = 4
+CLI_STEPS, CLI_RESUME_STEPS = 4, 6
 
 
 def log(*args) -> None:
@@ -643,13 +670,19 @@ def train_config(image_size: int = 800, batch_size: int = BATCH):
 
 def run_train(cfg, device, steps: int = TRAIN_STEPS,
               seed: int = SEED) -> dict:
-    """Drive the training path: synthetic batches made on ``device`` on a
-    1.2x canvas -> preprocess_batch_for_train -> the train step, one
-    warm-up step then ``steps`` timed ones. Returns the kernels' launch
-    counts over all of them, what they should be, the timed seconds per
-    step, the losses and whether every parameter tensor moved. Expected:
-    per microbatch, one forward (one PSROIAlign, and the fused blocks the
-    model in training mode takes) and one backward of PSROIAlign."""
+    """Drive the training path of either family: synthetic batches made on
+    ``device`` on a 1.2x canvas -> preprocess_batch_for_train -> the train
+    step, one warm-up step then ``steps`` timed ones. Returns the kernels'
+    launch counts over all of them, what they should be, the timed seconds
+    per step, the losses, how many parameter tensors moved, those that got
+    a gradient in the last step and did not move ("stuck") and, with an
+    EMA shadow, how many of its tensors moved and its largest gap to
+    d * e + (1 - d) * p of the last step's inputs (with the scale). (An
+    SSD step's loss reaches only the anchors it mines, so a level without
+    one gives its head a zero gradient.)
+    Expected: per microbatch, one forward (for Light-Head one PSROIAlign,
+    and the fused blocks the model in training mode takes) and, for
+    Light-Head, one backward of PSROIAlign."""
     from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
     from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
     from x_detector_tpu_torch.train.trainer import (create_model_and_state,
@@ -667,8 +700,10 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS,
     sync()
     for fn in counters.values():
         fn.launches = 0
-    seconds, losses = [], []
-    for _ in range(steps + 1):
+    seconds, losses, ema_in = [], [], None
+    for i in range(steps + 1):
+        if i == steps and state.ema_params is not None:
+            ema_in = {n: e.clone() for n, e in state.ema_params.items()}
         t0 = time.perf_counter()
         raw = synthetic_batch_device(gen, batch_size, canvas,
                                      cfg.data.max_gt_boxes)
@@ -678,15 +713,78 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS,
         seconds.append(time.perf_counter() - t0)
         losses.append({k: v.item() for k, v in metrics.items()})
     launches = {name: fn.launches for name, fn in counters.items()}
-    moved = [not torch.equal(b, p.detach()) for b, p in
-             zip(before, state.model.parameters())]
+    params = list(state.model.named_parameters())
+    moved = [not torch.equal(b, p.detach()) for b, (_, p) in
+             zip(before, params)]
     forwards = (steps + 1) * cfg.train.grad_accum_steps
-    return {"launches": launches,
-            "expected": {"fused_sepconv": forwards * fused_blocks(state.model),
-                         "psroi_align": forwards,
-                         "psroi_align_backward": forwards},
-            "seconds": seconds[1:], "losses": losses,
-            "moved": sum(moved), "params": len(moved)}
+    b1 = forwards if cfg.model.family == "lighthead" else 0
+    res = {"launches": launches,
+           "expected": {"fused_sepconv": forwards * fused_blocks(state.model),
+                        "psroi_align": b1, "psroi_align_backward": b1},
+           "seconds": seconds[1:], "losses": losses,
+           "moved": sum(moved), "params": len(moved),
+           "stuck": [n for m, (n, p) in zip(moved, params)
+                     if not m and bool(p.grad.any())]}
+    if ema_in is not None:
+        d, gap, scale = state.ema_decay, 0.0, 0.0
+        with torch.no_grad():
+            for (name, p), b in zip(params, before):
+                e = state.ema_params[name]
+                want = d * ema_in[name] + (1.0 - d) * p
+                gap = max(gap, (e - want).abs().max().item())
+                scale = max(scale, want.abs().max().item())
+        res["ema"] = {"moved": sum(not torch.equal(state.ema_params[n], b)
+                                   for (n, _), b in zip(params, before)),
+                      "gap": gap, "scale": scale}
+    return res
+
+
+def check_train(tag: str, res: dict, per_step: dict) -> None:
+    """Fails unless the model gives ``per_step`` launches of each kernel a
+    step and the path launched exactly that many, the losses are finite,
+    every parameter tensor with a gradient in the last step moved and,
+    with an EMA shadow, as many shadow tensors moved as parameters and the
+    shadow equals d * e + (1 - d) * p within EMA_ULPS ulps."""
+    n_steps = len(res["seconds"]) + 1
+    want = {name: v * n_steps for name, v in per_step.items()}
+    if res["expected"] != want:
+        raise AssertionError(f"{tag} should launch {per_step} a step; the "
+                             f"model gives {res['expected']}")
+    if res["launches"] != want:
+        raise AssertionError(f"{tag}: launches {res['launches']} on the "
+                             f"train path, expected {want}")
+    for m in res["losses"]:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: non-finite train metrics {m}")
+    if res["stuck"] or not res["moved"]:
+        raise AssertionError(f"{tag}: {res['moved']} of {res['params']} "
+                             f"parameter tensors changed; these got a "
+                             f"gradient and did not: {res['stuck'][:5]}")
+    ema = res.get("ema")
+    if ema is not None:
+        limit = EMA_ULPS * torch.finfo(torch.float32).eps * ema["scale"]
+        if ema["moved"] < res["moved"] or not ema["gap"] <= limit:
+            raise AssertionError(
+                f"{tag}: EMA shadow moved in {ema['moved']} tensors, the "
+                f"parameters in {res['moved']}; gap to d * e + (1 - d) * p "
+                f"{ema['gap']:.3g} > {limit:.3g}")
+
+
+def report_train(tag: str, res: dict, batch: int, peak: int) -> None:
+    secs = res["seconds"]
+    mean = sum(secs) / len(secs)
+    total = [round(m["total_loss"], 4) for m in res["losses"]]
+    extra = ""
+    if "ssd_num_fg" in res["losses"][-1]:
+        extra = (f"; ssd_num_fg {[m['ssd_num_fg'] for m in res['losses']]}")
+    if "ema" in res:
+        extra += (f"; EMA shadow: gap to d * e + (1 - d) * p "
+                  f"{res['ema']['gap']:.3g} (scale {res['ema']['scale']:.3g})")
+    log(f"{tag}: launches {res['launches']} over {len(secs) + 1} steps; "
+        f"{res['moved']} of {res['params']} parameter tensors moved; "
+        f"step times {[round(t * 1e3, 2) for t in secs]} ms, mean "
+        f"{mean * 1e3:.2f} ms = {batch / mean:.1f} images/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; total_loss {total}{extra}")
 
 
 def train_step_capture(cfg, device, dtype, batch, priorities) -> dict:
@@ -772,35 +870,203 @@ def train_reference_check(device) -> dict:
     log(f"train 128px: PSROIAlign backward in the step vs plain on its "
         f"inputs: max abs err {err.max().item():.3g} (scale {scale:.3g})")
 
-    def gaps(run):
-        loss = abs(run["metrics"]["total_loss"]
-                   - ref["metrics"]["total_loss"]) / abs(
-            ref["metrics"]["total_loss"])
-        leaf = [0.0, 0.0]
-        for name, pair in ref["leaves"].items():
-            for i, (a, b) in enumerate(zip(run["leaves"][name], pair)):
-                leaf[i] = max(leaf[i], ((a.float() - b).abs().max()
-                                        / b.abs().max()).item())
-        return loss, leaf[0], leaf[1]
+    readings.update(hold_step("train 128px", "thin-map", got, ref, ctl))
+    return readings
 
-    for tag, run in (("card bf16", got), ("control: CPU bf16", ctl)):
-        loss, grad, update = gaps(run)
-        log(f"train 128px, {tag} vs CPU fp32: total_loss gap {loss:.3g}; "
-            f"thin-map leaves, worst gap of the leaf's largest value: "
-            f"gradient {grad:.3g}, update {update:.3g}; " + ", ".join(
-                f"{k} {v:.5g} / {ref['metrics'][k]:.5g}"
-                for k, v in run["metrics"].items()))
+
+def step_gaps(run: dict, ref: dict):
+    """A captured train step against the reference capture: the total_loss
+    gap relative to the loss, and the worst gradient and update gap of the
+    captured leaves over each leaf's largest value (0 where both are all
+    zero, inf where only the reference is)."""
+    loss = abs(run["metrics"]["total_loss"]
+               - ref["metrics"]["total_loss"]) / abs(
+        ref["metrics"]["total_loss"])
+    leaf = [0.0, 0.0]
+    for name, pair in ref["leaves"].items():
+        for i, (a, b) in enumerate(zip(run["leaves"][name], pair)):
+            err = (a.float() - b).abs().max().item()
+            scale = b.abs().max().item()
+            leaf[i] = max(leaf[i], err / scale if scale else (
+                0.0 if err == 0 else math.inf))
+    return loss, leaf[0], leaf[1]
+
+
+def log_gaps(tag: str, what: str, leaves: str, run: dict, ref: dict):
+    loss, grad, update = step_gaps(run, ref)
+    log(f"{tag}, {what} vs CPU fp32: total_loss gap {loss:.3g}; {leaves} "
+        f"leaves, worst gap of the leaf's largest value: gradient "
+        f"{grad:.3g}, update {update:.3g}; " + ", ".join(
+            f"{k} {v:.5g} / {ref['metrics'][k]:.5g}"
+            for k, v in run["metrics"].items()))
+    return loss, grad, update
+
+
+def hold_step(tag: str, leaves: str, got: dict, ref: dict,
+              ctl: dict) -> dict:
+    """One 128 px train step's readings, the card's (``got``) and the
+    control's (``ctl``) against the CPU in fp32 (``ref``): the loss gap and
+    the captured ``leaves``' gradient and update gaps (``step_gaps``).
+    Fails beyond TRAIN_LOSS_REL_TOL or TRAIN_LEAF_REL_TOL on the card."""
+    readings = {}
+    for what, run in (("card bf16", got), ("control: CPU bf16", ctl)):
         key = "" if run is got else "control_"
-        readings.update({key + "loss": loss, key + "leaf_grad": grad,
-                         key + "leaf_update": update})
+        readings.update(zip((key + "loss", key + "leaf_grad",
+                             key + "leaf_update"),
+                            log_gaps(tag, what, leaves, run, ref)))
     if not readings["loss"] <= TRAIN_LOSS_REL_TOL:
-        raise AssertionError(f"train 128px total_loss: relative gap "
+        raise AssertionError(f"{tag} total_loss: relative gap "
                              f"{readings['loss']:.3g} > {TRAIN_LOSS_REL_TOL}")
     worst = max(readings["leaf_grad"], readings["leaf_update"])
     if not worst <= TRAIN_LEAF_REL_TOL:
-        raise AssertionError(f"train 128px thin-map gradient or update: gap "
+        raise AssertionError(f"{tag} {leaves} gradient or update: gap "
                              f"{worst:.3g} > {TRAIN_LEAF_REL_TOL}")
     return readings
+
+
+def ssd_train_config(preset: str, image_size: int = 512,
+                     batch_size: int = SSD_BATCH):
+    """An SSD preset (config 2 or xdet_xception) training at
+    ``image_size`` and ``batch_size`` with no warmup, as config 4 runs
+    here (``train_config``); the rest as published."""
+    from x_detector_tpu_torch.config import PRESETS
+    cfg = PRESETS[preset](image_size)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=batch_size, warmup_steps=0))
+
+
+def ssd_step_capture(cfg, device, dtype, batch) -> dict:
+    """One train step of ``cfg``'s seeded SSD model on ``device`` in
+    ``dtype``: the metrics and each SSD head parameter's gradient and
+    update."""
+    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_train_step)
+    state = create_model_and_state(cfg, device, seed=SEED, dtype=dtype)
+    head = state.model.head
+    before = {n: p.detach().clone() for n, p in head.named_parameters()}
+    _, metrics = make_train_step(state.model, cfg)(
+        state, {k: v.to(device) for k, v in batch.items()})
+    return {"leaves": {n: (p.grad.cpu(), (p.detach() - before[n]).cpu())
+                       for n, p in head.named_parameters()},
+            "metrics": {k: v.item() for k, v in metrics.items()}}
+
+
+def ssd_train_reference_check(cfg, device) -> dict:
+    """``cfg`` (an SSD preset at 128 px, batch 2): one train step from the
+    same seeded weights and batch on ``device`` and on the CPU in fp32.
+    The loss is held to TRAIN_LOSS_REL_TOL with ``device`` in bf16 (beside
+    the control, the CPU in bf16). The SSD head's gradients and updates
+    are held to TRAIN_LEAF_REL_TOL with ``device`` in fp32: in bf16 the
+    few anchors a random-weight step mines at 128 px change (the control
+    moves head leaves by up to their whole size, and levels that mined
+    nothing in fp32 get a gradient), which the loss, a sum over the mined
+    anchors' losses, barely shows. Returns the readings."""
+    from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
+    from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
+    size, batch_size = cfg.model.image_size, cfg.train.batch_size
+    gen = torch.Generator().manual_seed(SEED)
+    raw = synthetic_batch_device(gen, batch_size, int(size * CANVAS_SCALE),
+                                 cfg.data.max_gt_boxes)
+    batch = preprocess_batch_for_train(gen, raw, cfg.data)
+    tag = f"{cfg.model.name} train {size}px"
+    ref = ssd_step_capture(cfg, "cpu", torch.float32, batch)
+    readings = {}
+    for key, what, run in (
+            ("bf16_", "card bf16", ssd_step_capture(cfg, device,
+                                                    torch.bfloat16, batch)),
+            ("control_", "control: CPU bf16", ssd_step_capture(
+                cfg, "cpu", torch.bfloat16, batch)),
+            ("", "card fp32", ssd_step_capture(cfg, device, torch.float32,
+                                               batch))):
+        readings.update(zip((key + "loss", key + "leaf_grad",
+                             key + "leaf_update"),
+                            log_gaps(tag, what, "SSD head", run, ref)))
+    if not readings["bf16_loss"] <= TRAIN_LOSS_REL_TOL:
+        raise AssertionError(f"{tag} total_loss, card bf16: relative gap "
+                             f"{readings['bf16_loss']:.3g} > "
+                             f"{TRAIN_LOSS_REL_TOL}")
+    worst = max(readings["leaf_grad"], readings["leaf_update"])
+    if not worst <= TRAIN_LEAF_REL_TOL:
+        raise AssertionError(f"{tag} SSD head gradient or update, card "
+                             f"fp32: gap {worst:.3g} > {TRAIN_LEAF_REL_TOL}")
+    return readings
+
+
+def run_cli(device, extra=()) -> dict:
+    """The train and evaluate CLIs, in this process, into a temporary
+    directory, each called with ``--device device`` and ``extra``: config 2
+    for CLI_STEPS steps (a checkpoint every 2), the newest checkpoint
+    reloaded into a fresh state and held bit for bit to the state the run
+    ended with (step and data position CLI_STEPS), then --resume to
+    CLI_RESUME_STEPS; cli.evaluate on that directory; then
+    lighthead_xception for 2 steps with the kernels' counters reset just
+    before it. Fails on any mismatch; returns the Light-Head run's launch
+    counts and what they should be, the evaluation's result and the
+    SSD run's metrics.jsonl wall times (from each run's start)."""
+    import argparse
+    from x_detector_tpu_torch.cli import common, evaluate, train
+    from x_detector_tpu_torch.train.checkpoint import CheckpointManager
+    from x_detector_tpu_torch.train.trainer import create_model_and_state
+    device = torch.device(device)
+    common_args = ["--device", str(device), *extra]
+    with tempfile.TemporaryDirectory() as tmp:
+        ssd = ["--preset", "ssd_resnet50", "--model-dir", f"{tmp}/ssd",
+               *common_args]
+        state = train.main(ssd + ["--steps", str(CLI_STEPS),
+                                  "--checkpoint-every", "2", "--log-every",
+                                  "1"])
+        parser = argparse.ArgumentParser()
+        common.add_common_args(parser)
+        cfg = common.resolve_config(parser.parse_known_args(ssd)[0])
+        fresh = create_model_and_state(cfg, device, seed=SEED + 1)
+        fresh, data_state = CheckpointManager(f"{tmp}/ssd/ckpt").restore(
+            fresh)
+        if fresh.step != CLI_STEPS or data_state != {"position": CLI_STEPS}:
+            raise AssertionError(f"cli: restored step {fresh.step}, data "
+                                 f"state {data_state}; expected {CLI_STEPS}")
+        saved = {**state.model.state_dict(), **{
+            "ema." + k: v for k, v in state.ema_params.items()}}
+        loaded = {**fresh.model.state_dict(), **{
+            "ema." + k: v for k, v in fresh.ema_params.items()}}
+        differ = [k for k in saved if not torch.equal(saved[k], loaded[k])]
+        if differ or set(saved) != set(loaded):
+            raise AssertionError(f"cli: reloaded tensors differ from the "
+                                 f"saved ones: {differ[:5]}")
+        del state, fresh
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = train.main(ssd + ["--steps", str(CLI_RESUME_STEPS),
+                                      "--resume", "--log-every", "1"])
+        log(out.getvalue().strip())
+        if f"resumed from step {CLI_STEPS} (data position {CLI_STEPS})" \
+                not in out.getvalue() or state.step != CLI_RESUME_STEPS:
+            raise AssertionError("cli: --resume did not continue from step "
+                                 f"{CLI_STEPS}")
+        with open(f"{tmp}/ssd/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        if [r["step"] for r in recs] != list(range(1, CLI_RESUME_STEPS + 1)):
+            raise AssertionError(f"cli: metrics.jsonl holds steps "
+                                 f"{[r['step'] for r in recs]}")
+        del state
+        res = evaluate.main(ssd + ["--num-batches", "2"])
+        if not (res["ema"] and res["step"] == CLI_RESUME_STEPS
+                and 0.0 <= res["mAP"] <= 1.0):
+            raise AssertionError(f"cli: evaluate gave step {res['step']}, "
+                                 f"EMA {res['ema']}, mAP {res['mAP']}")
+        counters = kernel_counters()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for fn in counters.values():
+            fn.launches = 0
+        train.main(["--preset", "lighthead_xception", "--model-dir",
+                    f"{tmp}/lighthead", "--steps", "2", *common_args])
+        launches = {name: fn.launches for name, fn in counters.items()}
+    return {"launches": launches, "evaluate": res,
+            "expected": {"fused_sepconv": 0, "psroi_align": 2,
+                         "psroi_align_backward": 2},
+            "wall_s": [r["wall_time_s"] for r in recs]}
+
+
 
 
 def fused(cfg):
@@ -863,38 +1129,55 @@ def main() -> int:
 
     cfg = train_config()
     torch.cuda.reset_peak_memory_stats()
-    train = run_train(cfg, "cuda")
-    peak = torch.cuda.max_memory_allocated()
-    n_steps = len(train["seconds"]) + 1
-    if train["expected"] != {"fused_sepconv": 0, "psroi_align": n_steps,
-                             "psroi_align_backward": n_steps}:
-        raise AssertionError(f"config 4 should run B1's forward and backward "
-                             f"once per step and B2 never; the model gives "
-                             f"{train['expected']}")
-    for name, want in train["expected"].items():
-        got = train["launches"][name]
-        if got != want:
-            raise AssertionError(f"{name} launched {got} times on the train "
-                                 f"path, expected {want}")
-    for m in train["losses"]:
-        if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"non-finite train metrics {m}")
-    if train["moved"] != train["params"]:
-        raise AssertionError(f"only {train['moved']} of {train['params']} "
-                             "parameter tensors changed")
-    secs = train["seconds"]
-    mean = sum(secs) / len(secs)
-    canvas = int(800 * CANVAS_SCALE)
-    total = [round(m["total_loss"], 4) for m in train["losses"]]
-    log(f"train: config 4, batch {BATCH} at 800 px from {canvas} px "
-        f"canvases: launches {train['launches']} over {len(secs) + 1} "
-        f"steps; step times {[round(t * 1e3, 2) for t in secs]} ms, mean "
-        f"{mean * 1e3:.2f} ms = {BATCH / mean:.1f} images/s; peak memory "
-        f"{peak / 2**30:.2f} GiB; total_loss {total}")
+    paths["train"] = res = run_train(cfg, "cuda")
+    check_train("config 4", res, {"fused_sepconv": 0, "psroi_align": 1,
+                                  "psroi_align_backward": 1})
+    if res["moved"] != res["params"]:
+        raise AssertionError(f"config 4: only {res['moved']} of "
+                             f"{res['params']} parameter tensors changed")
+    report_train(f"train: config 4, batch {BATCH} at 800 px from "
+                 f"{int(800 * CANVAS_SCALE)} px canvases", res, BATCH,
+                 torch.cuda.max_memory_allocated())
     train_reference_check("cuda")
     torch.cuda.synchronize()
 
-    paths["train"] = train
+    # config 2's step (with its EMA shadow) and xdet_xception's (unfused):
+    # no kernel of the port on either
+    for path, preset in (("train_ssd", "ssd_resnet50"),
+                         ("train_xdet", "xdet_xception")):
+        cfg = ssd_train_config(preset)
+        torch.cuda.reset_peak_memory_stats()
+        paths[path] = res = run_train(cfg, "cuda")
+        check_train(preset, res, {"fused_sepconv": 0, "psroi_align": 0,
+                                  "psroi_align_backward": 0})
+        if not all(m["ssd_num_fg"] > 0 for m in res["losses"]):
+            raise AssertionError(f"{preset}: a step matched no anchor")
+        if ("ema" in res) != (cfg.train.ema_decay > 0):
+            raise AssertionError(f"{preset}: EMA shadow present "
+                                 f"{'ema' in res}, preset decay "
+                                 f"{cfg.train.ema_decay}")
+        report_train(f"{path}: {preset}, batch {SSD_BATCH} at 512 px from "
+                     f"{int(512 * CANVAS_SCALE)} px canvases", res,
+                     SSD_BATCH, torch.cuda.max_memory_allocated())
+        ssd_train_reference_check(ssd_train_config(preset, 128, 2), "cuda")
+        torch.cuda.synchronize()
+
+    # the CLIs: config 2 trained, checkpointed, resumed and evaluated; a
+    # Light-Head run through B1's forward and backward
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paths["cli"] = res = run_cli("cuda")
+    if res["launches"] != res["expected"]:
+        raise AssertionError(f"cli: the Light-Head run launched "
+                             f"{res['launches']}, expected "
+                             f"{res['expected']}")
+    log(f"cli: config 2 trained {CLI_STEPS} steps, reloaded bit for bit, "
+        f"resumed to {CLI_RESUME_STEPS} (metrics.jsonl wall_time_s "
+        f"{res['wall_s']}); evaluate on the EMA shadow: mAP "
+        f"{res['evaluate']['mAP']:.4f}; Light-Head 2 steps: launches "
+        f"{res['launches']}; {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     for k in kernels:
         by_path = {path: run["launches"][k["name"]]
                    for path, run in paths.items()}

@@ -212,3 +212,67 @@ def test_kernel_sources_use_no_atomic_add():
     assert sources
     for path in sources:
         assert "atomicAdd" not in path.read_text(), path.name
+
+
+def _thin_ssd_train(chip_smoke, preset, image_size):
+    cfg = chip_smoke.ssd_train_config(preset, image_size, batch_size=2)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_stages=(1, 1, 1, 1),
+        backbone_widths=(16, 32, 48, 64)))
+
+
+@pytest.mark.parametrize("preset", ["ssd_resnet50", "xdet_xception"])
+def test_cpu_rehearsal_of_chip_smoke_train_ssd(preset):
+    """chip_smoke's train_ssd and train_xdet phases at 128 px on thin
+    backbones, on the CPU: no kernel is expected or launched, the losses
+    are finite with positives matched, every parameter moves, and config
+    2's shadow moves and equals d * e + (1 - d) * p of the last step's
+    inputs (xdet has none); then the 128 px check runs its comparison
+    (the CPU in bf16 in the card's place)."""
+    chip_smoke = _chip_smoke()
+    cfg = _thin_ssd_train(chip_smoke, preset, 128)
+    res = chip_smoke.run_train(cfg, "cpu", steps=1)
+    zero = {"fused_sepconv": 0, "psroi_align": 0, "psroi_align_backward": 0}
+    chip_smoke.check_train(preset, res, zero)
+    assert all(m["ssd_num_fg"] > 0 for m in res["losses"])
+    assert ("ema" in res) == (preset == "ssd_resnet50")
+    if "ema" in res:
+        assert res["ema"]["moved"] >= res["moved"] > 0
+    readings = chip_smoke.ssd_train_reference_check(
+        _thin_ssd_train(chip_smoke, preset, 128), "cpu")
+    for key in ("loss", "leaf_grad", "leaf_update"):
+        assert readings["bf16_" + key] == readings["control_" + key]
+        assert readings[key] == 0.0        # the CPU in fp32 twice
+    assert readings["bf16_loss"] <= chip_smoke.TRAIN_LOSS_REL_TOL
+    assert _build.library.cache_info().currsize == 0   # nothing was built
+
+
+def test_chip_smoke_train_check_catches_a_shadow_off_its_update():
+    """check_train fails when the shadow is not d * e + (1 - d) * p."""
+    chip_smoke = _chip_smoke()
+    res = {"seconds": [0.1], "losses": [{"total_loss": 1.0}] * 2,
+           "launches": {"b": 0}, "expected": {"b": 0}, "moved": 3,
+           "params": 3, "stuck": [],
+           "ema": {"moved": 3, "gap": 1e-6, "scale": 1.0}}
+    with pytest.raises(AssertionError, match="EMA shadow"):
+        chip_smoke.check_train("t", res, {"b": 0})
+    res["ema"]["gap"] = 1e-7
+    chip_smoke.check_train("t", res, {"b": 0})
+
+
+def test_cpu_rehearsal_of_chip_smoke_cli():
+    """chip_smoke's cli phase on the CPU with thin backbones at 64 px: the
+    SSD run's checkpoint reloads bit for bit and resumes, evaluate takes
+    the shadow, and the Light-Head run expects B1's forward and backward
+    twice (the CPU launches no kernel)."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.run_cli("cpu", extra=[
+        "--image-size", "64", "--batch-size", "2", "--backbone-stages",
+        "1,1,1,1", "--backbone-widths", "16,32,48,64", "--dtype",
+        "float32"])
+    assert res["launches"] == {"fused_sepconv": 0, "psroi_align": 0,
+                               "psroi_align_backward": 0}
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
+                               "psroi_align_backward": 2}
+    assert res["evaluate"]["ema"] and res["evaluate"]["step"] == (
+        chip_smoke.CLI_RESUME_STEPS)

@@ -218,9 +218,19 @@ def test_postprocess_detections_fast_mode_raises():
 
 
 def test_training_the_ssd_family_is_refused():
+    """``create_model_and_state`` builds both SSD presets in training mode
+    (it refused them until the SSD step was ported; the name stays), with
+    the EMA shadow config 2 asks for and none for xdet_xception, whose
+    fused blocks then take the unfused route."""
+    from x_detector_tpu_torch.models.layers import SeparableConvBN
     from x_detector_tpu_torch.train.trainer import create_model_and_state
-    with pytest.raises(NotImplementedError, match="ssd_loss"):
-        create_model_and_state(small_configs()["ssd_resnet50"], "cpu")
+    for preset, ema in (("ssd_resnet50", True), ("xdet_xception", False)):
+        state = create_model_and_state(small_configs()[preset], "cpu",
+                                       seed=0, dtype=torch.float32)
+        assert isinstance(state.model, SSDModel) and state.model.training
+        assert (state.ema_params is not None) == ema, preset
+        assert not any(m.takes_fused_route for m in state.model.modules()
+                       if isinstance(m, SeparableConvBN))
 
 
 def test_preprocess_for_eval_resizes_a_voc_image_like_jax():

@@ -578,13 +578,28 @@ def test_difficult_objects_make_no_targets():
 
 
 def test_create_model_and_state_trains_and_refuses_ssd():
+    """Both families build a state in training mode; config 2's SSD state
+    carries its EMA shadow (``ema_decay=0.99``), a copy of every parameter
+    by name, and the Light-Head preset none. (The SSD family was refused
+    until its step was ported; the name stays.)"""
     cfg = small_lighthead_cfg()
     state = create_model_and_state(cfg, "cpu", seed=0, dtype=torch.float32)
     assert state.model.training and state.step == 0
     assert state.ema_params is None
     from x_detector_tpu_torch.config import ssd_resnet50
-    with pytest.raises(NotImplementedError):
-        create_model_and_state(ssd_resnet50(64), "cpu")
+    from x_detector_tpu_torch.models.ssd import SSDModel
+    ssd = ssd_resnet50(64)
+    ssd = dataclasses.replace(ssd, model=dataclasses.replace(
+        ssd.model, backbone_stages=(1, 1, 1, 1),
+        backbone_widths=(8, 16, 24, 32)))
+    state = create_model_and_state(ssd, "cpu", seed=0, dtype=torch.float32)
+    assert isinstance(state.model, SSDModel) and state.model.training
+    assert state.ema_decay == 0.99 and state.step == 0
+    params = dict(state.model.named_parameters())
+    assert set(state.ema_params) == set(params)
+    for name, p in params.items():
+        assert torch.equal(state.ema_params[name], p)
+        assert state.ema_params[name].data_ptr() != p.data_ptr()
 
 
 def test_profile_step_attributes_device_work_to_the_innermost_stage():

@@ -32,13 +32,14 @@ import dataclasses
 import json
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
 from x_detector_tpu_torch.train.profile_step import (OUT_DIR, device_events,
-                                                     family, stage_breakdown,
-                                                     staged, union_length)
+                                                     family, forward_parts,
+                                                     stage_breakdown, staged,
+                                                     union_length)
 
 TIMED_BATCHES = 6
 # preset -> (batch, raw image (H, W) or None for the canvas, fused B2)
@@ -46,20 +47,6 @@ PATHS = {"lighthead_xception": (16, None, True),
          "lighthead_resnet50": (1, (375, 500), False),
          "ssd_resnet50": (8, None, False),
          "xdet_xception": (8, None, True)}
-
-
-def forward_parts(model) -> Optional[Dict[str, str]]:
-    """The SSD model's stages by submodule (None: the Light-Head's)."""
-    from x_detector_tpu_torch.models.ssd import SSDModel
-    if not isinstance(model, SSDModel):
-        return None
-    parts = {"backbone": "forward backbone", "head": "forward head"}
-    for name, _ in model.named_children():
-        if name.startswith("extra"):
-            parts[name] = "forward extras"
-        elif name.startswith(("lateral", "fuse")):
-            parts[name] = "forward fusion"
-    return parts
 
 
 def main(argv=None) -> None:

@@ -1,4 +1,5 @@
-"""Detection losses: CE, modified smooth-L1, RPN sampling, OHEM.
+"""Detection losses: CE, modified smooth-L1, RPN sampling, OHEM, SSD
+hard-negative mining.
 
 The port of ``x_detector_tpu/train/losses.py``, batched: each function takes
 a leading batch of images and returns per-image losses ``[B]``. Every
@@ -6,8 +7,8 @@ a leading batch of images and returns per-image losses ``[B]``. Every
 
 RPN sampling is split in two: :func:`draw_rpn_priorities` draws the uniform
 priorities from a ``torch.Generator``, and :func:`sample_rpn_minibatch`
-applies them, so a test can feed both packages the same draws. (``ssd_loss``
-is not ported yet: the SSD family runs inference only.)
+applies them, so a test can feed both packages the same draws.
+``ssd_loss`` draws nothing.
 """
 
 from __future__ import annotations
@@ -137,3 +138,32 @@ def roi_loss_ohem(roi_cls: torch.Tensor, roi_box: torch.Tensor,
         "roi_cls_loss": (cls_losses * keep).sum(dim=-1) / denom,
         "roi_loc_loss": (loc_losses * keep).sum(dim=-1) / denom,
         "roi_num_fg": (fg_mask & keep).sum(dim=-1).float()}, keep
+
+
+def ssd_loss(cls_logits: torch.Tensor, box_codes: torch.Tensor,
+             labels: torch.Tensor, reg_targets: torch.Tensor,
+             fg_mask: torch.Tensor, neg_pos_ratio: float = 3.0,
+             sigma: float = 1.0) -> Tuple[torch.Tensor, Metrics]:
+    """Per-image SSD multibox loss [B] with hard-negative mining.
+
+    cls_logits [B, A, C], box_codes [B, A, 4]; every anchor that is not fg
+    is a negative (force-matched SSD targets have no ignore zone). The
+    ``int32(neg_pos_ratio * num_fg)`` negatives of highest CE (capped at the
+    negatives there are; ties in index order, as JAX's stable rank) count
+    in the class loss; smooth-L1 (``sigma``) on fg only; both over
+    ``max(num_fg, 1)``."""
+    cls_losses = softmax_ce(cls_logits, labels)
+    num_fg = fg_mask.sum(dim=-1)
+    # hard selection: no gradient through the ranking
+    rank = _rank_of(torch.where(fg_mask, -torch.inf, cls_losses.detach()))
+    num_neg = torch.minimum((neg_pos_ratio * num_fg).to(torch.int32),
+                            (~fg_mask).sum(dim=-1))
+    hard_neg = ~fg_mask & (rank < num_neg[..., None])
+    weights = (fg_mask | hard_neg).float()
+    denom = num_fg.float().clamp_min(1.0)
+    cls_loss = (cls_losses * weights).sum(dim=-1) / denom
+    loc_losses = smooth_l1(box_codes, reg_targets, sigma=sigma)
+    loc_loss = (loc_losses * fg_mask).sum(dim=-1) / denom
+    return cls_loss + loc_loss, {"ssd_cls_loss": cls_loss,
+                                 "ssd_loc_loss": loc_loss,
+                                 "ssd_num_fg": num_fg.float()}

@@ -1,11 +1,14 @@
-"""Where config 4's train step spends its time on one CUDA card.
+"""Where a train step spends its time on one CUDA card.
 
-    python -m x_detector_tpu_torch.train.profile_step
+    python -m x_detector_tpu_torch.train.profile_step [--preset NAME]
 
-Config 4 is ``lighthead_xception(800)`` training at batch 16 with no warmup,
-on synthetic batches made on the card on 960 px canvases. After two warm-up
-steps the script prints the card's name and power limit (``nvidia-smi``),
-then:
+The preset (``PATHS``) sets the model and the batch: config 4 by default
+(``lighthead_xception(800)`` training at batch 16 with no warmup);
+``ssd_resnet50`` is config 2 (batch 8, 512 px, with its EMA shadow) and
+``xdet_xception`` the X-Det variant (batch 8, 512 px, trained unfused).
+Synthetic batches are made on the card on canvases 1.2 times the input
+size. After two warm-up steps the script prints the card's name and power
+limit (``nvidia-smi``), then:
 
   1. six host-clock step times, one synchronize per step, and peak memory;
   2. each stage's wall time, with a synchronize at every stage edge;
@@ -22,6 +25,7 @@ Every number is per step. The Chrome traces are written to ``build/``
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -47,6 +51,9 @@ FAMILIES = (
 FORWARD_PARTS = ("backbone", "rpn", "thin_map", "roi_head")
 TIMED_STEPS = 6
 OUT_DIR = pathlib.Path("build")
+# preset -> (image size, batch)
+PATHS = {"lighthead_xception": (800, 16), "ssd_resnet50": (512, 8),
+         "xdet_xception": (512, 8)}
 
 
 def family(kernel_name: str) -> str:
@@ -107,6 +114,20 @@ def stage_breakdown(trace: List[dict]) -> Dict[str, dict]:
     return out
 
 
+def forward_parts(model) -> Optional[Dict[str, str]]:
+    """The SSD model's stages by submodule (None: the Light-Head's)."""
+    from x_detector_tpu_torch.models.ssd import SSDModel
+    if not isinstance(model, SSDModel):
+        return None
+    parts = {"backbone": "forward backbone", "head": "forward head"}
+    for name, _ in model.named_children():
+        if name.startswith("extra"):
+            parts[name] = "forward extras"
+        elif name.startswith(("lateral", "fuse")):
+            parts[name] = "forward fusion"
+    return parts
+
+
 @contextlib.contextmanager
 def staged(model, names: Dict[str, float],
            parts: Optional[Dict[str, str]] = None):
@@ -145,14 +166,18 @@ def staged(model, names: Dict[str, float],
         lighthead.generate_proposals, lighthead.batched_psroi_align = saved
 
 
-def main() -> None:
-    from x_detector_tpu_torch.config import lighthead_xception
+def main(argv=None) -> None:
+    from x_detector_tpu_torch.config import PRESETS
     from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
     from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
     from x_detector_tpu_torch.train import losses as loss_lib
     from x_detector_tpu_torch.train.trainer import (create_model_and_state,
-                                                    make_lighthead_loss_fn,
+                                                    make_loss_fn,
                                                     make_train_step)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--preset", choices=sorted(PATHS),
+                        default="lighthead_xception")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -160,15 +185,21 @@ def main() -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
-    cfg = lighthead_xception(800)
+    size, batch_size = PATHS[args.preset]
+    cfg = PRESETS[args.preset](size)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, batch_size=16, warmup_steps=0))
-    batch_size, canvas = cfg.train.batch_size, int(800 * 1.2)
+        cfg.train, batch_size=batch_size, warmup_steps=0))
+    canvas = int(size * 1.2)
     state = create_model_and_state(cfg, dev, seed=0)
     model = state.model
     step = make_train_step(model, cfg)
-    loss_fn = make_lighthead_loss_fn(model, cfg)
+    loss_fn = make_loss_fn(model, cfg)
+    lighthead = cfg.model.family == "lighthead"
+    optimizer_stage = ("optimizer" if state.ema_params is None
+                       else "optimizer + EMA")
     gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"{args.preset} training at {size} px, batch {batch_size}, from "
+          f"{canvas} px canvases", flush=True)
 
     def new_batch():
         raw = synthetic_batch_device(gen, batch_size, canvas,
@@ -192,18 +223,20 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     def staged_steps(n, wall):
-        with staged(model, wall) as timed:
+        with staged(model, wall, forward_parts(model)) as timed:
             for _ in range(n):
                 raw = timed("data", synthetic_batch_device)(
                     gen, batch_size, canvas, cfg.data.max_gt_boxes)
                 batch = timed("augment", preprocess_batch_for_train)(
                     gen, raw, cfg.data)
-                pri = loss_lib.draw_rpn_priorities(gen, batch_size,
-                                                   model.anchors.shape[0])
+                draws = loss_lib.draw_rpn_priorities(
+                    gen, batch_size, model.anchors.shape[0]) if (
+                    lighthead) else None
                 model.zero_grad(set_to_none=True)
-                total, _, _ = timed("targets + losses", loss_fn)(batch, pri)
+                total, _, _ = timed("targets + losses", loss_fn)(batch,
+                                                                 draws)
                 timed("backward", total.backward)()
-                timed("optimizer", state.apply_gradients)()
+                timed(optimizer_stage, state.apply_gradients)()
 
     n = 2
     wall: Dict[str, float] = {}

@@ -1,9 +1,10 @@
-"""The Light-Head training step: forward -> target assignment -> losses ->
-backward -> SGD-momentum update.
+"""The training step of both families: forward -> target assignment ->
+losses -> backward -> SGD-momentum update (and the EMA shadow's update).
 
-The port of ``x_detector_tpu/train/trainer.py`` (Light-Head family; the
-SSD family's loss and step are not ported yet). Batches are dicts of
-fixed-shape tensors on the model's device:
+The port of ``x_detector_tpu/train/trainer.py``: Light-Head R-CNN
+(``family="lighthead"``) and the SSD / X-Det single-shot detectors
+(``family="ssd"``). Batches are dicts of fixed-shape tensors on the model's
+device:
 
   image      [B, S, S, 3]   float32, whitened (NHWC)
   gt_boxes   [B, G, 4]      normalized corners, zero-padded
@@ -17,6 +18,9 @@ A caller builds the state and the step, then feeds batches::
     step = make_train_step(state.model, cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     state, metrics = step(state, batch, gen)
+
+The Light-Head step draws its RPN sampling priorities from ``gen``; the SSD
+step draws nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from x_detector_tpu_torch.inference import build_model
 from x_detector_tpu_torch.models.layers import BatchNorm2D
 from x_detector_tpu_torch.models.lighthead import LightHeadRCNN
+from x_detector_tpu_torch.models.ssd import SSDModel
 from x_detector_tpu_torch.ops import matching
 from x_detector_tpu_torch.train import losses as loss_lib
 from x_detector_tpu_torch.train.schedule import make_optimizer
@@ -44,6 +49,32 @@ def _train_gt_mask(batch: Batch, cfg) -> torch.Tensor:
     if not cfg.data.include_difficult and "difficult" in batch:
         mask = mask & ~batch["difficult"]
     return mask
+
+
+def make_ssd_loss_fn(model: SSDModel, cfg):
+    """loss_fn(batch, draws=None) -> (loss, metrics, aux), the per-image
+    means. The model runs in training mode; every image's anchors (the
+    model's ``anchors`` buffer) are matched at ``ssd_match_iou`` with
+    forced matches, then ``ssd_loss`` mines the hard negatives. ``aux`` is
+    empty."""
+    tcfg = cfg.train
+
+    def loss_fn(batch: Batch, draws=None
+                ) -> Tuple[torch.Tensor, Metrics, Dict[str, torch.Tensor]]:
+        del draws  # the SSD loss is deterministic given the batch
+        model.train()
+        cls_logits, box_codes = model(batch["image"])
+        m = matching.match_anchors(
+            model.anchors, batch["gt_boxes"], batch["gt_labels"],
+            _train_gt_mask(batch, cfg), pos_iou=tcfg.ssd_match_iou,
+            neg_iou=tcfg.ssd_match_iou, force_match=True)
+        total, metrics = loss_lib.ssd_loss(
+            cls_logits, box_codes, m.labels, m.reg_targets, m.fg_mask,
+            neg_pos_ratio=tcfg.neg_pos_ratio)
+        return total.mean(), {k: v.detach().mean()
+                              for k, v in metrics.items()}, {}
+
+    return loss_fn
 
 
 def make_lighthead_loss_fn(model: LightHeadRCNN, cfg):
@@ -88,25 +119,36 @@ def make_lighthead_loss_fn(model: LightHeadRCNN, cfg):
     return loss_fn
 
 
+def make_loss_fn(model: torch.nn.Module, cfg):
+    """The family's loss_fn(batch, draws) -> (loss, metrics, aux)."""
+    if cfg.model.family == "ssd":
+        return make_ssd_loss_fn(model, cfg)
+    if cfg.model.family == "lighthead":
+        return make_lighthead_loss_fn(model, cfg)
+    raise ValueError(f"unknown family {cfg.model.family!r}")
+
+
 def make_grad_fn(model: torch.nn.Module, loss_fn, accum: int = 1):
-    """grad_fn(batch, priorities) -> metrics (with ``total_loss``). Leaves
-    the gradients in the parameters' ``.grad`` (zeros where a parameter got
-    none) and the new BatchNorm running stats in the model.
+    """grad_fn(batch, draws) -> metrics (with ``total_loss``). ``draws`` are
+    the loss's random draws, per image on the leading axis (the Light-Head's
+    ``RPNPriorities``), or None (SSD). Leaves the gradients in the
+    parameters' ``.grad`` (zeros where a parameter got none) and the new
+    BatchNorm running stats in the model.
 
     ``accum > 1`` splits the batch into ``accum`` microbatches in order and
     averages their gradients, BN statistics and metrics, one update per
     call, as the JAX package does: each microbatch's BN update starts from
     the step-initial running stats, and the updates are averaged."""
 
-    def run(batch, priorities):
-        total, metrics, _ = loss_fn(batch, priorities)
+    def run(batch, draws):
+        total, metrics, _ = loss_fn(batch, draws)
         total.backward()
         return dict(metrics, total_loss=total.detach())
 
-    def grad_fn(batch: Batch, priorities: loss_lib.RPNPriorities) -> Metrics:
+    def grad_fn(batch: Batch, draws=None) -> Metrics:
         model.zero_grad(set_to_none=True)
         if accum <= 1:
-            metrics = run(batch, priorities)
+            metrics = run(batch, draws)
         else:
             bsz = batch["image"].shape[0]
             if bsz % accum:
@@ -124,7 +166,8 @@ def make_grad_fn(model: torch.nn.Module, loss_fn, accum: int = 1):
                 part = slice(i * mb, (i + 1) * mb)
                 all_metrics.append(run(
                     {k: v[part] for k, v in batch.items()},
-                    loss_lib.RPNPriorities(*(p[part] for p in priorities))))
+                    None if draws is None else
+                    type(draws)(*(d[part] for d in draws))))
                 new_stats.append([(bn.running_mean.clone(),
                                    bn.running_var.clone()) for bn in bns])
             with torch.no_grad():
@@ -148,16 +191,11 @@ def make_grad_fn(model: torch.nn.Module, loss_fn, accum: int = 1):
 
 def create_model_and_state(cfg, device, seed: Optional[int] = 0,
                            dtype: torch.dtype = torch.bfloat16) -> TrainState:
-    """A Light-Head model on ``device`` in training mode, its optimizer and
-    schedule, and the EMA shadow if ``cfg.train.ema_decay`` > 0. ``seed``
-    as for ``inference.build_model`` (None: load the weights, then make the
-    state with ``TrainState.create`` so that a shadow copies them). Other
-    families than Light-Head raise ``NotImplementedError``: the SSD family
-    runs inference only, until ``ssd_loss`` and its step are ported."""
-    if cfg.model.family != "lighthead":
-        raise NotImplementedError(f"training family {cfg.model.family!r}: "
-                                  "ssd_loss and the SSD step are not "
-                                  "ported yet")
+    """The family's model (Light-Head or SSD) on ``device`` in training
+    mode, its optimizer and schedule, and the EMA shadow if
+    ``cfg.train.ema_decay`` > 0. ``seed`` as for ``inference.build_model``
+    (None: load the weights, then make the state with ``TrainState.create``
+    so that a shadow copies them)."""
     model = build_model(cfg.model, device, seed=seed, dtype=dtype).train()
     optimizer, schedule = make_optimizer(model, cfg.train)
     return TrainState.create(model, optimizer, schedule,
@@ -166,20 +204,22 @@ def create_model_and_state(cfg, device, seed: Optional[int] = 0,
 
 def make_train_step(model: torch.nn.Module, cfg
                     ) -> Callable[..., Tuple[TrainState, Metrics]]:
-    """train_step(state, batch, generator, priorities=None) -> (state,
-    metrics): draws the RPN sampling priorities from ``generator`` (or takes
-    the ``priorities`` given), computes the gradients
+    """train_step(state, batch, generator=None, priorities=None) -> (state,
+    metrics): for Light-Head draws the RPN sampling priorities from
+    ``generator`` (or takes the ``priorities`` given; the SSD step draws
+    nothing and needs no generator), computes the gradients
     (``cfg.train.grad_accum_steps`` microbatches) and applies them.
     ``model`` is ``state.model``."""
-    grad_fn = make_grad_fn(model, make_lighthead_loss_fn(model, cfg),
+    grad_fn = make_grad_fn(model, make_loss_fn(model, cfg),
                            cfg.train.grad_accum_steps)
+    draws_rpn = cfg.model.family == "lighthead"
     num_anchors = model.anchors.shape[0]
 
     def train_step(state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None,
                    priorities: Optional[loss_lib.RPNPriorities] = None
                    ) -> Tuple[TrainState, Metrics]:
-        if priorities is None:
+        if draws_rpn and priorities is None:
             priorities = loss_lib.draw_rpn_priorities(
                 generator, batch["image"].shape[0], num_anchors)
         metrics = grad_fn(batch, priorities)
