@@ -73,6 +73,29 @@ Phases; each raises on failure and the script then exits non-zero:
                 steps 1-6; cli.evaluate on that directory (the EMA shadow, a
                 finite mAP in [0, 1]); then lighthead_xception (config 4's
                 model) for 2 steps: B1's forward and backward once a step.
+ 12. dp      -- config 5, data-parallel Light-Head training: (a) at its
+                global batch of 128 on this card, world 1 over a real NCCL
+                group, 16 microbatches of 8 at 800 px, one warm-up and
+                DP_STEPS timed steps (B1's forward and backward 16 times
+                each a step; step ms, images/s, peak memory), then the
+                flattened all-reduce timed alone; (b) two gloo ranks on
+                this card (NCCL takes one rank a card), 8 images each, 2
+                steps: their train states (parameters, BatchNorm stats,
+                momentum, step) bitwise equal to each other and to this
+                card's grad_accum_steps = 2 step on the same 16 images and
+                RPN draws; (c) cli.train --num-devices 2 on one card raises,
+                naming the visible count.
+ 13. data    -- the native loader built from the port's C++ (the decoder it
+                found printed); the committed mini VOCdevkit through
+                cli.convert_voc; its JPEGs decoded against the pixels
+                libjpeg gives (the committed .npz); a resumed stream
+                bitwise equal to the uninterrupted one; DATA_PHOTOS
+                photo-sized JPEGs (500 x 375, 4:2:0) made with PIL through
+                cli.convert_voc: the loader's images/s on this host with a
+                worker thread a core and with one, then cli.train
+                --data-dir (config 4's model, DATA_STEPS steps: B1 once a
+                step each way) and cli.evaluate --data-dir (a finite mAP
+                in [0, 1]) over them.
 The line before the last is one JSON object with the kernels' results; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -150,6 +173,26 @@ TRAIN_LEAF_REL_TOL = 3e-1
 # within four fp32 ulps of the shadow's largest value.
 EMA_ULPS = 4
 CLI_STEPS, CLI_RESUME_STEPS = 4, 6
+# config 5 on one card (config.config5()): world 1 x grad_accum_steps 16 x
+# 8 images = 128; the gloo pair: 8 images a rank
+DP_MICROBATCH, DP_STEPS = 8, 2
+DP_PAIR_STEPS, DP_PAIR_TIMEOUT_S = 2, 300
+DATA_STEPS, DATA_RATE_BATCHES, DATA_CANVAS = 3, 10, 960
+# photo-sized JPEGs made here with PIL (500 x 375, 4:2:0, ~79 KB, as VOC's
+# photos are sized and sampled) for the loader's rate and the CLIs
+DATA_PHOTOS = 48
+# The loader's decoder against the pixels libjpeg decodes, (max, mean) abs
+# difference in 8-bit levels. libjpeg must give its own bits. nvJPEG runs
+# another IDCT (the JPEG standard lets a sample round 1 level either way);
+# its planes are then upsampled and converted by the loader as libjpeg
+# does it, so the colour conversion's gains (up to 1.77 for blue) scale
+# the IDCT's levels: a few, at any chroma sampling.
+PIXEL_TOL = {"libjpeg": (0, 0.0), "nvjpeg": (4, 1.0)}
+# Two gloo ranks against the card's accumulation of 2: bitwise, every
+# tensor of the train state. Each rank's shard is one microbatch of the
+# accumulation, run by the same kernels with cuDNN in deterministic mode
+# (B1's kernels are deterministic by design), a two-term sum commutes and
+# the halving is exact.
 
 
 def log(*args) -> None:
@@ -668,8 +711,8 @@ def train_config(image_size: int = 800, batch_size: int = BATCH):
         cfg.train, batch_size=batch_size, warmup_steps=0))
 
 
-def run_train(cfg, device, steps: int = TRAIN_STEPS,
-              seed: int = SEED) -> dict:
+def run_train(cfg, device, steps: int = TRAIN_STEPS, seed: int = SEED
+              ) -> dict:
     """Drive the training path of either family: synthetic batches made on
     ``device`` on a 1.2x canvas -> preprocess_batch_for_train -> the train
     step, one warm-up step then ``steps`` timed ones. Returns the kernels'
@@ -680,9 +723,7 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS,
     d * e + (1 - d) * p of the last step's inputs (with the scale). (An
     SSD step's loss reaches only the anchors it mines, so a level without
     one gives its head a zero gradient.)
-    Expected: per microbatch, one forward (for Light-Head one PSROIAlign,
-    and the fused blocks the model in training mode takes) and, for
-    Light-Head, one backward of PSROIAlign."""
+    Expected launches: ``step_readings``."""
     from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
     from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
     from x_detector_tpu_torch.train.trainer import (create_model_and_state,
@@ -712,19 +753,9 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS,
         sync()
         seconds.append(time.perf_counter() - t0)
         losses.append({k: v.item() for k, v in metrics.items()})
-    launches = {name: fn.launches for name, fn in counters.items()}
+    res = step_readings(cfg, state, before, steps, counters)
+    res.update(seconds=seconds[1:], losses=losses)
     params = list(state.model.named_parameters())
-    moved = [not torch.equal(b, p.detach()) for b, (_, p) in
-             zip(before, params)]
-    forwards = (steps + 1) * cfg.train.grad_accum_steps
-    b1 = forwards if cfg.model.family == "lighthead" else 0
-    res = {"launches": launches,
-           "expected": {"fused_sepconv": forwards * fused_blocks(state.model),
-                        "psroi_align": b1, "psroi_align_backward": b1},
-           "seconds": seconds[1:], "losses": losses,
-           "moved": sum(moved), "params": len(moved),
-           "stuck": [n for m, (n, p) in zip(moved, params)
-                     if not m and bool(p.grad.any())]}
     if ema_in is not None:
         d, gap, scale = state.ema_decay, 0.0, 0.0
         with torch.no_grad():
@@ -737,6 +768,26 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS,
                                    for (n, _), b in zip(params, before)),
                       "gap": gap, "scale": scale}
     return res
+
+
+def step_readings(cfg, state, before, steps: int, counters) -> dict:
+    """After one warm-up and ``steps`` steps from parameters ``before``:
+    the kernels' launches (``counters``, zeroed before the first step),
+    what they should be (per microbatch, one forward, for Light-Head one
+    PSROIAlign each way, and the fused blocks the model in training mode
+    takes), how many parameter tensors moved, and those that got a
+    gradient in the last step and did not ("stuck")."""
+    params = list(state.model.named_parameters())
+    moved = [not torch.equal(b, p.detach()) for b, (_, p) in
+             zip(before, params)]
+    forwards = (steps + 1) * cfg.train.grad_accum_steps
+    b1 = forwards if cfg.model.family == "lighthead" else 0
+    return {"launches": {name: fn.launches for name, fn in counters.items()},
+            "expected": {"fused_sepconv": forwards * fused_blocks(
+                state.model), "psroi_align": b1, "psroi_align_backward": b1},
+            "moved": sum(moved), "params": len(moved),
+            "stuck": [n for m, (n, p) in zip(moved, params)
+                      if not m and bool(p.grad.any())]}
 
 
 def check_train(tag: str, res: dict, per_step: dict) -> None:
@@ -1068,6 +1119,319 @@ def run_cli(device, extra=()) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# dp: config 5 (data-parallel Light-Head training)
+# ---------------------------------------------------------------------------
+
+def run_dp(cfg, device, steps: int = DP_STEPS) -> dict:
+    """(a) The data-parallel step at world 1 over a real process group
+    (NCCL on a card, gloo on the CPU), driven by ``dp_scaling.run_steps``
+    (one warm-up, ``steps`` timed); then the flattened all-reduce of the
+    step's gradients, BatchNorm stats and metrics, timed alone. Returns
+    ``run_train``'s readings with "allreduce_ms" and "allreduce_bytes"."""
+    import torch.distributed as dist
+    from x_detector_tpu_torch import dp_scaling
+    from x_detector_tpu_torch.parallel import mesh
+    device = torch.device(device)
+    mesh.init_group(mesh.backend_for(device.type))
+    try:
+        counters = kernel_counters()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for fn in counters.values():
+            fn.launches = 0
+        run = dp_scaling.run_steps(cfg, device, steps, seed=SEED)
+        state = run.pop("state")
+        res = step_readings(cfg, state, run["before"], steps, counters)
+        res.update(seconds=run["seconds"], losses=run["losses"])
+        res["allreduce_ms"] = dp_scaling.allreduce_ms(
+            state.model, run["metrics"], device)
+        res["allreduce_bytes"] = 4 * (
+            sum(p.numel() for p in state.model.parameters())
+            + sum(b.numel() for n, b in state.model.named_buffers()
+                  if n.endswith(("running_mean", "running_var")))
+            + len(run["metrics"]))
+        del state, run
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def dp_pair_batch(cfg, device, step: int):
+    """The global batch and RPN draws of a two-rank step: made from a
+    generator seeded by the step, so that every process makes the same."""
+    from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
+    from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
+    from x_detector_tpu_torch.ops import anchors as anchor_lib
+    from x_detector_tpu_torch.train import losses as loss_lib
+    gen = torch.Generator(device=device).manual_seed(SEED + 100 + step)
+    size, b = cfg.model.image_size, cfg.train.batch_size
+    raw = synthetic_batch_device(gen, b, int(size * CANVAS_SCALE),
+                                 cfg.data.max_gt_boxes)
+    batch = preprocess_batch_for_train(gen, raw, cfg.data)
+    pri = loss_lib.draw_rpn_priorities(gen, b, anchor_lib.rpn_anchors(
+        size, cfg.model.anchors).shape[0])
+    return batch, pri
+
+
+def train_snapshot(state) -> dict:
+    """Every tensor a train state carries, on the CPU, by name: parameters
+    and BatchNorm running stats, SGD's momentum buffers, the EMA shadow,
+    and the step."""
+    out = {"model." + k: v.detach().cpu().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, s in state.optimizer.state_dict()["state"].items():
+        out[f"momentum.{i}"] = s["momentum_buffer"].cpu().clone()
+    for k, v in (state.ema_params or {}).items():
+        out["ema." + k] = v.detach().cpu().clone()
+    out["step"] = torch.tensor(state.step)
+    return out
+
+
+def snapshot_differs(a: dict, b: dict) -> list:
+    """Names whose tensors are not bitwise equal (or present in one)."""
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not
+                                      torch.equal(a[k], b[k])]
+
+
+def _dp_pair_rank(rank, world, cfg, device, steps, out_dir):
+    """One of two gloo ranks that share one device: ``steps`` DP steps of
+    its rows of ``dp_pair_batch``; saves its ``train_snapshot``. (This
+    torch's gloo takes CUDA tensors: it copies them through the host
+    itself.)"""
+    from x_detector_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step)
+    from x_detector_tpu_torch.parallel.mesh import shard_rows
+    from x_detector_tpu_torch.train import losses as loss_lib
+    from x_detector_tpu_torch.train.trainer import create_model_and_state
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cudnn.deterministic = True
+    else:
+        torch.set_num_threads(1)
+    state = create_model_and_state(cfg, device, seed=SEED)
+    step = make_dp_train_step(state.model, cfg)
+    rows = shard_rows(cfg.train.batch_size, rank, world)
+    for i in range(steps):
+        batch, pri = dp_pair_batch(cfg, device, i)
+        state, _ = step(state, {k: v[rows] for k, v in batch.items()},
+                        priorities=loss_lib.RPNPriorities(
+                            *(d[rows] for d in pri)))
+    torch.save(train_snapshot(state), f"{out_dir}/rank{rank}.pt")
+
+
+def run_dp_pair(cfg, device, steps: int = DP_PAIR_STEPS) -> dict:
+    """(b) Two gloo ranks on one device (NCCL refuses two ranks on one
+    card), ``cfg.train.batch_size / 2`` images each, ``steps`` steps; then,
+    in this process, the single-device step with ``grad_accum_steps = 2``
+    on the same global batches and draws. Fails unless the two ranks and
+    the accumulation end with bitwise equal train states (``train_snapshot``:
+    parameters, BatchNorm running stats, momentum, step). Returns the count
+    of tensors compared, by kind."""
+    from x_detector_tpu_torch.parallel import mesh
+    from x_detector_tpu_torch.train import losses as loss_lib
+    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_train_step)
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.run_ranks(_dp_pair_rank, 2, "gloo", (
+            cfg, str(device), steps, tmp), timeout_s=DP_PAIR_TIMEOUT_S)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    differ = snapshot_differs(ranks[0], ranks[1])
+    if differ:
+        raise AssertionError(f"dp pair: the two ranks' train states differ "
+                             f"after {steps} steps in {len(differ)} tensors: "
+                             f"{differ[:5]}")
+    acc = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, grad_accum_steps=2))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = create_model_and_state(acc, device, seed=SEED)
+        step = make_train_step(state.model, acc)
+        for i in range(steps):
+            batch, pri = dp_pair_batch(acc, device, i)
+            state, _ = step(state, batch, priorities=loss_lib.RPNPriorities(
+                *pri))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = train_snapshot(state)
+    del state
+    differ = snapshot_differs(want, ranks[0])
+    if differ:
+        raise AssertionError(f"dp pair: the ranks' train state differs from "
+                             f"the accumulation of 2 after {steps} steps in "
+                             f"{len(differ)} tensors: {differ[:5]}")
+    kinds = {}
+    for k in want:
+        kind = ("running stats" if k.endswith(("running_mean", "running_var"))
+                else k.split(".")[0])
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
+def check_cli_refuses_two_ranks(device) -> str:
+    """(c) ``cli.train --num-devices 2`` on ``device`` with fewer than 2
+    cards visible raises, naming the count; returns the message."""
+    from x_detector_tpu_torch.cli import train
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            train.main(["--preset", "lighthead_xception", "--num-devices",
+                        "2", "--device", str(device), "--steps", "1",
+                        "--model-dir", tmp])
+        except RuntimeError as e:
+            if f"{visible} visible" not in str(e):
+                raise AssertionError(f"cli --num-devices 2 raised without "
+                                     f"the visible count {visible}: {e}")
+            return str(e)
+    raise AssertionError("cli --num-devices 2 ran with fewer than 2 cards")
+
+
+# ---------------------------------------------------------------------------
+# data: VOC shards through the native loader into the CLIs
+# ---------------------------------------------------------------------------
+
+def loader_rate(shards, threads: int, canvas: int, batches: int,
+                cuda_device: int = 0) -> float:
+    """The native loader's images/s over ``shards`` with ``threads``
+    workers: batches of 16 on letterboxed ``canvas`` px canvases, timed
+    over ``batches`` after 3 of warm-up."""
+    from x_detector_tpu_torch.data.native_loader import NativeLoader
+    loader = NativeLoader(shards, canvas_size=canvas, max_gt=100,
+                          batch_size=BATCH, shuffle=True, seed=SEED,
+                          num_threads=threads, letterbox=True,
+                          cuda_device=cuda_device)
+    try:
+        for _ in range(3):
+            next(loader)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(loader)
+        return batches * BATCH / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+
+
+def run_data(device, extra=(), steps: int = DATA_STEPS,
+             rate_batches: int = DATA_RATE_BATCHES,
+             canvas: int = DATA_CANVAS, photos: int = DATA_PHOTOS) -> dict:
+    """The committed mini VOCdevkit -> ``cli.convert_voc`` -> shards; each
+    JPEG decoded by the loader against the pixels libjpeg decodes (the
+    committed ``.npz``); a resumed stream against the uninterrupted one,
+    bitwise. Then ``photos`` photo-sized JPEGs made here (PIL,
+    ``make_voc_mini.write_voc_tree``) -> shards: the loader's images/s on
+    this host (``canvas`` px canvases, batches of 16) with a thread a core
+    and with one; ``cli.train --data-dir`` over them (config 4's model,
+    ``steps`` steps, the kernels' counters reset just before) and
+    ``cli.evaluate --data-dir``, each with ``--device device`` and
+    ``extra``. Returns the readings and the train run's launches."""
+    import os
+    import shutil
+    import numpy as np
+    from x_detector_tpu_torch.cli import convert_voc, evaluate, train
+    from x_detector_tpu_torch.data import native_loader
+    from x_detector_tpu_torch.data.native_loader import NativeLoader
+    from x_detector_tpu_torch.data.testdata import make_voc_mini
+    here = os.path.dirname(os.path.abspath(__file__))
+    testdata = os.path.join(here, "x_detector_tpu_torch", "data", "testdata")
+    device = torch.device(device)
+    cuda_device = torch.cuda.current_device() if device.type == "cuda" else 0
+    out = {"decoder": native_loader.decoder()}
+    limit = PIXEL_TOL[out["decoder"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(testdata, "voc_mini"), f"{tmp}/voc")
+        with contextlib.redirect_stdout(io.StringIO()):
+            shards = convert_voc.main(["--voc-root", f"{tmp}/voc",
+                                       "--output-dir", f"{tmp}/shards",
+                                       "--shard-size", "4"])
+        want = np.load(os.path.join(testdata, "voc_mini_pixels.npz"))
+        out["pixels"] = {}
+        for image_id, (_, _, mode, _, subsampling) in zip(
+                sorted(want.files), make_voc_mini.IMAGES):
+            path = f"{tmp}/voc/VOC2007/JPEGImages/{image_id}.jpg"
+            with open(path, "rb") as f:
+                got = native_loader.decode_jpeg(f.read(), cuda_device)
+            if got.shape != want[image_id].shape:
+                raise AssertionError(f"data: {image_id} decoded to "
+                                     f"{got.shape}, libjpeg's "
+                                     f"{want[image_id].shape}")
+            diff = np.abs(got.astype(np.int16) - want[image_id])
+            chroma = "420" if mode == "RGB" and subsampling == 2 else "full"
+            out["pixels"][image_id] = (chroma, int(diff.max()),
+                                       float(diff.mean()))
+            if diff.max() > limit[0] or diff.mean() > limit[1]:
+                raise AssertionError(
+                    f"data: {image_id} ({chroma} chroma): {out['decoder']} "
+                    f"pixels differ from libjpeg's by up to {diff.max()} "
+                    f"(mean {diff.mean():.3g}); limits {limit}")
+        kw = dict(canvas_size=canvas, max_gt=100, batch_size=BATCH,
+                  shuffle=True, seed=SEED, num_threads=2,
+                  letterbox=True, cuda_device=cuda_device)
+        loaders = [NativeLoader(shards, **kw),
+                   NativeLoader(shards, start_example=BATCH, **kw)]
+        first = [next(loaders[0]) for _ in range(3)]
+        for a, b in zip(first[1:], [next(loaders[1]) for _ in range(2)]):
+            for k in a:
+                if not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+                    raise AssertionError(f"data: the stream resumed at "
+                                         f"{BATCH} differs in {k}")
+        for loader in loaders:
+            loader.close()
+
+        t0 = time.perf_counter()
+        make_voc_mini.write_voc_tree(f"{tmp}/photos", photos, seed=SEED)
+        with contextlib.redirect_stdout(io.StringIO()):
+            shards = convert_voc.main(["--voc-root", f"{tmp}/photos",
+                                       "--output-dir", f"{tmp}/photo_shards"])
+        out["photos_s"] = time.perf_counter() - t0
+        jpegs = [f"{tmp}/photos/VOC2007/JPEGImages/{i:06d}.jpg"
+                 for i in range(photos)]
+        out["photo_kb"] = sum(map(os.path.getsize, jpegs)) / photos / 1e3
+        cores = os.cpu_count() or 1
+        out.update(cores=cores, rate_canvas=canvas, images_per_s={
+            threads: loader_rate(shards, threads, canvas, rate_batches,
+                                 cuda_device)
+            for threads in sorted({cores, 1}, reverse=True)})
+
+        common_args = ["--preset", "lighthead_xception", "--data-dir",
+                       f"{tmp}/photo_shards", "--model-dir", f"{tmp}/model",
+                       "--device", str(device), "--batch-size", str(BATCH),
+                       *extra]
+        counters = kernel_counters()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = train.main(common_args + ["--steps", str(steps),
+                                              "--log-every", "1"])
+        out["train_s"] = time.perf_counter() - t0
+        out["launches"] = {name: fn.launches for name, fn in counters.items()}
+        out["expected"] = {"fused_sepconv": 0, "psroi_align": steps,
+                           "psroi_align_backward": steps}
+        with open(f"{tmp}/model/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        out["losses"] = [r["total_loss"] for r in recs]
+        out["wall_s"] = [r["wall_time_s"] for r in recs]
+        if state.step != steps or len(out["losses"]) != steps or not all(
+                math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"data: cli.train --data-dir ended at step "
+                                 f"{state.step}, losses {out['losses']}")
+        del state
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = evaluate.main(common_args + ["--num-batches", "3"])
+        if not (res["step"] == steps and 0.0 <= res["mAP"] <= 1.0):
+            raise AssertionError(f"data: cli.evaluate --data-dir gave step "
+                                 f"{res['step']}, mAP {res['mAP']}")
+        out["mAP"] = res["mAP"]
+    return out
+
 
 def fused(cfg):
     """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
@@ -1078,7 +1442,7 @@ def fused(cfg):
 
 def main() -> int:
     smi = phase_device()
-    from x_detector_tpu_torch.config import (lighthead_resnet50,
+    from x_detector_tpu_torch.config import (config5, lighthead_resnet50,
                                              lighthead_xception,
                                              ssd_resnet50, xdet_xception)
     phase_build()
@@ -1176,6 +1540,64 @@ def main() -> int:
         f"{res['wall_s']}); evaluate on the EMA shadow: mAP "
         f"{res['evaluate']['mAP']:.4f}; Light-Head 2 steps: launches "
         f"{res['launches']}; {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # dp: config 5, data-parallel Light-Head training at a global batch of
+    # 128 (world 1 over NCCL, 16 microbatches of 8); B1's forward and
+    # backward 16 times each a step
+    torch.cuda.reset_peak_memory_stats()
+    cfg = config5()
+    paths["dp"] = res = run_dp(cfg, "cuda")
+    accum = cfg.train.grad_accum_steps
+    check_train("config 5", res, {"fused_sepconv": 0, "psroi_align": accum,
+                                  "psroi_align_backward": accum})
+    if res["moved"] != res["params"]:
+        raise AssertionError(f"config 5: only {res['moved']} of "
+                             f"{res['params']} parameter tensors changed")
+    report_train(f"dp: config 5, world 1 (NCCL) x {accum} microbatches "
+                 f"of {cfg.train.batch_size // accum} = global batch "
+                 f"{cfg.train.batch_size} at 800 px", res,
+                 cfg.train.batch_size, torch.cuda.max_memory_allocated())
+    log(f"dp: B1's forward and backward a step: "
+        f"{res['launches']['psroi_align'] // (DP_STEPS + 1)} and "
+        f"{res['launches']['psroi_align_backward'] // (DP_STEPS + 1)} "
+        f"(one a microbatch)")
+    log(f"dp: flattened all-reduce of the gradients, BatchNorm stats and "
+        f"metrics ({res['allreduce_bytes'] / 2**20:.1f} MiB fp32, world 1): "
+        f"{res['allreduce_ms']:.4f} ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pair = run_dp_pair(config5(2, global_batch=2 * DP_MICROBATCH,
+                               microbatch=DP_MICROBATCH), "cuda")
+    log(f"dp: two gloo ranks on this card, {DP_MICROBATCH} images each at "
+        f"800 px, {DP_PAIR_STEPS} steps (gloo on CUDA tensors): the two "
+        f"ranks' train states and this card's grad_accum_steps = 2 step's "
+        f"on the same 16 images and draws bitwise equal ({pair} tensors); "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"dp: cli.train --num-devices 2 on this card raised: "
+        f"{check_cli_refuses_two_ranks('cuda')}")
+
+    # data: the committed VOC images -> cli.convert_voc -> the native loader
+    # -> cli.train / cli.evaluate --data-dir (config 4's model)
+    torch.cuda.reset_peak_memory_stats()
+    paths["data"] = res = run_data("cuda")
+    if res["launches"] != res["expected"]:
+        raise AssertionError(f"data: cli.train --data-dir launched "
+                             f"{res['launches']}, expected {res['expected']}")
+    pixels = {k: (c, m, round(a, 4)) for k, (c, m, a) in
+              res["pixels"].items()}
+    rates = {t: round(r, 1) for t, r in res["images_per_s"].items()}
+    log(f"data: decoder {res['decoder']}; pixels against libjpeg's (image: "
+        f"chroma, max abs diff, mean; limits {PIXEL_TOL[res['decoder']]}): "
+        f"{pixels}; resumed stream bitwise; {DATA_PHOTOS} photo-sized "
+        f"JPEGs (500 x 375, 4:2:0, {res['photo_kb']:.1f} KB on average) "
+        f"made and converted in {res['photos_s']:.1f} s; loader images/s "
+        f"by worker threads on {res['cores']} cores ({res['rate_canvas']} "
+        f"px canvases, batches of {BATCH}): {rates}; cli.train --data-dir "
+        f"{DATA_STEPS} steps in {res['train_s']:.1f} s (wall_time_s "
+        f"{res['wall_s']}), losses {[round(v, 4) for v in res['losses']]}"
+        f", launches {res['launches']}; cli.evaluate --data-dir mAP "
+        f"{res['mAP']:.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     for k in kernels:

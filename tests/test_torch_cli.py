@@ -1,6 +1,8 @@
-"""The port's train and evaluate CLIs on the CPU (``--device cpu``, thin
-backbones at 64 px), its metrics logger, ``eval_variables`` and its VOC
-evaluator against the JAX package's."""
+"""The port's train, evaluate and convert_voc CLIs on the CPU (``--device
+cpu``, thin backbones at 64 px): synthetic data and TFRecord shards
+(``--data-dir``), one process and two gloo ranks (``--num-devices 2``); its
+metrics logger, ``eval_variables`` and its VOC evaluator against the JAX
+package's."""
 
 import json
 import math
@@ -12,8 +14,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from test_torch_checkpoint import assert_bitwise, snapshot  # noqa: E402
+from test_voc_io import make_fake_voc  # noqa: E402
 from x_detector_tpu.utils import metrics_voc as jax_voc  # noqa: E402
-from x_detector_tpu_torch.cli import common, evaluate, train  # noqa: E402
+from x_detector_tpu_torch.cli import (common, convert_voc,  # noqa: E402
+                                      evaluate, train)
 from x_detector_tpu_torch.train.trainer import (  # noqa: E402
     create_model_and_state)
 from x_detector_tpu_torch.utils import metrics_voc as voc  # noqa: E402
@@ -103,25 +107,110 @@ def test_periodic_eval_logs_the_map(tmp_path):
 
 
 @pytest.mark.parametrize("cli,extra,error,match", [
-    (train, ["--num-devices", "2"], NotImplementedError, "item 5"),
-    (train, ["--data-dir", "shards"], NotImplementedError, "item 4a"),
     (train, ["--pretrained", "r50.pth"], NotImplementedError, "item 8"),
     (train, ["--tensorboard"], NotImplementedError, "metrics.jsonl only"),
     (train, ["--device", "cuda"], RuntimeError, "no CUDA device"),
-    (evaluate, ["--num-devices", "2"], NotImplementedError, "item 5"),
+    (train, ["--device", "cuda", "--num-devices", "2"], RuntimeError,
+     "needs 2 CUDA devices, one a rank; 0 visible"),
     (evaluate, ["--device", "cuda"], RuntimeError, "no CUDA device"),
-], ids=["train-num-devices", "train-data-dir", "train-pretrained",
-        "train-tensorboard", "train-cuda", "eval-num-devices", "eval-cuda"])
+    (evaluate, ["--device", "cuda", "--num-devices", "2"], RuntimeError,
+     "needs 2 CUDA devices, one a rank; 0 visible"),
+], ids=["train-pretrained", "train-tensorboard", "train-cuda",
+        "train-num-devices-cuda", "eval-cuda", "eval-num-devices-cuda"])
 def test_refusals_name_what_is_missing(tmp_path, monkeypatch, cli, extra,
                                        error, match):
     """Each refusal raises with its message, and ``--device cuda`` with no
-    card present never falls back to the CPU."""
+    card present (one rank or two) never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = (train_args("ssd_resnet50", tmp_path, "--steps", "1", *extra)
             if cli is train else cli_args("ssd_resnet50", tmp_path, *extra))
     with pytest.raises(error, match=match):
         cli.main(args)
     assert not (tmp_path / "metrics.jsonl").exists()
+
+
+@pytest.fixture(scope="module")
+def shards(tmp_path_factory):
+    """``cli.convert_voc`` of a fake VOCdevkit of 5 images: 2 shards."""
+    root = tmp_path_factory.mktemp("voc")
+    make_fake_voc(str(root), n_images=5)
+    paths = convert_voc.main(["--voc-root", str(root), "--output-dir",
+                              str(root / "shards"), "--shard-size", "3"])
+    assert len(paths) == 2
+    return root / "shards"
+
+
+def test_train_and_evaluate_read_the_shards(shards, tmp_path, capsys):
+    """``--data-dir``: Light-Head (letterboxed) trains 2 steps from the
+    shards through the native loader, checkpoints its data position and
+    resumes to 3; evaluate reads the 5 images once, in order (a partial
+    last batch)."""
+    args = ("lighthead_xception", tmp_path, "--data-dir", str(shards))
+    train.main(train_args(*args, "--steps", "2"))
+    state = train.main(train_args(*args, "--steps", "3", "--resume"))
+    assert state.step == 3
+    assert "resumed from step 2 (data position 2)" in capsys.readouterr().out
+    assert [r["step"] for r in records(tmp_path)] == [1, 2, 3]
+    assert all(math.isfinite(r["total_loss"]) for r in records(tmp_path))
+    res = evaluate.main(cli_args(*args, "--num-batches", "50"))
+    assert res["step"] == 3 and 0.0 <= res["mAP"] <= 1.0
+
+
+@pytest.fixture
+def short_spawn_timeout(monkeypatch):
+    """Ranks that hang fail the test within 120 s."""
+    monkeypatch.setattr(train, "SPAWN_TIMEOUT_S", 120)
+    monkeypatch.setattr(evaluate, "SPAWN_TIMEOUT_S", 120)
+
+
+def _checkpoint(model_dir, step):
+    return torch.load(model_dir / "ckpt" / f"ckpt-{step}.pt",
+                      weights_only=True)
+
+
+def _assert_checkpoints_equal(a, b):
+    assert a["step"] == b["step"] and a["data_state"] == b["data_state"]
+    flat = lambda p: {**{"model." + k: v for k, v in p["model"].items()},
+                      **{f"opt.{i}": s["momentum_buffer"] for i, s in
+                         p["optimizer"]["state"].items()},
+                      **{"ema." + k: v for k, v in (p["ema"] or {}).items()}}
+    fa, fb = flat(a), flat(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        assert torch.equal(fa[k], fb[k]), k
+
+
+def test_two_ranks_resume_bitwise(tmp_path, short_spawn_timeout, capfd):
+    """``--num-devices 2 --device cpu`` (gloo): config 2's model (with its
+    EMA shadow) for 4 steps equals 2 + ``--resume`` + 2, bit for bit, in
+    every checkpointed tensor and in the metrics rank 0 logs; rank 0 alone
+    writes."""
+    whole, split = tmp_path / "whole", tmp_path / "split"
+    dp = ("--num-devices", "2", "--batch-size", "4")
+    assert train.main(train_args("ssd_resnet50", whole, "--steps", "4",
+                                 *dp)) is None
+    train.main(train_args("ssd_resnet50", split, "--steps", "2", *dp))
+    train.main(train_args("ssd_resnet50", split, "--steps", "4", "--resume",
+                          *dp))
+    out = capfd.readouterr().out      # the ranks' own processes print
+    assert out.count("resumed from step 2 (data position 2)") == 1
+    _assert_checkpoints_equal(_checkpoint(split, 4), _checkpoint(whole, 4))
+    assert _checkpoint(whole, 4)["ema"] is not None
+    drop = lambda rec: {k: v for k, v in rec.items() if k != "wall_time_s"}
+    assert [drop(r) for r in records(split)] == [
+        drop(r) for r in records(whole)]
+    assert [r["step"] for r in records(whole)] == [1, 2, 3, 4]
+
+
+def test_two_rank_eval_equals_one_process(shards, tmp_path,
+                                          short_spawn_timeout):
+    """``cli.evaluate --num-devices 2`` over the shards (5 images in
+    batches of 2: the last one padded) gives one process's result."""
+    args = ("lighthead_xception", tmp_path, "--data-dir", str(shards))
+    train.main(train_args(*args, "--steps", "1"))
+    one = evaluate.main(cli_args(*args))
+    two = evaluate.main(cli_args(*args, "--num-devices", "2"))
+    assert two == one and one["step"] == 1
 
 
 def test_eval_variables_prefers_the_shadow_and_keeps_the_stats():

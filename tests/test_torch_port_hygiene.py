@@ -1,11 +1,12 @@
-"""What the PyTorch port may import, its preset tree, its build errors, its
-kernels' sources, and tiny CPU rehearsals of chip_smoke.py's slice and train
-phases."""
+"""What the PyTorch port may import and build, its preset tree, its build
+errors, its kernels' sources, and tiny CPU rehearsals of chip_smoke.py's
+slice and train phases."""
 
 import ast
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -42,6 +43,52 @@ def test_port_imports_no_jax(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def _non_doc_strings(tree):
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_builds_and_loads_nothing_of_the_jax_package(path):
+    """No string of the port's code names a path in the JAX package (its
+    ``native/`` sources, Makefile or ``libxdet_loader.so``) but as a
+    ``file:line`` reference to a kernel it replaces, and none runs
+    ``make``: the port builds its own copies into ``build/``."""
+    for text in _non_doc_strings(ast.parse(path.read_text(), str(path))):
+        for m in re.finditer(r"x_detector_tpu(?!_torch)\S*", text):
+            assert re.fullmatch(r"x_detector_tpu/[\w/]+\.py:\d+",
+                                m.group(0)), f"{path.name}: {text!r}"
+        assert text != "make", f"{path.name} runs make"
+
+
+def test_port_builds_into_build_and_loads_its_own_loader():
+    """The kernels' and the loader's sources are the port's, their builds
+    go to ``build/`` at the root of the checkout, and a fresh process that
+    loads the port's loader (and reads a batch) has no file of the JAX
+    package mapped."""
+    from x_detector_tpu_torch.data import native_loader
+    for path in (_build.CSRC, native_loader.SOURCE):
+        assert path.is_relative_to(ROOT / "x_detector_tpu_torch"), path
+    for path in (_build.BUILD_ROOT, native_loader.BUILD_ROOT):
+        assert path.is_relative_to(ROOT / "build"), path
+    lib, _ = native_loader.build()
+    code = ("import pathlib\n"
+            "from x_detector_tpu_torch.data import native_loader\n"
+            "native_loader._load_library()\n"
+            "print(pathlib.Path('/proc/self/maps').read_text())\n")
+    maps = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    assert str(lib) in maps
+    assert str(ROOT / "x_detector_tpu") + "/" not in maps
 
 
 @pytest.mark.parametrize("preset", sorted(jax_config.PRESETS))
@@ -276,3 +323,101 @@ def test_cpu_rehearsal_of_chip_smoke_cli():
                                "psroi_align_backward": 2}
     assert res["evaluate"]["ema"] and res["evaluate"]["step"] == (
         chip_smoke.CLI_RESUME_STEPS)
+
+
+def _thin_lighthead(cfg):
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, image_size=64, large_sep_mid=16, head_dim=32,
+        backbone_stages=(1, 1, 1, 1), backbone_widths=(16, 32, 48, 64),
+        proposals=port_config.ProposalConfig(pre_nms_topk=300,
+                                             post_nms_topk=64, min_size=2.0)),
+        data=dataclasses.replace(cfg.data, image_size=64))
+
+
+def test_cpu_rehearsal_of_chip_smoke_dp():
+    """chip_smoke.run_dp at world 1 over a gloo group on the CPU, 2
+    microbatches of 2 at 64 px: every parameter moves, the expected counts
+    (B1 once a microbatch each way) follow from the accumulation, the
+    all-reduce is timed and its buffer counted, and the group is gone
+    afterwards."""
+    chip_smoke = _chip_smoke()
+    cfg = _thin_lighthead(port_config.config5(1, 64, global_batch=4,
+                                              microbatch=2))
+    assert cfg.train.batch_size == 4 and cfg.train.grad_accum_steps == 2
+    res = chip_smoke.run_dp(cfg, "cpu", steps=1)
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 4,
+                               "psroi_align_backward": 4}
+    assert res["launches"] == dict.fromkeys(res["launches"], 0)
+    assert res["moved"] == res["params"] > 0 and not res["stuck"]
+    assert res["allreduce_ms"] > 0 and res["allreduce_bytes"] > 4e5
+    assert "state" not in res
+    assert not torch.distributed.is_initialized()
+
+
+def test_cpu_rehearsal_of_chip_smoke_dp_pair(monkeypatch):
+    """chip_smoke.run_dp_pair with two gloo ranks on the CPU (2 images each,
+    2 steps): the ranks' train states agree bit for bit, and with the
+    accumulation's too (one thread a process): parameters, BatchNorm
+    running stats, momentum and the step."""
+    monkeypatch.syspath_prepend(str(ROOT))        # the ranks import it
+    chip_smoke = _chip_smoke()
+    cfg = _thin_lighthead(port_config.config5(2, 64, global_batch=4,
+                                              microbatch=2))
+    assert cfg.train.grad_accum_steps == 1
+    pair = chip_smoke.run_dp_pair(cfg, "cpu", steps=2)
+    assert set(pair) == {"model", "running stats", "momentum", "step"}
+    assert pair["momentum"] == pair["model"] > 0 < pair["running stats"]
+
+
+def test_chip_smoke_train_snapshots_differ_in_each_kind():
+    """snapshot_differs names a tensor of each kind of the train state that
+    moved: a running stat, a momentum buffer, the step; none when equal."""
+    from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
+    from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
+    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_train_step)
+    chip_smoke = _chip_smoke()
+    cfg = _thin_lighthead(port_config.config5(1, 64, global_batch=2,
+                                              microbatch=2))
+    state = create_model_and_state(cfg, "cpu", seed=0, dtype=torch.float32)
+    step = make_train_step(state.model, cfg)
+    gen = torch.Generator().manual_seed(0)
+    state, _ = step(state, preprocess_batch_for_train(
+        gen, synthetic_batch_device(gen, 2, 76, cfg.data.max_gt_boxes),
+        cfg.data), gen)
+    a = chip_smoke.train_snapshot(state)
+    assert chip_smoke.snapshot_differs(a, chip_smoke.train_snapshot(state)
+                                       ) == []
+    for key in (next(k for k in a if k.endswith("running_var")),
+                "momentum.0", "step"):
+        b = dict(a, **{key: a[key] + 1})
+        assert chip_smoke.snapshot_differs(a, b) == [key]
+
+
+def test_cpu_rehearsal_of_chip_smoke_cli_refusal():
+    chip_smoke = _chip_smoke()
+    assert "0 visible" in chip_smoke.check_cli_refuses_two_ranks("cuda")
+
+
+def test_cpu_rehearsal_of_chip_smoke_data():
+    """chip_smoke.run_data on the CPU with thin flags: the committed JPEGs
+    decode (libjpeg here) to exactly the committed pixels, the loader
+    resumes bitwise and is timed on photo-sized JPEGs made on the spot,
+    and the CLIs train 3 steps and evaluate from those shards (B1 expected
+    once a step each way; the CPU launches no kernel)."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.run_data("cpu", extra=[
+        "--image-size", "64", "--batch-size", "2", "--backbone-stages",
+        "1,1,1,1", "--backbone-widths", "16,32,48,64", "--dtype",
+        "float32"], rate_batches=1, canvas=96, photos=4)
+    assert res["decoder"] == "libjpeg"
+    assert [v[0] for v in res["pixels"].values()] == [
+        "420", "420", "420", "full", "full", "420"]
+    assert all(v[1:] == (0, 0.0) for v in res["pixels"].values())
+    assert 50 < res["photo_kb"] < 120
+    assert res["cores"] >= 1 and 1 in res["images_per_s"]
+    assert all(r > 0 for r in res["images_per_s"].values())
+    assert res["launches"] == dict.fromkeys(res["launches"], 0)
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 3,
+                               "psroi_align_backward": 3}
+    assert len(res["losses"]) == 3 and 0.0 <= res["mAP"] <= 1.0

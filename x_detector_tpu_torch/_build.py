@@ -87,26 +87,28 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    objs = [out_dir / (src.stem + ".o") for src in sources()]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources(), objs)]
-    logs = [proc.communicate()[0] for proc in procs]
-    codes = [proc.returncode for proc in procs]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    if not any(codes):
-        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
-                               *map(str, objs)], capture_output=True,
-                              text=True)
-        logs.append(link.stdout + link.stderr)
-        codes.append(link.returncode)
-    if any(codes):
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({codes}):\n" + "\n".join(logs))
-    (out_dir / LOG_NAME).write_text("\n".join(logs))
-    os.replace(tmp, lib)              # atomic: a reader never sees half a file
+    # each build runs in its own directory, so that ranks starting
+    # together may build at once; the results are moved in atomically
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs = [Path(work) / (src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        codes = [proc.returncode for proc in procs]
+        tmp = Path(work) / LIB_NAME
+        if not any(codes):
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                   str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            codes.append(link.returncode)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n" + "\n".join(logs))
+        (Path(work) / LOG_NAME).write_text("\n".join(logs))
+        os.replace(Path(work) / LOG_NAME, out_dir / LOG_NAME)
+        os.replace(tmp, lib)      # atomic: a reader never sees half a file
     return lib
 
 

@@ -1,2 +1,2 @@
-"""Command-line entry points: ``python -m x_detector_tpu_torch.cli.train``
-and ``python -m x_detector_tpu_torch.cli.evaluate``."""
+"""Command-line entry points: ``python -m x_detector_tpu_torch.cli.train``,
+``.cli.evaluate`` and ``.cli.convert_voc``."""

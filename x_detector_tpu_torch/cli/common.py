@@ -1,5 +1,5 @@
 """Shared CLI plumbing: flags, preset resolution, the device, the weights
-to evaluate, the data stream.
+to evaluate, the data streams (TFRecord shards or synthetic).
 
 The port of ``x_detector_tpu/cli/common.py``, with the same flags and one
 more, ``--device`` (``cuda`` by default; ``cpu`` only when asked).
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import os
 import tempfile
 from typing import Dict, Iterator, Optional
@@ -30,8 +31,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="override the preset input size")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--data-dir", default=None,
-                   help="directory of VOC TFRecord shards (not read by the "
-                        "port yet; default: synthetic data)")
+                   help="directory of VOC TFRecord shards (cli.convert_voc "
+                        "writes them; default: synthetic data)")
     p.add_argument("--model-dir",
                    default=os.path.join(tempfile.gettempdir(), "xdet_model"),
                    help="checkpoint/metrics directory")
@@ -70,6 +71,15 @@ def resolve_device(args) -> torch.device:
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "present (pass --device cpu to run on the CPU)")
     return device
+
+
+def cuda_index(device: torch.device) -> int:
+    """The index of a CUDA device (the current one for a bare ``cuda``);
+    0 for another device."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.current_device() if device.index is None else (
+        device.index)
 
 
 def resolve_config(args) -> ExperimentConfig:
@@ -121,26 +131,30 @@ def eval_variables(state: TrainState, use_ema: Optional[bool] = None
     return variables
 
 
-def require_synthetic(args) -> None:
-    """``--data-dir`` raises: the record readers are not ported."""
+def batch_iterator(args, cfg: ExperimentConfig, training: bool,
+                   canvas_size: Optional[int] = None, start_batch: int = 0,
+                   cuda_device: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Numpy batches of ``cfg.train.batch_size`` canvases of
+    ``canvas_size`` (default: the model's input size), resumed at batch
+    ``start_batch`` in O(1): from the TFRecord shards of ``--data-dir``
+    through the native loader (shuffled and repeating when ``training``,
+    in order and once otherwise; nvJPEG, where it decodes, on
+    ``cuda_device``), else endless synthetic batches from ``--seed``."""
+    canvas = canvas_size or cfg.model.image_size
     if args.data_dir:
-        raise NotImplementedError(
-            "--data-dir: the TFRecord / VOC / native-loader data sources "
-            "are not ported yet (ROADMAP.md, Queue A item 4a); omit it to "
-            "train and evaluate on synthetic data")
-
-
-def batch_iterator(args, cfg: ExperimentConfig,
-                   canvas_size: Optional[int] = None, start_batch: int = 0
-                   ) -> Iterator[Dict[str, np.ndarray]]:
-    """Endless synthetic numpy batches of ``canvas_size`` (default: the
-    model's input size) from ``--seed``, resumed at batch ``start_batch``
-    (``require_synthetic`` first; the JAX package's ``training`` switch
-    between shuffled and ordered record streams has nothing to switch
-    here)."""
-    require_synthetic(args)
-    it = synthetic_batches(args.seed, cfg.train.batch_size,
-                           canvas_size or cfg.model.image_size,
+        from x_detector_tpu_torch.data.native_loader import NativeLoader
+        shards = sorted(glob.glob(os.path.join(args.data_dir, "*.tfrecord")))
+        if not shards:
+            raise FileNotFoundError(f"no .tfrecord shards under "
+                                    f"{args.data_dir}")
+        return NativeLoader(shards, canvas_size=canvas,
+                            max_gt=cfg.data.max_gt_boxes,
+                            batch_size=cfg.train.batch_size,
+                            shuffle=training, seed=args.seed,
+                            repeat=training, letterbox=cfg.data.letterbox,
+                            start_example=start_batch * cfg.train.batch_size,
+                            cuda_device=cuda_device)
+    it = synthetic_batches(args.seed, cfg.train.batch_size, canvas,
                            cfg.data.max_gt_boxes)
     for _ in range(start_batch):  # synthetic generator: cheap skip
         next(it)

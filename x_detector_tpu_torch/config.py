@@ -207,6 +207,23 @@ def xdet_xception(image_size: int = 512) -> ExperimentConfig:
     )
 
 
+def config5(world: int = 1, image_size: int = 800, global_batch: int = 128,
+            microbatch: int = 8) -> ExperimentConfig:
+    """BASELINE config 5: the Light-Head (``lighthead_xception``, config
+    4's model) trained data-parallel at a global batch of 128, no warmup.
+    Each of ``world`` ranks takes ``global_batch / world`` images in
+    microbatches of ``microbatch`` (on one card: 16 of 8)."""
+    per_rank = global_batch // world
+    if per_rank * world != global_batch or per_rank % microbatch:
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"into {world} ranks of microbatches of "
+                         f"{microbatch}")
+    cfg = lighthead_xception(image_size)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=global_batch, warmup_steps=0,
+        grad_accum_steps=per_rank // microbatch))
+
+
 PRESETS = {
     "lighthead_resnet50": lighthead_resnet50,
     "lighthead_xception": lighthead_xception,

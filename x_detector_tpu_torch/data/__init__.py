@@ -1,1 +1,1 @@
-"""Input preprocessing."""
+"""Input preprocessing and the data sources."""

@@ -263,13 +263,27 @@ def preprocess_for_train(draws: AugmentDraws, images: torch.Tensor,
             "gt_labels": torch.where(mask, gt_labels, 0), "gt_mask": mask}
 
 
+def _take_rows(draws, rows: slice):
+    """``draws`` (nested named tuples of tensors, batch-leading) at
+    ``rows``."""
+    if isinstance(draws, torch.Tensor):
+        return draws[rows]
+    return type(draws)(*(_take_rows(d, rows) for d in draws))
+
+
 def preprocess_batch_for_train(generator: torch.Generator, batch: Batch,
-                               cfg) -> Batch:
+                               cfg, shard: Tuple[int, int] = (0, 1)) -> Batch:
     """Train preprocessing of a batch of canvases with draws from
     ``generator``. A ``box_scale`` entry confines the crops to the letterbox
     content; a ``difficult`` entry passes through (gt rows keep their
-    slots)."""
-    draws = draw_augment(generator, batch["image"].shape[0], cfg)
+    slots). With ``shard = (rank, world)``, ``batch`` is the rank's rows of
+    a global batch ``world`` times its size: the draws are the global
+    batch's, and the rank applies its rows of them, so the ranks together
+    augment as one device augments the whole batch."""
+    rank, world = shard
+    b = batch["image"].shape[0]
+    draws = _take_rows(draw_augment(generator, b * world, cfg),
+                       slice(rank * b, (rank + 1) * b))
     out = preprocess_for_train(draws, batch["image"], batch["gt_boxes"],
                                batch["gt_labels"], batch["gt_mask"], cfg,
                                batch.get("box_scale"))

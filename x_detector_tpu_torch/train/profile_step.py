@@ -5,7 +5,10 @@
 The preset (``PATHS``) sets the model and the batch: config 4 by default
 (``lighthead_xception(800)`` training at batch 16 with no warmup);
 ``ssd_resnet50`` is config 2 (batch 8, 512 px, with its EMA shadow) and
-``xdet_xception`` the X-Det variant (batch 8, 512 px, trained unfused).
+``xdet_xception`` the X-Det variant (batch 8, 512 px, trained unfused);
+``config5`` is config 5 on this card (``config.config5()``: config 4's
+model in the data-parallel step at world 1 over an NCCL group, a global
+batch of 128 in 16 microbatches of 8), its flattened all-reduce a stage.
 Synthetic batches are made on the card on canvases 1.2 times the input
 size. After two warm-up steps the script prints the card's name and power
 limit (``nvidia-smi``), then:
@@ -36,6 +39,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from x_detector_tpu_torch.config import PRESETS, config5
+
 STAGE = "stage:"
 # Kernel families by substrings of the kernel's name, first match wins.
 FAMILIES = (
@@ -51,9 +56,21 @@ FAMILIES = (
 FORWARD_PARTS = ("backbone", "rpn", "thin_map", "roi_head")
 TIMED_STEPS = 6
 OUT_DIR = pathlib.Path("build")
-# preset -> (image size, batch)
-PATHS = {"lighthead_xception": (800, 16), "ssd_resnet50": (512, 8),
-         "xdet_xception": (512, 8)}
+
+
+def _preset(name: str, size: int, batch: int):
+    def build():
+        cfg = PRESETS[name](size)
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, batch_size=batch, warmup_steps=0))
+    return build
+
+
+# profiled path -> its config (no warmup); "config5" runs the DP step
+PATHS = {"lighthead_xception": _preset("lighthead_xception", 800, 16),
+         "ssd_resnet50": _preset("ssd_resnet50", 512, 8),
+         "xdet_xception": _preset("xdet_xception", 512, 8),
+         "config5": config5}
 
 
 def family(kernel_name: str) -> str:
@@ -167,11 +184,11 @@ def staged(model, names: Dict[str, float],
 
 
 def main(argv=None) -> None:
-    from x_detector_tpu_torch.config import PRESETS
     from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
     from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
     from x_detector_tpu_torch.train import losses as loss_lib
     from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_grad_fn,
                                                     make_loss_fn,
                                                     make_train_step)
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -185,21 +202,27 @@ def main(argv=None) -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
-    size, batch_size = PATHS[args.preset]
-    cfg = PRESETS[args.preset](size)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, batch_size=batch_size, warmup_steps=0))
+    cfg = PATHS[args.preset]()
+    size, batch_size = cfg.model.image_size, cfg.train.batch_size
+    accum = cfg.train.grad_accum_steps
     canvas = int(size * 1.2)
     state = create_model_and_state(cfg, dev, seed=0)
     model = state.model
-    step = make_train_step(model, cfg)
+    sync = None
+    if args.preset == "config5":
+        from x_detector_tpu_torch.parallel import mesh
+        from x_detector_tpu_torch.parallel.data_parallel import make_sync
+        mesh.init_group("nccl")
+        sync = make_sync(model)
+    step = make_train_step(model, cfg, sync=sync)
     loss_fn = make_loss_fn(model, cfg)
     lighthead = cfg.model.family == "lighthead"
     optimizer_stage = ("optimizer" if state.ema_params is None
                        else "optimizer + EMA")
     gen = torch.Generator(device=dev).manual_seed(0)
-    print(f"{args.preset} training at {size} px, batch {batch_size}, from "
-          f"{canvas} px canvases", flush=True)
+    print(f"{args.preset} training at {size} px, batch {batch_size} in "
+          f"{accum} microbatch(es){' (DP step, world 1)' if sync else ''}, "
+          f"from {canvas} px canvases", flush=True)
 
     def new_batch():
         raw = synthetic_batch_device(gen, batch_size, canvas,
@@ -223,7 +246,11 @@ def main(argv=None) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     def staged_steps(n, wall):
+        # make_train_step's body, stage by stage: "backward" is grad_fn's
+        # own time, the backward and the accumulation's bookkeeping
         with staged(model, wall, forward_parts(model)) as timed:
+            grad_fn = make_grad_fn(model, timed("targets + losses", loss_fn),
+                                   accum)
             for _ in range(n):
                 raw = timed("data", synthetic_batch_device)(
                     gen, batch_size, canvas, cfg.data.max_gt_boxes)
@@ -232,15 +259,15 @@ def main(argv=None) -> None:
                 draws = loss_lib.draw_rpn_priorities(
                     gen, batch_size, model.anchors.shape[0]) if (
                     lighthead) else None
-                model.zero_grad(set_to_none=True)
-                total, _, _ = timed("targets + losses", loss_fn)(batch,
-                                                                 draws)
-                timed("backward", total.backward)()
+                metrics = timed("backward", grad_fn)(batch, draws)
+                if sync is not None:
+                    timed("all-reduce", sync)(metrics)
                 timed(optimizer_stage, state.apply_gradients)()
 
     n = 2
     wall: Dict[str, float] = {}
     staged_steps(n, wall)
+    wall["backward"] -= wall["targets + losses"]
     wall["targets + losses"] -= sum(
         v for k, v in wall.items() if k.startswith("forward ")
         or k in ("proposals + NMS", "psroi_align forward"))
@@ -290,6 +317,8 @@ def main(argv=None) -> None:
           f"{1 - busy / (w1 - w0):.4f}; kernels {k_total / n / 1e3:.2f} ms,"
           f" of which B1 forward + backward {b1 / n / 1e3:.3f} ms "
           f"({100 * b1 / k_total:.2f}% of kernel time)", flush=True)
+    if sync is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -202,13 +202,16 @@ def create_model_and_state(cfg, device, seed: Optional[int] = 0,
                              ema_decay=cfg.train.ema_decay)
 
 
-def make_train_step(model: torch.nn.Module, cfg
+def make_train_step(model: torch.nn.Module, cfg,
+                    sync: Optional[Callable[[Metrics], Metrics]] = None
                     ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """train_step(state, batch, generator=None, priorities=None) -> (state,
     metrics): for Light-Head draws the RPN sampling priorities from
     ``generator`` (or takes the ``priorities`` given; the SSD step draws
     nothing and needs no generator), computes the gradients
-    (``cfg.train.grad_accum_steps`` microbatches) and applies them.
+    (``cfg.train.grad_accum_steps`` microbatches), passes the metrics
+    through ``sync`` (the data-parallel average, which also averages the
+    gradients and BatchNorm stats in place) and applies the gradients.
     ``model`` is ``state.model``."""
     grad_fn = make_grad_fn(model, make_loss_fn(model, cfg),
                            cfg.train.grad_accum_steps)
@@ -223,6 +226,8 @@ def make_train_step(model: torch.nn.Module, cfg
             priorities = loss_lib.draw_rpn_priorities(
                 generator, batch["image"].shape[0], num_anchors)
         metrics = grad_fn(batch, priorities)
+        if sync is not None:
+            metrics = sync(metrics)
         return state.apply_gradients(), metrics
 
     return train_step
