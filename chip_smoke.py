@@ -23,6 +23,12 @@ Phases; each raises on failure and the script then exits non-zero:
                 B1's backward takes a dense gradient and one shaped like a
                 train step's (256 non-zero rows per image); "ms" is
                 the dense time, "ohem_shaped_ms" the other.
+                The int8 kernels run at every call shape of config 2's and
+                config 3's backbones (read by hooks on one calibrate-mode
+                pass): K3 then K1 or K2, each bitwise equal to its plain
+                version, timed beside its bound, the plain version and, as
+                yardsticks the port never calls, cuDNN's bf16 conv of the
+                shape and torch._int_mm on the 1x1 stride-1 shapes.
   4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
                 the fused separable conv) from seeded uint8 images through
                 build_eval_fn, batches of 16: launch counts, detection
@@ -43,7 +49,22 @@ Phases; each raises on failure and the script then exits non-zero:
                 128 px on the card (bf16, kernels) against the CPU (fp32,
                 plain versions): config 1 on the RPN outputs, the SSD models
                 on cls_logits and box_codes.
-  8. train   -- config 4 (the same model as config 3, training, batch 16 at
+  8. int8    -- config 2, then config 3 (with its fused flag, which an
+                int8 backbone does not take), in int8 at full width: the
+                seeded weights calibrated on the card
+                (quant.calibrate_backbone over INT8_CALIB_BATCHES batches
+                of seeded uint8 images through preprocess_for_eval; every
+                range positive), then build_eval_fn on the float paths'
+                images: launches (config 2: K1 53 and K3 53 a batch;
+                config 3: K1 20, K2 16, K3 36 and B1's forward 1; B2
+                never), the detection invariants, batch time, images/s
+                and peak memory beside the bf16 path's (phases 6 and 4);
+                the prequantized model's outputs and detections against
+                the in-graph model's, bit for bit; at 128 px, the card
+                (bf16, kernels) against the CPU (bf16, plain versions)
+                with the card's ranges, within INT8_CONTROL_FACTOR times
+                the same comparison's gap for the float model.
+  9. train   -- config 4 (the same model as config 3, training, batch 16 at
                 800 px):
                 synthetic batches made on the card on a 960 px canvas ->
                 preprocess_batch_for_train -> the train step, one warm-up
@@ -54,7 +75,7 @@ Phases; each raises on failure and the script then exits non-zero:
                 versions; and bf16, as a control): PSROIAlign's backward in
                 that step against the plain backward of its inputs, the
                 loss, and the thin map's gradients and updates.
-  9. train_ssd -- config 2 (SSD + ResNet-50 training, batch 8 at 512 px,
+ 10. train_ssd -- config 2 (SSD + ResNet-50 training, batch 8 at 512 px,
                 EMA 0.99): synthetic batches made on the card on 614 px
                 canvases -> preprocess_batch_for_train -> the step, one
                 warm-up and TRAIN_STEPS timed steps: no kernel launches,
@@ -64,16 +85,16 @@ Phases; each raises on failure and the script then exits non-zero:
                 from the same weights and batch on the card (bf16) against
                 the CPU (fp32; and bf16, as a control): the loss and the SSD
                 head's gradients and updates.
- 10. train_xdet -- the same for xdet_xception (no shadow; trained unfused,
+ 11. train_xdet -- the same for xdet_xception (no shadow; trained unfused,
                 so B2 never launches).
- 11. cli     -- the train and evaluate CLIs in this process, into a
+ 12. cli     -- the train and evaluate CLIs in this process, into a
                 temporary directory: config 2 for 4 steps with a checkpoint
                 every 2, the checkpoint reloaded bit for bit (step and data
                 position 4), --resume to 6 steps, metrics.jsonl holding
                 steps 1-6; cli.evaluate on that directory (the EMA shadow, a
                 finite mAP in [0, 1]); then lighthead_xception (config 4's
                 model) for 2 steps: B1's forward and backward once a step.
- 12. dp      -- config 5, data-parallel Light-Head training: (a) at its
+ 13. dp      -- config 5, data-parallel Light-Head training: (a) at its
                 global batch of 128 on this card, world 1 over a real NCCL
                 group, 16 microbatches of 8 at 800 px, one warm-up and
                 DP_STEPS timed steps (B1's forward and backward 16 times
@@ -85,7 +106,7 @@ Phases; each raises on failure and the script then exits non-zero:
                 card's grad_accum_steps = 2 step on the same 16 images and
                 RPN draws; (c) cli.train --num-devices 2 on one card raises,
                 naming the visible count.
- 13. data    -- the native loader built from the port's C++ (the decoder it
+ 14. data    -- the native loader built from the port's C++ (the decoder it
                 found printed); the committed mini VOCdevkit through
                 cli.convert_voc; its JPEGs decoded against the pixels
                 libjpeg gives (the committed .npz); a resumed stream
@@ -172,6 +193,15 @@ TRAIN_LEAF_REL_TOL = 3e-1
 # inputs, recomputed: the two products and the sum round, fused or not, so
 # within four fp32 ulps of the shadow's largest value.
 EMA_ULPS = 4
+# The int8 paths: calibrated over this many seeded batches. Their 128 px
+# check holds the card (bf16, kernels) to the CPU (bf16, plain versions):
+# the int8 convs are bitwise equal there, but the rest (heads, BatchNorm's
+# rsqrt) rounds differently, and a gap that moves an input across a
+# rounding boundary of the int8 grid moves the output by one grid step.
+# The control is the same comparison for the float model; the int8 gap
+# must stay within INT8_CONTROL_FACTOR times the control's.
+INT8_CALIB_BATCHES = 2
+INT8_CONTROL_FACTOR = 4.0
 CLI_STEPS, CLI_RESUME_STEPS = 4, 6
 # config 5 on one card (config.config5()): world 1 x grad_accum_steps 16 x
 # 8 images = 128; the gloo pair: 8 images a rank
@@ -576,19 +606,22 @@ def check_detections(boxes, scores, classes, valid, batch: int,
 
 def run_slice(cfg, device, batches: int = SLICE_BATCHES,
               batch_size: int = BATCH, seed: int = SEED,
-              raw_hw=None) -> dict:
+              raw_hw=None, model=None) -> dict:
     """Drive an inference path: seeded uint8 images (``raw_hw`` high and
     wide, the canvas by default) -> preprocess_for_eval -> build_eval_fn,
-    one warm-up batch then ``batches`` timed ones. Returns every kernel's
-    launch count over all of them (and B2's by route), what the model
-    should give (B2 a fused block a batch, B1's forward one a batch for
-    Light-Head, B1's backward none), the timed seconds per batch, the
-    anchor count and the detections of the last batch."""
+    one warm-up batch then ``batches`` timed ones, on ``model`` (by default
+    ``slice_model``'s). Returns every kernel's launch count over all of
+    them (and B2's by route; with ``backbone_quant`` also the int8
+    kernels'), what the model should give (B2 a fused block a batch, B1's
+    forward one a batch for Light-Head, B1's backward none; K1 a dense
+    QuantConv, K2 a depthwise one, K3 each), the timed seconds per batch,
+    the anchor count and the detections of the last batch."""
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
     from x_detector_tpu_torch.inference import build_eval_fn
     from x_detector_tpu_torch.ops import fused_sepconv as fs
     device = torch.device(device)
-    model = slice_model(cfg.model, device, seed)
+    if model is None:
+        model = slice_model(cfg.model, device, seed)
     detect = build_eval_fn(model, cfg, device)
     size = cfg.model.image_size
     h, w = raw_hw or (size, size)
@@ -599,6 +632,8 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     sync = (lambda: torch.cuda.synchronize(device)) if (
         device.type == "cuda") else (lambda: None)
     counters = kernel_counters()
+    if cfg.model.backbone_quant is not None:
+        counters.update(int8_counters())
     sync()
     fs.reset_launches()
     for fn in counters.values():
@@ -611,15 +646,19 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
         seconds.append(time.perf_counter() - t0)
         check_detections(*det, batch_size, cfg.model.nms.max_output)
     launches = {name: fn.launches for name, fn in counters.items()}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
     n = len(images)
+    expected = {"fused_sepconv": fused_blocks(model) * n,
+                "psroi_align": n if cfg.model.family == "lighthead" else 0,
+                "psroi_align_backward": 0}
+    if cfg.model.backbone_quant is not None:
+        expected.update({k: v * n for k, v in int8_calls(model).items()})
     return {"launches": launches, "batches": n,
             "routes": dict(fs.fused_separable_conv.route_launches),
-            "expected": {"fused_sepconv": fused_blocks(model) * n,
-                         "psroi_align": n if cfg.model.family == "lighthead"
-                         else 0,
-                         "psroi_align_backward": 0},
+            "expected": expected,
             "seconds": seconds[1:], "anchors": model.anchors.shape[0],
-            "detections": det}
+            "detections": det, "peak": peak}
 
 
 def check_slice(tag: str, res: dict, per_batch: dict) -> None:
@@ -647,7 +686,7 @@ def report_slice(tag: str, res: dict, batch: int) -> None:
         f"{res['routes']}) over {res['batches']} batches; batch times "
         f"{[round(t * 1e3, 2) for t in secs]} ms, mean {mean * 1e3:.2f} ms = "
         f"{batch / mean:.1f} images/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{res['peak'] / 2**30:.2f} GiB; "
         f"{res['anchors']} anchors; {n_valid} valid detections in the last "
         f"batch")
 
@@ -700,6 +739,24 @@ def kernel_counters():
     return {"fused_sepconv": fused_separable_conv,
             "psroi_align": pa.batched_psroi_align,
             "psroi_align_backward": pa.psroi_align_backward}
+
+
+def int8_counters():
+    """The int8 kernels' wrappers, read on the int8 paths."""
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    return {"int8_conv": q8.int8_conv2d,
+            "int8_dwconv": q8.int8_depthwise_conv2d,
+            "quantize_s8": q8.quantize_activation}
+
+
+def int8_calls(model) -> dict:
+    """The int8 kernels' launches per forward of an int8 ``model``: K1 a
+    dense QuantConv, K2 a depthwise one, K3 before each."""
+    from x_detector_tpu_torch import quant
+    convs = quant.quant_convs(model).values()
+    dense = sum(1 for m in convs if not m.depthwise)
+    return {"int8_conv": dense, "int8_dwconv": len(convs) - dense,
+            "quantize_s8": len(convs)}
 
 
 def train_config(image_size: int = 800, batch_size: int = BATCH):
@@ -1433,6 +1490,300 @@ def run_data(device, extra=(), steps: int = DATA_STEPS,
     return out
 
 
+def run_int8(cfg, device, batches: int = SLICE_BATCHES,
+             batch_size: int = BATCH, seed: int = SEED):
+    """The int8 serving path of ``cfg``: slice_model's seeded weights in a
+    model built with ``backbone_quant="int8"``; quant.calibrate_backbone
+    over INT8_CALIB_BATCHES batches of seeded uint8 images through
+    preprocess_for_eval (every range must come out positive); then
+    ``run_slice`` on it (the same images as the float path's). Returns
+    run_slice's readings with the ranges, and the model."""
+    from x_detector_tpu_torch import quant
+    from x_detector_tpu_torch.data.augment import preprocess_for_eval
+    device = torch.device(device)
+    qcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_quant="int8"))
+    model = slice_model(qcfg.model, device, seed)
+    size = cfg.model.image_size
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    calib = [preprocess_for_eval(torch.randint(
+        0, 256, (batch_size, size, size, 3), generator=gen,
+        dtype=torch.uint8, device=device), cfg.data)
+        for _ in range(INT8_CALIB_BATCHES)]
+    ranges = quant.calibrate_backbone(qcfg, model, calib)
+    low = {k: float(v) for k, v in ranges.items() if not float(v) > 0.0}
+    if low:
+        raise AssertionError(f"{cfg.model.name}: uncalibrated ranges {low}")
+    res = run_slice(qcfg, device, batches, batch_size, seed, model=model)
+    res["ranges"] = ranges
+    return res, model
+
+
+def check_prequantized(model, cfg, device, seed: int = SEED) -> int:
+    """The int8 model's raw outputs and detections on one batch, before
+    and after quant.prequantize: equal bit for bit (the weights are
+    quantized by the one formula either way). Returns the tensors held."""
+    from x_detector_tpu_torch import quant
+    from x_detector_tpu_torch.data.augment import preprocess_for_eval
+    from x_detector_tpu_torch.inference import build_eval_fn
+    size = cfg.model.image_size
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    x = preprocess_for_eval(torch.randint(
+        0, 256, (2, size, size, 3), generator=gen, dtype=torch.uint8,
+        device=device), cfg.data)
+    qcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_quant="int8"))
+    runs = []
+    for step in ("in-graph", "prequantized"):
+        if step == "prequantized":
+            quant.prequantize(model)
+        with torch.inference_mode():
+            out = named_outputs(model(x))
+        runs.append({**out, **dict(zip(
+            ("boxes", "scores", "classes", "valid"),
+            build_eval_fn(model, qcfg, device)(x)))})
+    for key, a in runs[0].items():
+        if not torch.equal(a, runs[1][key]):
+            raise AssertionError(
+                f"{cfg.model.name} int8: {key} of the prequantized model "
+                f"differs from the in-graph model's by up to "
+                f"{(a.float() - runs[1][key].float()).abs().max():.3g}")
+    return len(runs[0])
+
+
+def int8_reference_check(model_cfg, device, keys, ranges) -> dict:
+    """The int8 model at 128 px, the same seeded weights and the ranges
+    the card calibrated (``ranges``), on the card (bf16, kernels) and on
+    the CPU (bf16, plain versions), on the outputs ``keys``; the control is
+    the same comparison for the float model. Fails unless each output's
+    gap over its scale is within INT8_CONTROL_FACTOR times the control's
+    largest."""
+    from x_detector_tpu_torch.inference import build_model
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randint(0, 256, (2, 128, 128, 3), generator=gen
+                      ).float() - 120.0
+    gaps = {}
+    for quant in ("int8", None):
+        cfg = dataclasses.replace(model_cfg, image_size=128,
+                                  backbone_quant=quant)
+        card = slice_model(cfg, device).eval()
+        if quant:
+            card.load_state_dict(ranges, strict=False)
+        cpu = build_model(cfg, "cpu", seed=None, dtype=torch.bfloat16)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        with torch.inference_mode():
+            got = named_outputs(card(x.to(device)))
+            ref = named_outputs(cpu(x))
+        for key in keys:
+            err, sc = max_rel_err(got[key].cpu(), ref[key])
+            gaps[(quant or "bf16", key)] = err / sc
+    control = max(v for (q, _), v in gaps.items() if q == "bf16")
+    for key in keys:
+        log(f"{model_cfg.name} int8 128px {key}: card vs CPU (bf16 both) "
+            f"{gaps[('int8', key)]:.3g} of the scale; float control "
+            f"{gaps[('bf16', key)]:.3g}")
+        if not gaps[("int8", key)] <= INT8_CONTROL_FACTOR * control:
+            raise AssertionError(
+                f"{model_cfg.name} int8 128px {key}: card vs CPU gap "
+                f"{gaps[('int8', key)]:.3g} of the scale > "
+                f"{INT8_CONTROL_FACTOR} x the float control {control:.3g}")
+    return {f"{q}_{k}": v for (q, k), v in gaps.items()}
+
+
+def int8_conv_calls(cfg, device, batch: int):
+    """Every QuantConv call of ``cfg``'s backbone at its full size and
+    ``batch``, counted by shape: (B, H, W, Cin, Cout, kernel, stride,
+    dilation, pads, depthwise) -> calls a batch. Read by forward hooks on
+    one calibrate-mode pass (the float path's convs, no int8 kernel) of a
+    zero batch."""
+    from collections import Counter
+    from x_detector_tpu_torch import quant
+    from x_detector_tpu_torch.inference import build_model
+    from x_detector_tpu_torch.models.layers import same_pads
+    model = build_model(dataclasses.replace(
+        cfg.model, backbone_quant="calibrate"), device, seed=None)
+    calls = Counter()
+
+    def record(m, args):
+        b, cin, h, w = args[0].shape
+        pads = m.pads if m.pads != "SAME" else same_pads(
+            (h, w), m.kernel_size, m.stride, m.dilation)
+        calls[(b, h, w, cin, m.out_channels, m.kernel_size, m.stride,
+               m.dilation, tuple(map(tuple, pads)), m.depthwise)] += 1
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in quant.quant_convs(model).values()]
+    size = cfg.model.image_size
+    with torch.no_grad():
+        model.backbone(torch.zeros(batch, size, size, 3, device=device))
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def time_int8(calls, randn) -> dict:
+    """K3, then K1 or K2, at each call shape of ``calls`` (one config's
+    batch): each held to its plain version bit for bit, then timed beside
+    its bound, the plain version and, as yardsticks the port never calls,
+    cuDNN's bf16 conv of the same shape and, on the 1x1 stride-1 shapes,
+    torch._int_mm (the int32 product alone). Returns per-batch sums,
+    weighted by the calls, by kernel."""
+    import torch.nn.functional as F
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    tot = {name: dict.fromkeys(("ms", "plain_ms", "bound_ms", "cudnn_ms",
+                                "bytes_bound_ms", "err", "calls"), 0.0)
+           for name in ("int8_conv", "int8_dwconv", "quantize_s8")}
+    tot["int_mm"] = {"ms": 0.0, "kernel_ms": 0.0, "calls": 0}
+    for (b, h, w, cin, cout, k, s, d, pads, dw), n in sorted(calls.items()):
+        x = (randn(b, h, w, cin) * 2.0).to(torch.bfloat16)
+        sx = q8.activation_scale(x.abs().amax().float() * 0.9)
+        xq = q8.quantize_activation(x, sx)
+        gen = torch.Generator(device=x.device).manual_seed(b * h * cin + cout)
+        wq = torch.randint(-127, 128, (cout, *k, 1 if dw else cin),
+                           generator=gen, dtype=torch.int8, device=x.device)
+        scale = torch.rand(cout, generator=gen, device=x.device) * 1e-3
+        weight = q8.prepare_weight(wq, dw)
+        if dw:
+            name, kw = "int8_dwconv", dict(stride=s[0], dilation=d[0],
+                                           pads=pads)
+            kern = lambda: q8.int8_depthwise_conv2d(xq, weight, scale, **kw)
+            plain = lambda: q8.int8_depthwise_conv2d_reference(
+                xq, wq, scale, out_dtype=torch.bfloat16, **kw)
+        else:
+            name, kw = "int8_conv", dict(stride=s, dilation=d, pads=pads)
+            kern = lambda: q8.int8_conv2d(xq, weight, scale, **kw)
+            plain = lambda: q8.int8_conv2d_reference(
+                xq, wq, scale, out_dtype=torch.bfloat16, **kw)
+        tag = (f"[{b},{h},{w},{cin}] -> {cout} {k[0]}x{k[1]} s{s} d{d} "
+               f"pads {pads}")
+        got_q = xq
+        ref_q = q8.quantize_activation_reference(x, sx)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        for what, g, r in (("quantize_s8", got_q, ref_q), (name, got, ref)):
+            if not torch.equal(g, r):
+                raise AssertionError(
+                    f"{what} {tag}: differs from its plain version by up to "
+                    f"{(g.float() - r.float()).abs().max():.3g}")
+        ho, wo = got.shape[1:3]
+        (top, bottom), (left, right) = pads
+        xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom)
+                   ).contiguous(memory_format=torch.channels_last)
+        wc = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        cudnn = lambda: F.conv2d(xc, wc, None, s, 0, d, cin if dw else 1)
+        if dw:
+            bound = q8.depthwise_bound_ms(b, h, w, cin, ho, wo, 2)
+        else:
+            bound = q8.conv_bound_ms(b, h, w, cin, ho, wo, cout,
+                                     k[0] * k[1] * cin, 2)
+        t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 1, 2),
+             "cudnn_ms": cuda_ms(cudnn)}
+        tq = {"ms": cuda_ms(lambda: q8.quantize_activation(x, sx)),
+              "plain_ms": cuda_ms(lambda: q8.quantize_activation_reference(
+                  x, sx), 1, 5)}
+        bound_q = q8.quantize_bound_ms(x.numel(), 2)
+        extra = ""
+        if not dw and k == (1, 1) and s == (1, 1) and b * h * w > 16:
+            a2, b2 = xq.reshape(-1, cin), wq.reshape(cout, cin).t()
+            try:
+                int_mm = cuda_ms(lambda: torch._int_mm(a2, b2))
+            except RuntimeError as err:      # a yardstick only
+                extra = f"; torch._int_mm refused the shape: {err}"
+            else:
+                tot["int_mm"]["ms"] += n * int_mm
+                tot["int_mm"]["kernel_ms"] += n * t["ms"]
+                tot["int_mm"]["calls"] += n
+                extra = (f"; torch._int_mm (the int32 product alone) "
+                         f"{int_mm:.4f} ms")
+        log(f"{name} {tag}: bitwise equal to the plain version; kernel "
+            f"{t['ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+            f"{bound[0] / t['ms']:.1%} of it; plain {t['plain_ms']:.4f} ms; "
+            f"cuDNN bf16 conv (yardstick) {t['cudnn_ms']:.4f} ms{extra}; "
+            f"quantize_s8 {tq['ms']:.4f} ms (bound {bound_q[0]:.4f}); "
+            f"x{n} per batch")
+        for key, (row, tb) in (("int8", (t, bound)), ("q", (tq, bound_q))):
+            agg = tot[name if key == "int8" else "quantize_s8"]
+            for field, v in row.items():
+                agg[field] += n * v
+            agg["bound_ms"] += n * tb[0]
+            agg["bytes_bound_ms"] += n * tb[0] * (tb[1] == "bytes")
+            agg["calls"] += n
+        del x, xq, got, ref, got_q, ref_q, xc
+    for name in ("int8_conv", "int8_dwconv", "quantize_s8"):
+        agg = tot[name]
+        agg["by"] = ("bytes" if agg["bytes_bound_ms"] * 2 >= agg["bound_ms"]
+                     else "operations")
+    return tot
+
+
+def phase_int8_kernels() -> dict:
+    """K1, K2 and K3 at every call shape of config 2 (batch 8, 512 px) and
+    config 3 (batch 16, 800 px), per ``time_int8``. Returns each config's
+    sums."""
+    from x_detector_tpu_torch.config import lighthead_xception, ssd_resnet50
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    out = {}
+    for tag, cfg, batch in (("config2", ssd_resnet50(512), SSD_BATCH),
+                            ("config3", lighthead_xception(800), BATCH)):
+        calls = int8_conv_calls(cfg, dev, batch)
+        out[tag] = tot = time_int8(calls, randn)
+        for name in ("int8_conv", "int8_dwconv", "quantize_s8"):
+            t = tot[name]
+            if not t["calls"]:
+                continue
+            log(f"{name} per batch of {tag} ({int(t['calls'])} calls): kernel"
+                f" {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['by']}), {t['bound_ms'] / t['ms']:.1%} of it; plain "
+                f"{t['plain_ms']:.4f} ms" + (
+                    f"; cuDNN bf16 convs (yardstick) {t['cudnn_ms']:.4f} ms"
+                    if name != "quantize_s8" else ""))
+        mm = tot["int_mm"]
+        if mm["calls"]:
+            log(f"{tag}: the {mm['calls']} 1x1 stride-1 calls: K1 "
+                f"{mm['kernel_ms']:.4f} ms, torch._int_mm (the int32 product "
+                f"alone, yardstick) {mm['ms']:.4f} ms")
+    return out
+
+
+def int8_kernel_lines(int8: dict) -> list:
+    """The kernels line's entries of K1 (config 2's batch), K2 (config 3's)
+    and K3 (config 2's), each with the other config's sums."""
+    site = "x_detector_tpu/models/layers.py:180"
+    rows = []
+    for name, main, other in (("int8_conv", "config2", "config3"),
+                              ("int8_dwconv", "config3", None),
+                              ("quantize_s8", "config2", "config3")):
+        t = int8[main][name]
+        row = {"name": name, "route": "cuda",
+               "source": "x_detector_tpu_torch/csrc/int8_conv.cu",
+               "replaces": site, "max_abs_err": 0.0, "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["by"], "library_ms": None,
+               "shapes_of": main, "calls_per_batch": int(t["calls"])}
+        if name != "quantize_s8":
+            row["cudnn_bf16_yardstick_ms"] = t["cudnn_ms"]
+        if other:
+            o = int8[other][name]
+            row.update({f"{other}_ms": o["ms"],
+                        f"{other}_plain_ms": o["plain_ms"],
+                        f"{other}_bound_ms": o["bound_ms"],
+                        f"{other}_calls_per_batch": int(o["calls"])})
+            if name == "int8_conv":
+                row[f"{other}_cudnn_bf16_yardstick_ms"] = o["cudnn_ms"]
+        if name == "int8_conv":
+            row["int_mm_yardstick"] = {
+                tag: {"calls": int8[tag]["int_mm"]["calls"],
+                      "int_mm_ms": int8[tag]["int_mm"]["ms"],
+                      "kernel_ms": int8[tag]["int_mm"]["kernel_ms"]}
+                for tag in int8}
+        rows.append(row)
+    return rows
+
+
 def fused(cfg):
     """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
     as config 3 runs it."""
@@ -1447,6 +1798,7 @@ def main() -> int:
                                              ssd_resnet50, xdet_xception)
     phase_build()
     kernels = phase_kernels()
+    kernels += int8_kernel_lines(phase_int8_kernels())
 
     paths = {}
     # config 3, the first main path: B2 14 times and B1's forward once a
@@ -1489,6 +1841,42 @@ def main() -> int:
                      f"{cfg.model.nms.approx_prefilter} (the exact top-k)",
                      res, SSD_BATCH)
         slice_reference_check(cfg.model, "cuda", ("cls_logits", "box_codes"))
+        torch.cuda.synchronize()
+
+    # int8: config 2, then config 3, at full width: calibrated on the card,
+    # served through build_eval_fn, beside the float paths above (the same
+    # weights and images); the prequantized model against the in-graph
+    # one; the 128 px check against the CPU
+    for path, cfg, float_path, batch, per_batch, keys in (
+            ("int8_config2", ssd_resnet50(512), "ssd", SSD_BATCH,
+             {"int8_conv": 53, "int8_dwconv": 0, "quantize_s8": 53,
+              "psroi_align": 0}, ("cls_logits", "box_codes")),
+            ("int8_config3", fused(lighthead_xception(800)), "slice", BATCH,
+             {"int8_conv": 20, "int8_dwconv": 16, "quantize_s8": 36,
+              "psroi_align": 1}, ("rpn_cls", "rpn_loc"))):
+        torch.cuda.reset_peak_memory_stats()
+        res, model = run_int8(cfg, "cuda", batch_size=batch)
+        paths[path] = res
+        check_slice(path, res, {"fused_sepconv": 0,
+                                "psroi_align_backward": 0, **per_batch})
+        low = min(map(float, res["ranges"].values()))
+        report_slice(f"{path}: {cfg.model.name} int8 (calibrated over "
+                     f"{INT8_CALIB_BATCHES} batches, {len(res['ranges'])} "
+                     f"ranges, min {low:.4g})", res, batch)
+        ref = paths[float_path]
+        int8_ms, float_ms = (sorted(r["seconds"])[len(r["seconds"]) // 2]
+                             * 1e3 for r in (res, ref))
+        log(f"{path}: int8 median {int8_ms:.2f} ms a batch "
+            f"({batch / int8_ms * 1e3:.1f} images/s, peak "
+            f"{res['peak'] / 2**30:.2f} GiB) against the bf16 model's "
+            f"{float_ms:.2f} ms ({batch / float_ms * 1e3:.1f} images/s, peak "
+            f"{ref['peak'] / 2**30:.2f} GiB; phase {float_path}): "
+            f"{float_ms / int8_ms:.3f}x")
+        held = check_prequantized(model, cfg, "cuda")
+        log(f"{path}: prequantized model's outputs and detections equal the "
+            f"in-graph model's bit for bit ({held} tensors)")
+        del model
+        int8_reference_check(cfg.model, "cuda", keys, res["ranges"])
         torch.cuda.synchronize()
 
     cfg = train_config()
@@ -1602,7 +1990,8 @@ def main() -> int:
 
     for k in kernels:
         by_path = {path: run["launches"][k["name"]]
-                   for path, run in paths.items()}
+                   for path, run in paths.items()
+                   if k["name"] in run["launches"]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     log(json.dumps({"kernels": kernels}))

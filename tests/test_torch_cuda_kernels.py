@@ -437,3 +437,149 @@ def test_train_step_on_the_card_goes_through_the_kernels(dev):
     assert res["launches"] == res["expected"] == {
         "fused_sepconv": 0, "psroi_align": 3, "psroi_align_backward": 3}
     assert res["moved"] == res["params"]
+
+
+# ---- the int8 kernels: K1 (dense conv), K2 (depthwise 3x3), K3 (quantizer)
+# Each is held to its plain version run on the card bit for bit: the int8
+# products and their int32 sums are exact, and the epilogue rounds as the
+# plain version does.
+
+def _int8(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+# (B, H, W, Cin, Cout, kernel, stride, dilation, pads)
+INT8_CONV_CASES = {
+    # ResNet's stem: Cin 3 (byte copies), K 147 (a K tail)
+    "stem_7x7_cin3": (2, 17, 13, 3, 64, (7, 7), (2, 2), (1, 1),
+                      ((3, 3), (3, 3))),
+    # Xception's folded stem: Cin 12 (4-byte copies), K 432
+    "stem_12x3_cin12": (2, 24, 9, 12, 128, (12, 3), (4, 1), (1, 1),
+                        ((4, 4), (1, 1))),
+    # Cout 100 (not a multiple of 64), dilation 2, K 576
+    "3x3_d2_cout100": (1, 9, 11, 64, 100, (3, 3), (1, 1), (2, 2),
+                       ((2, 2), (2, 2))),
+    # Cin 40 (8-byte copies), 105 pixels (an M tail), K 360 (a K tail)
+    "3x3_cin40_mtail": (3, 7, 5, 40, 24, (3, 3), (1, 1), (1, 1),
+                        ((1, 1), (1, 1))),
+    # the strided 1x1 shortcut, 16-byte copies
+    "1x1_s2": (1, 10, 10, 256, 512, (1, 1), (2, 2), (1, 1),
+               ((0, 0), (0, 0))),
+    # SAME at stride 2 (pads (0, 1)), Cout 130: a third 128-wide block
+    "3x3_s2_same_cout130": (2, 15, 15, 128, 130, (3, 3), (2, 2), (1, 1),
+                            ((0, 1), (0, 1))),
+    # Cout 33 (odd: unpaired stores), K 9000
+    "3x3_cout33_k9000": (1, 5, 6, 1000, 33, (3, 3), (1, 1), (1, 1),
+                         ((1, 1), (1, 1))),
+    # config 2's widest: 3x3 x 512 at 16 x 16, K 4608
+    "config2_stage4": (1, 16, 16, 512, 512, (3, 3), (1, 1), (1, 1),
+                       ((1, 1), (1, 1))),
+}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(INT8_CONV_CASES))
+def test_int8_conv_kernel_matches_plain_bitwise(dev, case, out_dtype):
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    b, h, w, cin, cout, k, s, d, pads = INT8_CONV_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    xq = _int8(gen, b, h, w, cin)
+    wq = _int8(gen, cout, *k, cin)
+    scale = torch.rand(cout, generator=gen, device=dev) * 1e-3 + 1e-5
+    before = Q.int8_conv2d.launches
+    got = Q.int8_conv2d(xq, Q.prepare_weight(wq, False), scale, stride=s,
+                        dilation=d, pads=pads, out_dtype=out_dtype)
+    ref = Q.int8_conv2d_reference(xq, wq, scale, stride=s, dilation=d,
+                                  pads=pads, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert Q.int8_conv2d.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == out_dtype
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+# (B, H, W, C, stride, dilation): SAME pads
+INT8_DW_CASES = {
+    "c16": (2, 13, 11, 16, 1, 1),
+    "config3_s2": (1, 20, 20, 128, 2, 1),
+    "config3_d2": (2, 9, 10, 1024, 1, 2),
+    "c20_vec4": (1, 7, 9, 20, 1, 1),
+    "c7_vec1_s2_d2": (1, 6, 5, 7, 2, 2),
+}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(INT8_DW_CASES))
+def test_int8_depthwise_kernel_matches_plain_bitwise(dev, case, out_dtype):
+    from x_detector_tpu_torch.models.layers import same_pads
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    b, h, w, c, s, d = INT8_DW_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    xq = _int8(gen, b, h, w, c)
+    wq = _int8(gen, c, 3, 3, 1)
+    scale = torch.rand(c, generator=gen, device=dev) * 1e-2 + 1e-4
+    pads = same_pads((h, w), (3, 3), (s, s), (d, d))
+    got = Q.int8_depthwise_conv2d(xq, Q.prepare_weight(wq, True), scale,
+                                  stride=s, dilation=d, pads=pads,
+                                  out_dtype=out_dtype)
+    ref = Q.int8_depthwise_conv2d_reference(xq, wq, scale, stride=s,
+                                            dilation=d, pads=pads,
+                                            out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,offset", [(8 * 1000, 0), (1003, 0), (999, 1)])
+def test_quantize_kernel_matches_plain_bitwise(dev, dtype, n, offset):
+    """Saturated values, exact ties of the grid (sx = 0.5: x in quarters),
+    a tail past the last 8 and a view off 16-byte alignment (the scalar
+    path)."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    gen = torch.Generator(device=dev).manual_seed(n)
+    base = (torch.randint(-300, 300, (n + offset,), generator=gen,
+                          device=dev) / 4.0).to(dtype)
+    x = base[offset:]
+    x[:4] = torch.tensor([0.25, 0.75, -0.25, 1e9], device=dev).to(dtype)
+    sx = torch.tensor(0.5, device=dev)
+    got = Q.quantize_activation(x, sx)
+    ref = Q.quantize_activation_reference(x, sx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert got[:4].tolist() == [0, 2, 0, 127]       # half to even, clipped
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    gen = torch.Generator(device=dev).manual_seed(0)
+    weight = Q.prepare_weight(_int8(gen, 8, 3, 3, 8), False)
+    scale = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        Q.int8_conv2d(_int8(gen, 1, 8, 8, 8).permute(0, 2, 1, 3), weight,
+                      scale)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        Q.int8_conv2d(_int8(gen, 1, 8, 8, 8), weight, scale,
+                      out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        Q.int8_conv2d(_int8(gen, 1, 8, 8, 8), weight, scale.cpu())
+    with pytest.raises(ValueError, match="depthwise"):
+        Q.int8_depthwise_conv2d(_int8(gen, 1, 8, 8, 8), weight, scale)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        Q.quantize_activation(torch.ones(8, device=dev, dtype=torch.float16),
+                              torch.tensor(1.0, device=dev))
+
+
+def test_int8_model_on_the_card_goes_through_the_kernels(dev):
+    """chip_smoke's int8 phase at 128 px on thin backbones, on the card:
+    calibrated, then K3 before every backbone conv, K1 for the dense ones
+    and K2 for the depthwise ones, B2 never."""
+    chip_smoke = _chip_smoke()
+    from x_detector_tpu_torch.config import ssd_resnet50
+    for cfg in (ssd_resnet50(128), lighthead_xception(128)):
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, backbone_stages=(1, 1, 1, 1), large_sep_mid=16,
+            head_dim=32, backbone_widths=(16, 32, 48, 64)))
+        res, _ = chip_smoke.run_int8(cfg, dev, batches=1, batch_size=2)
+        assert res["launches"] == res["expected"]
+        assert res["launches"]["quantize_s8"] == (
+            res["launches"]["int8_conv"] + res["launches"]["int8_dwconv"])

@@ -47,6 +47,14 @@ SIGNATURES = {
     # B, H, W, R, grid, C, samples, then the plan: threads, cap,
     # smem_bytes; stream
     "xdt_psroi_align_bwd": [_P] * 4 + [_I] * 11 + [_P],
+    # x, w, scale, out, out_is_bf16, B, H, W, Cin, Ho, Wo, Cout, kh, kw,
+    # sh, sw, dh, dw, pt, pl, Kp, then the plan: bn, vec; stream
+    "xdt_int8_conv": [_P] * 4 + [_I] * 19 + [_P],
+    # x, w, scale, out, out_is_bf16, B, H, W, C, Ho, Wo, stride, dilation,
+    # pt, pl, vec; stream
+    "xdt_int8_dwconv": [_P] * 4 + [_I] * 12 + [_P],
+    # x, sx, q, x_is_bf16, n, vec; stream
+    "xdt_quantize_s8": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -41,7 +41,8 @@ def build_model(model_cfg, device, seed: Optional[int] = 0,
     """The config's model (Light-Head or SSD) on ``device`` in eval mode.
     With an integer ``seed`` its weights are flax's default initialisation
     drawn from a CPU ``torch.Generator`` seeded with it; ``seed=None``
-    leaves them to be loaded."""
+    leaves them to be loaded. With ``backbone_quant`` set its backbone convs
+    are ``QuantConv`` (``quant.py``: calibrate, then serve in int8)."""
     model = _model_class(model_cfg.family)(model_cfg, dtype=dtype)
     if seed is not None:
         init_flax_like(model, torch.Generator().manual_seed(seed))

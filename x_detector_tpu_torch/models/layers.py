@@ -11,6 +11,12 @@ at inference and from the batch's in training (``module.training``).
 Module and parameter names mirror the flax tree (``Conv_0``, ``Conv_1``,
 ``bn``) so that ``utils.convert.from_jax_variables`` maps one onto the other
 by name.
+
+Post-training int8 quantization (the JAX package's ``QuantConv``): with
+``quant`` set, ``ConvBN`` and ``SeparableConvBN`` hold :class:`QuantConv`
+in place of their ``nn.Conv2d``; its mode is that of
+``ModelConfig.backbone_quant`` ("calibrate", "calibrate:p<pct>" or "int8",
+``config.check_backbone_quant``).
 """
 
 from __future__ import annotations
@@ -18,10 +24,14 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from x_detector_tpu_torch.config import (calibration_percentile,
+                                         check_backbone_quant)
+from x_detector_tpu_torch.ops import int8_conv
 from x_detector_tpu_torch.ops.fused_sepconv import (
     fused_separable_conv_prepared, prepare_weights)
 
@@ -123,11 +133,154 @@ class BatchNorm2D(nn.Module):
                 + bias.to(x.dtype)[None, :, None, None])
 
 
-def _reject_quant(quant) -> None:
-    if quant is not None:
-        raise NotImplementedError(
-            f"backbone_quant={quant!r}: int8 QuantConv is ported in a later "
-            "PR")
+# calibrate:p<pct> estimates the percentile on at most this many elements
+# of |x|, a strided subsample (x_detector_tpu/models/layers.py:141-148)
+PERCENTILE_SAMPLE = 1 << 20
+
+
+def observe(x: torch.Tensor, percentile: Optional[float]) -> torch.Tensor:
+    """Calibration's fp32 statistic of one conv input ``x`` (NCHW): max|x|
+    or, with ``percentile``, the linearly interpolated percentile of |x|
+    over the JAX package's subsample: |x| raveled in NHWC order, every
+    ``n // 2^20``-th of its first ``2^20 * (n // 2^20)`` elements when n
+    exceeds 2^20. The interpolation is ``jnp.percentile``'s, op for op in
+    fp32: q = pct / 100, i = q (n - 1), v[floor i] (1 - f) + v[ceil i] f."""
+    if percentile is None:
+        return x.abs().amax().float()          # a max is exact in any dtype
+    flat = x.permute(0, 2, 3, 1).reshape(-1)    # NHWC order, as JAX ravels
+    if flat.numel() > PERCENTILE_SAMPLE:
+        stride = flat.numel() // PERCENTILE_SAMPLE
+        flat = flat[:stride * PERCENTILE_SAMPLE:stride]
+    values = torch.sort(flat.float().abs()).values
+    n = values.numel()
+    pos = np.float32(percentile) / np.float32(100.0) * np.float32(n - 1)
+    low, high = np.floor(pos), np.ceil(pos)
+    f = pos - low
+    low, high = (int(min(max(v, 0), n - 1)) for v in (low, high))
+    return (values[low] * float(np.float32(1.0) - f)
+            + values[high] * float(f))
+
+
+class QuantConv(nn.Conv2d):
+    """The JAX package's ``QuantConv``: an ``nn.Conv2d`` (its parameters and
+    state-dict keys, so a float checkpoint loads unchanged) with the buffer
+    ``act_amax`` (fp32 scalar, zeros until calibrated), which a state dict
+    may lack. ``pads`` is "SAME" or ((top, bottom), (left, right)).
+
+    "calibrate" / "calibrate:p<pct>": the float path's conv
+    (:func:`conv2d`, so the output is the same bits), recording
+    ``act_amax = max(act_amax, observe(x))``.
+
+    "int8": ``x`` to int8 at ``sx = max(act_amax, 1e-6) / 127``, the weight
+    per output channel at ``sw`` (``ops.int8_conv.quantize_weight``), an
+    int8 conv with int32 sums, ``dtype(float(acc) * (sx * sw))``, then the
+    bias in ``dtype``. The kernels' operands are made once per version of
+    the weight and ``act_amax`` and cached. A prequantized module
+    (``quant.prequantize``) holds an int8 ``weight`` (no gradient) and a
+    buffer ``w_scale`` [Cout], and skips the weight quantization."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
+                 dilation: Tuple[int, int] = (1, 1), groups: int = 1,
+                 bias: bool = False, *, pads: Union[str, Pads] = "SAME",
+                 mode: str = "calibrate",
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, features, kernel, strides,
+                         dilation=dilation, groups=groups, bias=bias)
+        if check_backbone_quant(mode) is None:
+            raise ValueError("QuantConv needs a mode")
+        if groups != 1 and mode == "int8" and not (
+                groups == in_features == features
+                and self.kernel_size == (3, 3)
+                and len(set(self.stride)) == len(set(self.dilation)) == 1):
+            raise ValueError("int8 grouped convs: the depthwise 3x3 with "
+                             "square stride and dilation only")
+        self.mode, self.pads, self.dtype = mode, pads, dtype
+        self.register_buffer("act_amax", torch.zeros(()))
+        self._int8_cache = None             # (key, (sx, scale, Int8Weight))
+
+    @property
+    def depthwise(self) -> bool:
+        return self.groups > 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "int8":
+            return self._forward_int8(x)
+        with torch.no_grad():
+            obs = observe(x, calibration_percentile(self.mode))
+            self.act_amax.copy_(torch.maximum(self.act_amax, obs))
+        return conv2d(x, self, self.pads, self.dtype)
+
+    def int8_operands(self):
+        """(sx, sx * sw [Cout], ``Int8Weight``), rebuilt when the weight,
+        ``w_scale`` or ``act_amax`` was replaced or changed in place
+        (keyed on each tensor's storage and ``_version``)."""
+        w_scale = self._buffers.get("w_scale")
+        sources = [self.weight, self.act_amax] + (
+            [] if w_scale is None else [w_scale])
+        key = tuple((t.data_ptr(), t._version) for t in sources)
+        if self._int8_cache is None or self._int8_cache[0] != key:
+            with torch.no_grad():
+                if self.weight.dtype == torch.int8:
+                    if w_scale is None:
+                        raise ValueError("an int8 weight needs its w_scale "
+                                         "(quant.prequantize stores both)")
+                    wq, sw = self.weight, w_scale
+                else:
+                    wq, sw = int8_conv.quantize_weight(self.weight)
+                sx = int8_conv.activation_scale(self.act_amax)
+                operands = (sx, sx * sw, int8_conv.prepare_weight(
+                    wq.permute(0, 2, 3, 1), depthwise=self.depthwise))
+            self._int8_cache = (key, operands)
+        return self._int8_cache[1]
+
+    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        sx, scale, weight = self.int8_operands()
+        pads = self.pads
+        if pads == "SAME":
+            pads = same_pads(x.shape[2:], self.kernel_size, self.stride,
+                             self.dilation)
+        xq = int8_conv.quantize_activation(
+            x.permute(0, 2, 3, 1).contiguous(), sx)
+        if self.depthwise:
+            y = int8_conv.int8_depthwise_conv2d(
+                xq, weight, scale, stride=self.stride[0],
+                dilation=self.dilation[0], pads=pads, out_dtype=self.dtype)
+        else:
+            y = int8_conv.int8_conv2d(
+                xq, weight, scale, stride=self.stride, dilation=self.dilation,
+                pads=pads, out_dtype=self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y.permute(0, 3, 1, 2)              # channels_last NCHW view
+
+    def set_int8_weight(self, wq: torch.Tensor, w_scale: torch.Tensor):
+        """Hold int8 ``wq`` (OIHW) and its per-channel ``w_scale``."""
+        self.weight = nn.Parameter(wq, requires_grad=False)
+        self.register_buffer("w_scale", w_scale)
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        # take the stored weight's type: int8 with its w_scale (a
+        # prequantized checkpoint) or float without one
+        weight = state_dict.get(prefix + "weight")
+        if weight is not None:
+            device = self.weight.device
+            if weight.dtype == torch.int8:
+                self.set_int8_weight(
+                    torch.empty(weight.shape, dtype=torch.int8,
+                                device=device),
+                    torch.empty(weight.shape[0], device=device))
+            elif self.weight.dtype == torch.int8:
+                self.weight = nn.Parameter(torch.empty(weight.shape,
+                                                       device=device))
+                del self._buffers["w_scale"]
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+        if prefix + "act_amax" in missing_keys:   # a float checkpoint
+            missing_keys.remove(prefix + "act_amax")
 
 
 class ConvBN(nn.Module):
@@ -142,17 +295,25 @@ class ConvBN(nn.Module):
                  use_bn: bool = True, padding: Union[str, Pads] = "SAME",
                  quant=None, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        _reject_quant(quant)
         if padding == "EXPLICIT":
             padding = tuple(((k - 1) // 2 * d, (k - 1) // 2 * d)
                             for k, d in zip(kernel, dilation))
         self.padding, self.relu, self.dtype = padding, relu, dtype
-        self.Conv_0 = nn.Conv2d(in_features, features, kernel, strides,
-                                dilation=dilation, bias=not use_bn)
+        self.quant = check_backbone_quant(quant)
+        if self.quant is None:
+            self.Conv_0 = nn.Conv2d(in_features, features, kernel, strides,
+                                    dilation=dilation, bias=not use_bn)
+        else:
+            self.Conv_0 = QuantConv(in_features, features, kernel, strides,
+                                    dilation, bias=not use_bn, pads=padding,
+                                    mode=quant, dtype=dtype)
         self.bn = BatchNorm2D(features) if use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv2d(x, self.Conv_0, self.padding, self.dtype)
+        if self.quant is None:
+            x = conv2d(x, self.Conv_0, self.padding, self.dtype)
+        else:
+            x = self.Conv_0(x)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.relu else x
@@ -162,10 +323,11 @@ class SeparableConvBN(nn.Module):
     """Depthwise 3x3 -> pointwise 1x1 -> one BatchNorm -> ReLU.
 
     ``fused=True`` routes stride-1 calls at inference through the fused
-    kernel (``ops/fused_sepconv.py``); training and stride-2 calls keep the
-    two convs. The parameters are the same either way; the fused route's
-    operands (folded BN, taps, ``wp`` in the kernel's layout) are prepared
-    once per version of the parameters and buffers and cached.
+    kernel (``ops/fused_sepconv.py``); training, stride-2 and quantized
+    calls keep the two convs (with ``quant``, two :class:`QuantConv`). The
+    parameters are the same either way; the fused route's operands (folded
+    BN, taps, ``wp`` in the kernel's layout) are prepared once per version
+    of the parameters and buffers and cached.
     ``forward(x, residual)`` is the
     Xception unit's epilogue ``relu(bn(x) + residual)`` (the module then has
     ``relu=False``).
@@ -177,7 +339,6 @@ class SeparableConvBN(nn.Module):
                  dense: bool = False, fused: bool = False, quant=None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        _reject_quant(quant)
         if dense:
             raise NotImplementedError("dense separable stages are ported in "
                                       "a later PR")
@@ -185,10 +346,18 @@ class SeparableConvBN(nn.Module):
             raise ValueError(f"square dilation only, got {dilation}")
         self.strides, self.dilation = tuple(strides), tuple(dilation)
         self.relu, self.fused, self.dtype = relu, fused, dtype
-        self.Conv_0 = nn.Conv2d(in_features, in_features, 3, strides,
-                                dilation=dilation, groups=in_features,
-                                bias=False)
-        self.Conv_1 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.quant = check_backbone_quant(quant)
+        if self.quant is None:
+            self.Conv_0 = nn.Conv2d(in_features, in_features, 3, strides,
+                                    dilation=dilation, groups=in_features,
+                                    bias=False)
+            self.Conv_1 = nn.Conv2d(in_features, features, 1, bias=False)
+        else:
+            self.Conv_0 = QuantConv(in_features, in_features, (3, 3), strides,
+                                    dilation, groups=in_features,
+                                    mode=quant, dtype=dtype)
+            self.Conv_1 = QuantConv(in_features, features, (1, 1),
+                                    mode=quant, dtype=dtype)
         self.bn = BatchNorm2D(features)
         self._fused_cache = None            # (key, SepConvWeights)
 
@@ -211,7 +380,8 @@ class SeparableConvBN(nn.Module):
     @property
     def takes_fused_route(self) -> bool:
         """Whether ``forward`` now launches the fused kernel."""
-        return self.fused and not self.training and self.strides == (1, 1)
+        return (self.fused and not self.training and self.quant is None
+                and self.strides == (1, 1))
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -226,8 +396,11 @@ class SeparableConvBN(nn.Module):
                 residual=None if residual is None else
                 residual.to(self.dtype).permute(0, 2, 3, 1).contiguous())
             return out.permute(0, 3, 1, 2)          # channels_last NCHW view
-        x = conv2d(x, self.Conv_0, "SAME", self.dtype)
-        x = conv2d(x, self.Conv_1, "SAME", self.dtype)
+        if self.quant is None:
+            x = conv2d(x, self.Conv_0, "SAME", self.dtype)
+            x = conv2d(x, self.Conv_1, "SAME", self.dtype)
+        else:
+            x = self.Conv_1(self.Conv_0(x))
         x = self.bn(x)
         if residual is not None:
             return F.relu(x + residual)

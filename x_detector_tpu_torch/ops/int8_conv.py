@@ -1,0 +1,398 @@
+"""int8 convolutions of the post-training-quantized backbone.
+
+The port of QuantConv's int8 arithmetic (``x_detector_tpu/models/
+layers.py:155-185``): an int8 ``lax.conv_general_dilated`` with int32
+accumulation there, three kernels of ``csrc/int8_conv.cu`` here:
+
+  * :func:`quantize_activation` (K3): ``clip(round(x / sx), -127, 127)``
+    to int8, rounding half to even, dividing (never multiplying by
+    ``1 / sx``);
+  * :func:`int8_conv2d` (K1): a dense conv of int8 NHWC activations and
+    OHWI weights, any kernel, stride, dilation and explicit pads, summed
+    in int32 and dequantized as ``dtype(float(acc) * scale[cout])``;
+  * :func:`int8_depthwise_conv2d` (K2): the depthwise 3x3, the same
+    epilogue.
+
+Each launches its kernel on CUDA tensors (or raises on what the kernel does
+not take) and runs its plain version on CPU tensors. The plain versions sum
+the same integers exactly in float64 (|sum| <= 127^2 * 4608 for
+ResNet's 3x3 x 512, far under 2^53) and round as the kernels do, so a
+kernel equals its plain version bit for bit at every shape. Each wrapper
+counts its launches in ``<wrapper>.launches``.
+
+:func:`quantize_weight` is the per-output-channel weight quantization, run
+once per weight version by ``models.layers.QuantConv`` and by
+``quant.prequantize``; :func:`prepare_weight` lays the int8 weight out for
+the kernel once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from x_detector_tpu_torch import _build
+from x_detector_tpu_torch.utils import roofline
+
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+QMAX = 127
+ACT_EPS = 1e-6           # sx = max(act_amax, ACT_EPS) / 127
+WEIGHT_EPS = 1e-8        # sw = max(max|k|, WEIGHT_EPS) / 127
+# K1's bytes of K a pipeline stage (csrc/int8_conv.cu): Kp pads K to it
+KBK = 64
+_INT_MAX = 2 ** 31 - 1
+
+
+def ieee_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded as IEEE division. On the card PyTorch divides a
+    tensor by a Python number as a multiply by its fp32 reciprocal, which
+    rounds other values; a divisor tensor on ``a``'s device does not."""
+    return a / torch.full_like(a, b)
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 weights: ``w`` [Cout, ...] fp32 ->
+    (``clip(round(w / sw), -127, 127)`` int8 of ``w``'s shape, ``sw``
+    [Cout] fp32 with ``sw = max(max|w| over the rest, 1e-8) / 127``)."""
+    w = w.float()
+    amax = w.abs().amax(dim=tuple(range(1, w.dim())))
+    sw = ieee_div(amax.clamp_min(WEIGHT_EPS), float(QMAX))
+    wq = torch.round(w / sw.reshape(-1, *([1] * (w.dim() - 1))))
+    return wq.clamp_(-QMAX, QMAX).to(torch.int8), sw
+
+
+def activation_scale(act_amax: torch.Tensor) -> torch.Tensor:
+    """sx = max(act_amax, 1e-6) / 127, fp32, on ``act_amax``'s device."""
+    return ieee_div(act_amax.float().clamp_min(ACT_EPS), float(QMAX))
+
+
+# ---- K3: the activation quantizer -------------------------------------------
+
+def quantize_activation_reference(x: torch.Tensor,
+                                  sx: torch.Tensor) -> torch.Tensor:
+    """Plain version: int8 ``clip(round(x / sx), -127, 127)`` of a bf16 or
+    fp32 ``x``, ``sx`` a one-element fp32 tensor on ``x``'s device."""
+    q = torch.round(x.float() / sx.reshape(()))
+    return q.clamp_(-QMAX, QMAX).to(torch.int8)
+
+
+def quantize_activation(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """int8 of ``x``'s shape. On the card ``x`` is contiguous bf16 or fp32
+    and ``sx`` a one-element fp32 tensor on the same device, read there (no
+    host sync)."""
+    if x.device.type == "cpu":
+        return quantize_activation_reference(x, sx)
+    _same_cuda_device("quantize_activation", x, sx=sx)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quantize_activation: x is {x.dtype}; the kernel "
+                        f"takes bf16 or fp32")
+    if sx.dtype != torch.float32 or sx.numel() != 1:
+        raise ValueError(f"quantize_activation: sx must be one fp32 value, "
+                         f"got {sx.dtype} {tuple(sx.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("quantize_activation: x not contiguous")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    n = x.numel()
+    if n == 0:
+        return q
+    if n > _INT_MAX:
+        raise ValueError(f"quantize_activation: {n} elements, the kernel "
+                         f"takes < 2^31")
+    vec = 8 if x.data_ptr() % 16 == 0 and q.data_ptr() % 8 == 0 else 1
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xdt_quantize_s8(x.data_ptr(), sx.data_ptr(), q.data_ptr(),
+                                  int(x.dtype == torch.bfloat16), n, vec,
+                                  stream)
+    _build.check(err, "quantize_activation")
+    quantize_activation.launches += 1
+    return q
+
+
+# ---- the weights ------------------------------------------------------------
+
+class Int8Weight(NamedTuple):
+    """One conv's int8 weight: ``wq`` OHWI [Cout, kh, kw, Cin/groups] (the
+    plain versions' operand) and, on a CUDA device, the kernel's: [Cout,
+    Kp] for the dense conv (K = kh*kw*Cin padded with zeros to a multiple
+    of 64) or [9, C] for the depthwise 3x3."""
+    wq: torch.Tensor
+    depthwise: bool
+    kernel: Optional[torch.Tensor]
+
+
+def prepare_weight(wq: torch.Tensor, depthwise: bool) -> Int8Weight:
+    """``wq`` int8 OHWI ([C, 3, 3, 1] for a depthwise 3x3) -> the operands
+    of :func:`int8_conv2d` / :func:`int8_depthwise_conv2d`."""
+    if wq.dtype != torch.int8 or wq.dim() != 4:
+        raise ValueError(f"wq must be int8 [Cout, kh, kw, Cin], got "
+                         f"{wq.dtype} {tuple(wq.shape)}")
+    if depthwise and tuple(wq.shape[1:]) != (3, 3, 1):
+        raise ValueError(f"the depthwise kernel takes a 3x3 of one channel a "
+                         f"group: [C, 3, 3, 1], got {tuple(wq.shape)}")
+    wq = wq.contiguous()
+    kernel = None
+    if wq.device.type == "cuda":
+        if depthwise:
+            kernel = wq[:, :, :, 0].permute(1, 2, 0).reshape(9, -1)
+        else:
+            k = wq[0].numel()
+            kernel = F.pad(wq.reshape(wq.shape[0], k),
+                           (0, _round_up(k, KBK) - k))
+        kernel = kernel.contiguous()
+    return Int8Weight(wq, depthwise, kernel)
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def output_size(size: Sequence[int], kernel: Sequence[int],
+                stride: Sequence[int], dilation: Sequence[int],
+                pads: Pads) -> Tuple[int, int]:
+    """(Ho, Wo) of a conv with explicit ((top, bottom), (left, right))
+    pads."""
+    return tuple((n + lo + hi - d * (k - 1) - 1) // s + 1 for n, k, s, d,
+                 (lo, hi) in zip(size, kernel, stride, dilation, pads))
+
+
+def _check_geometry(what: str, stride, dilation, pads) -> None:
+    if min(*stride, *dilation) < 1 or min(p for pair in pads for p in pair
+                                          ) < 0:
+        raise ValueError(f"{what}: stride {stride} and dilation {dilation} "
+                         f"must be >= 1 and pads {pads} >= 0")
+
+
+def _same_cuda_device(what: str, x: torch.Tensor, **tensors) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: x on {x.device}; the kernels take CUDA "
+                         f"tensors (the CPU takes the plain versions)")
+    for name, t in tensors.items():
+        if t is None or t.device != x.device:
+            raise ValueError(f"{what}: {name} on "
+                             f"{None if t is None else t.device}, x on "
+                             f"{x.device}; need one CUDA device")
+
+
+def _check_operands(what: str, xq, weight: Int8Weight, scale, out_dtype):
+    _same_cuda_device(what, xq, weight=weight.kernel, scale=scale)
+    if xq.dtype != torch.int8 or xq.dim() != 4 or not xq.is_contiguous():
+        raise ValueError(f"{what}: xq must be contiguous int8 [B, H, W, C], "
+                         f"got {xq.dtype} {tuple(xq.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: the kernel writes bf16 or fp32, not "
+                        f"{out_dtype}")
+    cout = weight.wq.shape[0]
+    if (scale.dtype != torch.float32 or tuple(scale.shape) != (cout,)
+            or not scale.is_contiguous()):
+        raise ValueError(f"{what}: scale must be contiguous fp32 [{cout}], "
+                         f"got {scale.dtype} {tuple(scale.shape)}")
+
+
+def _dequantize(acc: torch.Tensor, scale: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """The epilogue the kernels round by: fp32 of the exact sum, times the
+    fp32 scale, rounded once to ``out_dtype``."""
+    return (acc.float() * scale).to(out_dtype)
+
+
+# ---- K1: the dense conv -----------------------------------------------------
+
+def int8_conv2d_reference(xq: torch.Tensor, wq: torch.Tensor,
+                          scale: torch.Tensor, *, stride: Sequence[int],
+                          dilation: Sequence[int], pads: Pads,
+                          out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version: ``xq`` [B, H, W, Cin] int8 NHWC, ``wq`` [Cout, kh, kw,
+    Cin] int8 OHWI, ``scale`` [Cout] fp32 -> [B, Ho, Wo, Cout] in
+    ``out_dtype``. One float64 matmul a tap, summed: exact."""
+    b, h, w, cin = xq.shape
+    cout, kh, kw, _ = wq.shape
+    (sh, sw), (dh, dw) = stride, dilation
+    ho, wo = output_size((h, w), (kh, kw), stride, dilation, pads)
+    (top, bottom), (left, right) = pads
+    x = F.pad(xq.to(torch.float64), (0, 0, left, right, top, bottom))
+    wt = wq.to(torch.float64)
+    acc = torch.zeros(b, ho, wo, cout, dtype=torch.float64, device=xq.device)
+    for i in range(kh):
+        for j in range(kw):
+            tap = x[:, i * dh:i * dh + (ho - 1) * sh + 1:sh,
+                    j * dw:j * dw + (wo - 1) * sw + 1:sw]
+            acc += tap @ wt[:, i, j].t()
+    return _dequantize(acc, scale, out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """K1's launch for one call: ``bn`` output channels a block (64 or
+    128) and ``vec``, the bytes of an A-tile copy (16, 8, 4 or 1: the
+    largest that divides Cin and the address of ``xq``)."""
+    bn: int
+    vec: int
+
+
+def plan_conv(cin: int, cout: int, x_ptr: int = 0) -> ConvPlan:
+    vec = next(v for v in (16, 8, 4, 1) if cin % v == 0 and x_ptr % v == 0)
+    return ConvPlan(64 if cout <= 64 else 128, vec)
+
+
+def int8_conv2d(xq: torch.Tensor, weight: Int8Weight, scale: torch.Tensor,
+                *, stride: Sequence[int] = (1, 1),
+                dilation: Sequence[int] = (1, 1), pads: Pads = ((0, 0),
+                                                                (0, 0)),
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``dtype(float(conv(xq, wq)) * scale)``: [B, H, W, Cin] int8 with a
+    prepared weight (:func:`prepare_weight`) -> [B, Ho, Wo, Cout]."""
+    stride, dilation = tuple(stride), tuple(dilation)
+    _check_geometry("int8_conv2d", stride, dilation, pads)
+    if weight.depthwise:
+        raise ValueError("int8_conv2d: a depthwise weight; use "
+                         "int8_depthwise_conv2d")
+    if xq.device.type == "cpu":
+        return int8_conv2d_reference(xq, weight.wq, scale, stride=stride,
+                                     dilation=dilation, pads=pads,
+                                     out_dtype=out_dtype)
+    _check_operands("int8_conv2d", xq, weight, scale, out_dtype)
+    b, h, w, cin = xq.shape
+    cout, kh, kw, wcin = weight.wq.shape
+    if wcin != cin:
+        raise ValueError(f"int8_conv2d: xq has {cin} channels, the weight "
+                         f"{wcin}")
+    kp = weight.kernel.shape[1]
+    if tuple(weight.kernel.shape) != (cout, _round_up(kh * kw * cin, KBK)):
+        raise ValueError(f"int8_conv2d: kernel operand "
+                         f"{tuple(weight.kernel.shape)} is not [Cout, Kp]")
+    ho, wo = output_size((h, w), (kh, kw), stride, dilation, pads)
+    out = torch.empty((b, max(ho, 0), max(wo, 0), cout), dtype=out_dtype,
+                      device=xq.device)
+    if out.numel() == 0:
+        return out
+    if b * ho * wo > _INT_MAX:
+        raise ValueError(f"int8_conv2d: {b * ho * wo} output pixels, the "
+                         f"kernel takes < 2^31")
+    plan = plan_conv(cin, cout, xq.data_ptr())
+    lib = _build.library()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xdt_int8_conv(
+            xq.data_ptr(), weight.kernel.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, cin,
+            ho, wo, cout, kh, kw, *stride, *dilation, pads[0][0], pads[1][0],
+            kp, plan.bn, plan.vec, stream)
+    _build.check(err, "int8_conv2d")
+    int8_conv2d.launches += 1
+    return out
+
+
+# ---- K2: the depthwise 3x3 --------------------------------------------------
+
+def int8_depthwise_conv2d_reference(xq: torch.Tensor, wq: torch.Tensor,
+                                    scale: torch.Tensor, *, stride: int,
+                                    dilation: int, pads: Pads,
+                                    out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version: ``xq`` [B, H, W, C] int8, ``wq`` [C, 3, 3, 1] int8,
+    ``scale`` [C] fp32 -> [B, Ho, Wo, C] in ``out_dtype``; float64 sums of
+    the 9 products, exact."""
+    s, d = int(stride), int(dilation)
+    ho, wo = output_size(xq.shape[1:3], (3, 3), (s, s), (d, d), pads)
+    (top, bottom), (left, right) = pads
+    x = F.pad(xq.to(torch.float64), (0, 0, left, right, top, bottom))
+    wt = wq.to(torch.float64)
+    acc = torch.zeros(xq.shape[0], ho, wo, xq.shape[3], dtype=torch.float64,
+                      device=xq.device)
+    for i in range(3):
+        for j in range(3):
+            acc += (x[:, i * d:i * d + (ho - 1) * s + 1:s,
+                      j * d:j * d + (wo - 1) * s + 1:s] * wt[:, i, j, 0])
+    return _dequantize(acc, scale, out_dtype)
+
+
+def depthwise_vec(c: int, *ptrs: int) -> int:
+    """K2's channels a thread: 16, 4 or 1, the largest that divides C and
+    the addresses."""
+    return next(v for v in (16, 4, 1)
+                if c % v == 0 and all(p % v == 0 for p in ptrs))
+
+
+def int8_depthwise_conv2d(xq: torch.Tensor, weight: Int8Weight,
+                          scale: torch.Tensor, *, stride: int = 1,
+                          dilation: int = 1, pads: Pads = ((1, 1), (1, 1)),
+                          out_dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """The depthwise 3x3 of :func:`int8_conv2d`, square ``stride`` and
+    ``dilation``: [B, H, W, C] int8 -> [B, Ho, Wo, C]."""
+    s, d = int(stride), int(dilation)
+    _check_geometry("int8_depthwise_conv2d", (s,), (d,), pads)
+    if not weight.depthwise:
+        raise ValueError("int8_depthwise_conv2d: a dense weight; use "
+                         "int8_conv2d")
+    if xq.device.type == "cpu":
+        return int8_depthwise_conv2d_reference(
+            xq, weight.wq, scale, stride=s, dilation=d, pads=pads,
+            out_dtype=out_dtype)
+    _check_operands("int8_depthwise_conv2d", xq, weight, scale, out_dtype)
+    b, h, w, c = xq.shape
+    if weight.wq.shape[0] != c or tuple(weight.kernel.shape) != (9, c):
+        raise ValueError(f"int8_depthwise_conv2d: xq has {c} channels, the "
+                         f"weight {tuple(weight.wq.shape)}")
+    ho, wo = output_size((h, w), (3, 3), (s, s), (d, d), pads)
+    out = torch.empty((b, max(ho, 0), max(wo, 0), c), dtype=out_dtype,
+                      device=xq.device)
+    if out.numel() == 0:
+        return out
+    if b * ho * wo * c > _INT_MAX:
+        raise ValueError(f"int8_depthwise_conv2d: {b * ho * wo * c} outputs"
+                         f", the kernel takes < 2^31")
+    vec = depthwise_vec(c, xq.data_ptr(), weight.kernel.data_ptr())
+    lib = _build.library()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xdt_int8_dwconv(
+            xq.data_ptr(), weight.kernel.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, c, ho,
+            wo, s, d, pads[0][0], pads[1][0], vec, stream)
+    _build.check(err, "int8_depthwise_conv2d")
+    int8_depthwise_conv2d.launches += 1
+    return out
+
+
+# ---- bounds on one H100 -----------------------------------------------------
+
+def conv_bound_ms(b: int, h: int, w: int, cin: int, ho: int, wo: int,
+                  cout: int, k: int, out_bytes: int):
+    """(least ms, what binds) of one K1 call: 2 M N K int8 operations at the
+    tensor cores' int8 rate; xq, the weight, the fp32 scale and the output
+    each moved once."""
+    m = b * ho * wo
+    nbytes = b * h * w * cin + cout * k + 4 * cout + m * cout * out_bytes
+    return roofline.bound_ms(2.0 * m * cout * k, nbytes,
+                             roofline.INT8_TENSOR_OPS_PER_S)
+
+
+def depthwise_bound_ms(b: int, h: int, w: int, c: int, ho: int, wo: int,
+                       out_bytes: int):
+    """K2: 9 multiply-adds an output on the CUDA cores (at the fp32 rate,
+    the table's rate outside the tensor cores); xq, the 9 x C taps, the
+    scale and the output each moved once."""
+    nbytes = b * h * w * c + 9 * c + 4 * c + b * ho * wo * c * out_bytes
+    return roofline.bound_ms(2.0 * 9 * b * ho * wo * c, nbytes,
+                             roofline.FP32_FLOP_PER_S)
+
+
+def quantize_bound_ms(n: int, in_bytes: int):
+    """K3: one division an element; the input read and the int8 written
+    once."""
+    return roofline.bound_ms(float(n), n * (in_bytes + 1),
+                             roofline.FP32_FLOP_PER_S)
+
+
+def reset_launches() -> None:
+    for fn in (quantize_activation, int8_conv2d, int8_depthwise_conv2d):
+        fn.launches = 0
+
+
+reset_launches()

@@ -1,6 +1,7 @@
 """Where an inference batch spends its time on one CUDA card.
 
     python -m x_detector_tpu_torch.profile_infer [--preset NAME]
+        [--backbone-quant int8]
 
 The preset (``PATHS``) sets the model, the batch and the raw images: config
 3 by default (``lighthead_xception(800)`` with ``backbone_fused_sepconv``,
@@ -8,7 +9,10 @@ batch 16, canvas-size images); ``lighthead_resnet50`` is config 1 (batch
 1, 375 x 500 images resized to 800 px); ``ssd_resnet50`` config 2 and
 ``xdet_xception`` (fused) the SSD family at 512 px, batch 8. Seeded weights
 (flax's default initialisation) and seeded uint8 images go through
-``preprocess_for_eval`` and ``build_eval_fn``. After two warm-up batches
+``preprocess_for_eval`` and ``build_eval_fn``; with ``--backbone-quant
+int8`` the backbone is int8, calibrated first over two seeded batches
+(``quant.calibrate_backbone``; B2 then never runs, the int8 kernels are
+the family "int8"). After two warm-up batches
 the script prints the card's name and power limit (``nvidia-smi``), then:
 
   1. six host-clock batch times, one synchronize per batch, and peak
@@ -57,6 +61,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--preset", choices=sorted(PATHS),
                         default="lighthead_xception")
+    parser.add_argument("--backbone-quant", choices=["int8"], default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer needs a CUDA card")
@@ -68,18 +73,24 @@ def main(argv=None) -> None:
     batch, raw_hw, fused = PATHS[args.preset]
     cfg = PRESETS[args.preset]()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, backbone_fused_sepconv=fused))
+        cfg.model, backbone_fused_sepconv=fused,
+        backbone_quant=args.backbone_quant))
     model = build_model(cfg.model, dev, seed=0)
-    detect = build_eval_fn(model, cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     size = cfg.model.image_size
     h, w = raw_hw or (size, size)
     print(f"{args.preset} at {size} px, batch {batch}, from {h} x {w} uint8 "
-          f"images", flush=True)
+          f"images, backbone {args.backbone_quant or 'float'}", flush=True)
 
     def images():
         return torch.randint(0, 256, (batch, h, w, 3), generator=gen,
                              dtype=torch.uint8, device=dev)
+
+    if args.backbone_quant:
+        from x_detector_tpu_torch import quant
+        quant.calibrate_backbone(cfg, model, [
+            preprocess_for_eval(images(), cfg.data) for _ in range(2)])
+    detect = build_eval_fn(model, cfg, dev)
 
     for _ in range(2):
         detect(preprocess_for_eval(images(), cfg.data))
@@ -153,13 +164,14 @@ def main(argv=None) -> None:
     kernels = [e for e in dev_ev if e["cat"] == "kernel"]
     k_total = sum(e["dur"] for e in kernels)
     share = {fam: sum(e["dur"] for e in kernels if family(e["name"]) == fam)
-             for fam in ("fused sepconv", "psroi")}
+             for fam in ("fused sepconv", "psroi", "int8")}
     print(f"4. whole batches, profiled: window {(w1 - w0) / n / 1e3:.2f} ms, "
           f"device busy {busy / n / 1e3:.2f} ms, idle share "
           f"{1 - busy / (w1 - w0):.4f}; kernels {k_total / n / 1e3:.2f} ms, "
           f"of which B2 {share['fused sepconv'] / n / 1e3:.3f} ms "
           f"({100 * share['fused sepconv'] / k_total:.2f}%), B1 "
-          f"{share['psroi'] / n / 1e3:.3f} ms", flush=True)
+          f"{share['psroi'] / n / 1e3:.3f} ms, int8 (K1-K3) "
+          f"{share['int8'] / n / 1e3:.3f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -46,6 +46,7 @@ STAGE = "stage:"
 FAMILIES = (
     ("psroi", ("psroi",)),
     ("fused sepconv", ("sepconv",)),
+    ("int8", ("int8_conv_kernel", "int8_dwconv_kernel", "quantize_s8")),
     ("conv", ("conv", "xmma", "cudnn", "cutlass", "implicit", "sm90_",
               "nhwc", "dgrad", "wgrad")),
     ("gemm", ("gemm",)),

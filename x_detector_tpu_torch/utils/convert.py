@@ -18,21 +18,27 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 
 def from_jax_variables(variables_np: Mapping) -> Dict[str, torch.Tensor]:
-    """The flax ``{"params", "batch_stats"}`` tree (numpy leaves, key paths
-    as flax names them, e.g. ``params/backbone/stage4/sep0b/Conv_1/kernel``)
-    -> a ``state_dict`` for the port's module of the same structure.
+    """The flax ``{"params", "batch_stats", "quant"}`` tree (numpy leaves,
+    key paths as flax names them, e.g.
+    ``params/backbone/stage4/sep0b/Conv_1/kernel``) -> a ``state_dict`` for
+    the port's module of the same structure.
 
     Conv kernels HWIO ``[kh, kw, cin/groups, cout]`` become OIHW (a depthwise
-    ``[3, 3, 1, C]`` becomes ``[C, 1, 3, 3]``); Dense ``[in, out]`` becomes
-    Linear ``[out, in]``; BatchNorm ``scale/bias`` and ``mean/var`` become
-    ``weight/bias`` and ``running_mean/running_var``. The fused and unfused
-    separable blocks share one parameter tree, so one mapping serves both.
+    ``[3, 3, 1, C]`` becomes ``[C, 1, 3, 3]``), int8 ones (``quant.
+    prequantize``'s) staying int8; Dense ``[in, out]`` becomes Linear
+    ``[out, in]``; BatchNorm ``scale/bias`` and ``mean/var`` become
+    ``weight/bias`` and ``running_mean/running_var``; the ``quant``
+    collection's ``act_amax`` and ``w_scale`` keep their names (QuantConv's
+    buffers). The fused and unfused separable blocks share one parameter
+    tree, so one mapping serves both.
     """
     leaf_names = {("params", "scale"): "weight", ("params", "bias"): "bias",
                   ("batch_stats", "mean"): "running_mean",
-                  ("batch_stats", "var"): "running_var"}
+                  ("batch_stats", "var"): "running_var",
+                  ("quant", "act_amax"): "act_amax",
+                  ("quant", "w_scale"): "w_scale"}
     state = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant"):
         for path, value in _flatten(variables_np.get(collection, {})):
             *module, leaf = path
             if (collection, leaf) == ("params", "kernel"):
@@ -50,6 +56,6 @@ def from_jax_variables(variables_np: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"no mapping for {collection}/"
                                f"{'/'.join(path)}")
             key = ".".join([*module, name])
-            state[key] = torch.tensor(value, dtype=torch.float32
-                                      ).contiguous()
+            dtype = torch.int8 if value.dtype == np.int8 else torch.float32
+            state[key] = torch.tensor(value, dtype=dtype).contiguous()
     return state

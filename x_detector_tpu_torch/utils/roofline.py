@@ -10,6 +10,7 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+INT8_TENSOR_OPS_PER_S = 1979e12
 FP32_FLOP_PER_S = 67e12
 
 
