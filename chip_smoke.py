@@ -64,7 +64,29 @@ Phases; each raises on failure and the script then exits non-zero:
                 (bf16, kernels) against the CPU (bf16, plain versions)
                 with the card's ranges, within INT8_CONTROL_FACTOR times
                 the same comparison's gap for the float model.
-  9. train   -- config 4 (the same model as config 3, training, batch 16 at
+  8b. serve  -- export and serving (cli/export.py, serving.py): config 3
+                (fused, raw RGB, letterbox) exported on the card as a
+                container of buckets 1 (baked) and 16 (the weights as
+                inputs), loaded through serving.load_container alone; at
+                each bucket the same letterboxed batch (serving.letterbox_
+                batch of seeded 375 x 500 images) through the container and
+                through the eager path (preprocess_for_eval, build_eval_fn,
+                the unscale): all four outputs bit for bit, and B2 14 times,
+                B1's forward once and its backward never a batch on each;
+                each bucket's export seconds, the loaded against the eager
+                median batch ms, and at bucket 1 the baked program against
+                one taking the weights as inputs. Then int8 config 2
+                (calibrated over INT8_CALIB_BATCHES seeded batches,
+                prequantized, pre-whitened inputs) as a container of bucket
+                8: bit for bit against the eager prequantized model, K1 53,
+                K3 53 and K2 0 a batch. Then cli.predict --artifact on a
+                photo-sized JPEG (make_voc_mini.write_voc_tree): its PNG.
+                First, the operator boundary's host cost a call
+                (dispatch_cost: K3 and K1 through xdt against their CUDA
+                implementations called directly); after the int8
+                container, its cost to int8 config 2's eager batch
+                (boundary_in_model, the same comparison in the model).
+ 9. train   -- config 4 (the same model as config 3, training, batch 16 at
                 800 px):
                 synthetic batches made on the card on a 960 px canvas ->
                 preprocess_batch_for_train -> the train step, one warm-up
@@ -125,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -132,6 +155,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import torch
 
@@ -202,6 +226,19 @@ EMA_ULPS = 4
 # must stay within INT8_CONTROL_FACTOR times the control's.
 INT8_CALIB_BATCHES = 2
 INT8_CONTROL_FACTOR = 4.0
+# serve: config 3's container buckets, bucket 1 baked; counted batches a
+# bucket and path after a warm-up; config 2's int8 container bucket
+SERVE_BUCKETS, SERVE_BAKED, SERVE_BATCHES = (1, 16), (1,), 3
+SERVE_INT8_BUCKET = 8
+SERVE_RAW_HW = (375, 500)
+# Paths compared by host clock run in alternating rounds of a few batches
+# each: the host drifts between fast and slow states within one process,
+# and a round of each side sees the same state. Each side's median and
+# best round are reported.
+ROUNDS, ROUND_BATCHES = 10, 3
+# the operator boundary's host cost: alternating rounds of calls of K3 and
+# K1 on tiny tensors, through the operator and its CUDA implementation
+DISPATCH_ROUNDS, DISPATCH_CALLS = 10, 200
 CLI_STEPS, CLI_RESUME_STEPS = 4, 6
 # config 5 on one card (config.config5()): world 1 x grad_accum_steps 16 x
 # 8 images = 128; the gloo pair: 8 images a rank
@@ -606,7 +643,7 @@ def check_detections(boxes, scores, classes, valid, batch: int,
 
 def run_slice(cfg, device, batches: int = SLICE_BATCHES,
               batch_size: int = BATCH, seed: int = SEED,
-              raw_hw=None, model=None) -> dict:
+              raw_hw=None, model=None, keep_path: bool = False) -> dict:
     """Drive an inference path: seeded uint8 images (``raw_hw`` high and
     wide, the canvas by default) -> preprocess_for_eval -> build_eval_fn,
     one warm-up batch then ``batches`` timed ones, on ``model`` (by default
@@ -615,7 +652,9 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     kernels'), what the model should give (B2 a fused block a batch, B1's
     forward one a batch for Light-Head, B1's backward none; K1 a dense
     QuantConv, K2 a depthwise one, K3 each), the timed seconds per batch,
-    the anchor count and the detections of the last batch."""
+    the anchor count and the detections of the last batch; with
+    ``keep_path`` also the path (``detect``, uint8 images to detections)
+    and those images (``u8``)."""
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
     from x_detector_tpu_torch.inference import build_eval_fn
     from x_detector_tpu_torch.ops import fused_sepconv as fs
@@ -658,7 +697,10 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
             "routes": dict(fs.fused_separable_conv.route_launches),
             "expected": expected,
             "seconds": seconds[1:], "anchors": model.anchors.shape[0],
-            "detections": det, "peak": peak}
+            "detections": det, "peak": peak, **({
+                "detect": lambda u8: detect(preprocess_for_eval(u8,
+                                                                cfg.data)),
+                "u8": images[-1]} if keep_path else {})}
 
 
 def check_slice(tag: str, res: dict, per_batch: dict) -> None:
@@ -704,10 +746,12 @@ def slice_reference_check(model_cfg, device, keys) -> float:
     Light-Head the RPN's, before any discrete NMS choice; for SSD the raw
     head outputs)."""
     from x_detector_tpu_torch.inference import build_model
+    from x_detector_tpu_torch.models.layers import prepare_for_inference
     cfg = dataclasses.replace(model_cfg, image_size=128)
-    gpu = slice_model(cfg, device).eval()
+    gpu = prepare_for_inference(slice_model(cfg, device).eval())
     cpu = build_model(cfg, "cpu", seed=None, dtype=torch.float32)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prepare_for_inference(cpu)
     gen = torch.Generator().manual_seed(SEED)
     x = torch.randint(0, 256, (2, 128, 128, 3), generator=gen
                       ).float() - 120.0
@@ -1490,14 +1534,12 @@ def run_data(device, extra=(), steps: int = DATA_STEPS,
     return out
 
 
-def run_int8(cfg, device, batches: int = SLICE_BATCHES,
-             batch_size: int = BATCH, seed: int = SEED):
-    """The int8 serving path of ``cfg``: slice_model's seeded weights in a
-    model built with ``backbone_quant="int8"``; quant.calibrate_backbone
-    over INT8_CALIB_BATCHES batches of seeded uint8 images through
-    preprocess_for_eval (every range must come out positive); then
-    ``run_slice`` on it (the same images as the float path's). Returns
-    run_slice's readings with the ranges, and the model."""
+def int8_model(cfg, device, batch_size: int = BATCH, seed: int = SEED):
+    """slice_model's seeded weights in ``cfg``'s model built with
+    ``backbone_quant="int8"``, calibrated by quant.calibrate_backbone over
+    INT8_CALIB_BATCHES batches of seeded uint8 images through
+    preprocess_for_eval (every range must come out positive). Returns the
+    int8 config, the model and the ranges."""
     from x_detector_tpu_torch import quant
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
     device = torch.device(device)
@@ -1514,6 +1556,15 @@ def run_int8(cfg, device, batches: int = SLICE_BATCHES,
     low = {k: float(v) for k, v in ranges.items() if not float(v) > 0.0}
     if low:
         raise AssertionError(f"{cfg.model.name}: uncalibrated ranges {low}")
+    return qcfg, model, ranges
+
+
+def run_int8(cfg, device, batches: int = SLICE_BATCHES,
+             batch_size: int = BATCH, seed: int = SEED):
+    """The int8 serving path of ``cfg``: ``int8_model``, then ``run_slice``
+    on it (the same images as the float path's). Returns run_slice's
+    readings with the ranges, and the model."""
+    qcfg, model, ranges = int8_model(cfg, device, batch_size, seed)
     res = run_slice(qcfg, device, batches, batch_size, seed, model=model)
     res["ranges"] = ranges
     return res, model
@@ -1559,6 +1610,7 @@ def int8_reference_check(model_cfg, device, keys, ranges) -> dict:
     gap over its scale is within INT8_CONTROL_FACTOR times the control's
     largest."""
     from x_detector_tpu_torch.inference import build_model
+    from x_detector_tpu_torch.models.layers import prepare_for_inference
     gen = torch.Generator().manual_seed(SEED)
     x = torch.randint(0, 256, (2, 128, 128, 3), generator=gen
                       ).float() - 120.0
@@ -1572,6 +1624,8 @@ def int8_reference_check(model_cfg, device, keys, ranges) -> dict:
         cpu = build_model(cfg, "cpu", seed=None, dtype=torch.bfloat16)
         cpu.load_state_dict({k: v.cpu() for k, v in
                              card.state_dict().items()})
+        prepare_for_inference(card)
+        prepare_for_inference(cpu)
         with torch.inference_mode():
             got = named_outputs(card(x.to(device)))
             ref = named_outputs(cpu(x))
@@ -1784,6 +1838,306 @@ def int8_kernel_lines(int8: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# serve: export, reload and serve (cli/export.py, serving.py, cli.predict)
+# ---------------------------------------------------------------------------
+
+def reset_counters(counters) -> None:
+    from x_detector_tpu_torch.ops import fused_sepconv as fs
+    fs.reset_launches()
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def timed_batches(fn, inputs, batches: int, counters, device) -> dict:
+    """``fn(*inputs)`` once to warm up and ``batches`` times timed (host
+    clock to a sync): the first run's outputs, the launches a run of each
+    kernel in ``counters`` and the median ms."""
+    sync = (lambda: torch.cuda.synchronize(device)) if (
+        torch.device(device).type == "cuda") else (lambda: None)
+    sync()
+    reset_counters(counters)
+    seconds, first = [], None
+    for _ in range(batches + 1):
+        t0 = time.perf_counter()
+        out = fn(*inputs)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        first = out if first is None else first
+    runs = batches + 1
+    launches = {name: fn_.launches for name, fn_ in counters.items()}
+    per_run = {name: v / runs for name, v in launches.items()}
+    ms = sorted(seconds[1:])[len(seconds[1:]) // 2] * 1e3
+    return {"out": first, "launches": launches, "per_batch": per_run,
+            "ms": ms}
+
+
+def hold_bitwise(tag: str, got, want) -> None:
+    names = ("boxes", "scores", "classes", "valid")
+    for name, a, b in zip(names, got, want):
+        if a.shape != b.shape or not torch.equal(a, b):
+            diff = ((a.float() - b.float()).abs().max().item()
+                    if a.shape == b.shape else "shapes differ")
+            raise AssertionError(f"{tag}: {name} of the loaded program "
+                                 f"differs from eager's: {diff}")
+
+
+def letterboxed(batch: int, size: int, hw, seed: int, device):
+    """``batch`` seeded uint8 RGB images of ``hw`` letterboxed onto
+    ``size`` canvases by serving.letterbox_batch, on ``device``."""
+    import numpy as np
+    from x_detector_tpu_torch import serving
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+              for _ in range(batch)]
+    canvas, scale = serving.letterbox_batch(images, size)
+    return (torch.from_numpy(canvas).to(device),
+            torch.from_numpy(scale).to(device))
+
+
+def run_serve(cfg, device, directory: str, buckets=SERVE_BUCKETS,
+              baked=SERVE_BAKED, batches: int = SERVE_BATCHES,
+              raw_hw=SERVE_RAW_HW, seed: int = SEED,
+              rounds: int = ROUNDS) -> dict:
+    """``cfg``'s model (slice_model's weights) exported on ``device`` as a
+    raw-RGB container of ``buckets`` (``baked`` embedding the weights)
+    into ``directory`` and loaded by serving.load_container, and at the
+    smallest bucket also a program taking the weights as inputs (saved
+    and loaded by serving.load). At each bucket a letterboxed batch
+    through each program and through the eager path (preprocess_for_eval,
+    build_eval_fn, the unscale): held bit for bit, each path's launches a
+    batch counted over ``batches`` batches after a warm-up, then the paths
+    timed in ``rounds`` alternating rounds (``alternating_ms``). Returns
+    the readings."""
+    from x_detector_tpu_torch import serving
+    from x_detector_tpu_torch.cli.export import (export_container,
+                                                 export_program)
+    from x_detector_tpu_torch.data.augment import preprocess_for_eval
+    from x_detector_tpu_torch.inference import (ServingModule, build_eval_fn,
+                                                unscale_boxes)
+    model = slice_model(cfg.model, device, seed).eval()
+    detect = build_eval_fn(model, cfg, device)
+    module = ServingModule(model, cfg, raw_rgb=True)
+    export_s = export_container(module, directory, buckets, baked, device,
+                                {"preset": cfg.model.name, "quant": "none"})
+    cont = serving.load_container(directory)
+    b = min(buckets)
+    path = f"{directory}/shared-b{b}.pt2"
+    t0 = time.perf_counter()
+    torch.export.save(export_program(module, b, device, cont.weights,
+                                     baked=False), path)
+    shared_export_s = time.perf_counter() - t0
+    shared = serving.load(path)
+    counters = kernel_counters()
+    size = cfg.model.image_size
+
+    def eager(canvas, scale):
+        b, s, c, v = detect(preprocess_for_eval(canvas, cfg.data))
+        return unscale_boxes(b, scale), s, c, v
+
+    def with_weights(*inputs):
+        with torch.inference_mode():
+            return shared(cont.weights, *inputs)
+
+    out = {"export_s": export_s, "shared_export_s": shared_export_s,
+           "buckets": {}, "launches": dict.fromkeys(counters, 0)}
+    for b in buckets:
+        inputs = letterboxed(b, size, raw_hw, seed + b, device)
+        paths = {"eager": eager, "loaded": cont.detect}
+        if b == min(buckets):
+            paths["shared"] = with_weights
+        runs = {name: timed_batches(fn, inputs, batches, counters, device)
+                for name, fn in paths.items()}
+        for name in paths:
+            if name != "eager":
+                hold_bitwise(f"serve bucket {b}, {name}", runs[name]["out"],
+                             runs["eager"]["out"])
+        check_detections(*runs["loaded"]["out"], b,
+                         cfg.model.nms.max_output)
+        for name, v in runs["loaded"]["launches"].items():
+            out["launches"][name] += v
+        runs["ms"] = alternating_ms(
+            {name: functools.partial(fn, *inputs)
+             for name, fn in paths.items()}, rounds, device=device)
+        out["buckets"][b] = runs
+    out["weights_mb"] = sum(t.numel() * t.element_size()
+                            for t in cont.weights.values()) / 2**20
+    return out
+
+
+def run_serve_int8(cfg, device, directory: str,
+                   bucket: int = SERVE_INT8_BUCKET,
+                   batches: int = SERVE_BATCHES, seed: int = SEED,
+                   rounds: int = ROUNDS) -> dict:
+    """``cfg``'s int8 model (``int8_model``), prequantized, exported on
+    ``device`` as a container of ``bucket`` taking pre-whitened images (the
+    weights as inputs), loaded, and held bit for bit against the eager
+    prequantized model through build_eval_fn, with each path's launches a
+    batch, then both timed in ``rounds`` alternating rounds."""
+    from x_detector_tpu_torch import quant, serving
+    from x_detector_tpu_torch.cli.export import export_container
+    from x_detector_tpu_torch.data.augment import preprocess_for_eval
+    from x_detector_tpu_torch.inference import ServingModule, build_eval_fn
+    qcfg, model, _ = int8_model(cfg, device, bucket, seed)
+    quant.prequantize(model)
+    detect = build_eval_fn(model, qcfg, device)
+    export_s = export_container(ServingModule(model, qcfg), directory,
+                                (bucket,), (), device,
+                                {"preset": qcfg.model.name, "quant": "int8"})
+    cont = serving.load_container(directory)
+    stored = {str(t.dtype) for t in cont.weights.values()}
+    if "torch.int8" not in stored:
+        raise AssertionError(f"int8 container stores no int8 tensor: "
+                             f"{stored}")
+    size = cfg.model.image_size
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    x = preprocess_for_eval(torch.randint(
+        0, 256, (bucket, size, size, 3), generator=gen, dtype=torch.uint8,
+        device=device), cfg.data)
+    counters = {**kernel_counters(), **int8_counters()}
+    want = timed_batches(detect, (x,), batches, counters, device)
+    got = timed_batches(cont.detect, (x,), batches, counters, device)
+    hold_bitwise("serve int8", got["out"], want["out"])
+    check_detections(*got["out"], bucket, cfg.model.nms.max_output)
+    ms = alternating_ms({"eager": lambda: detect(x),
+                         "loaded": lambda: cont.detect(x)}, rounds,
+                        device=device)
+    return {"export_s": export_s, "eager": want, "loaded": got, "ms": ms,
+            "launches": got["launches"], "stored": sorted(stored),
+            "detect": detect, "x": x}
+
+
+def alternating_ms(sides: dict, rounds: int = ROUNDS,
+                   batches: int = ROUND_BATCHES, device="cuda") -> dict:
+    """Each of ``sides`` (name -> a call of one batch) ``batches`` times a
+    round, the sides in turn for ``rounds`` rounds, host clock to a sync:
+    each side's median and best round in ms a batch."""
+    sync = (lambda: torch.cuda.synchronize(device)) if (
+        torch.device(device).type == "cuda") else (lambda: None)
+    ms = {name: [] for name in sides}
+    for _ in range(rounds):
+        for name, fn in sides.items():
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                fn()
+            sync()
+            ms[name].append((time.perf_counter() - t0) / batches * 1e3)
+    return {name: {"median": sorted(v)[len(v) // 2], "best": min(v)}
+            for name, v in ms.items()}
+
+
+@contextlib.contextmanager
+def operators_bypassed():
+    """Within: every ``xdt`` operator that a wrapper calls
+    (``torch.ops.xdt.<name>.default``) is its CUDA implementation, called
+    directly, without the dispatcher."""
+    from x_detector_tpu_torch.ops import library
+    ns = torch.ops.xdt
+    packets = {name: getattr(ns, name) for name in library.OPERATORS}
+    try:
+        for name, fn in library.CUDA_IMPLEMENTATIONS.items():
+            setattr(ns, name, types.SimpleNamespace(default=fn))
+        yield
+    finally:
+        for name, packet in packets.items():
+            setattr(ns, name, packet)
+
+
+def boundary_in_model(detect, *inputs) -> dict:
+    """A path's eager batch (``detect(*inputs)``, on the card) through the
+    ``xdt`` operators, against the same path with every operator's CUDA
+    implementation called directly (``operators_bypassed``), in
+    alternating rounds: each side's median and best round in ms a batch.
+    The difference is what the operator boundary costs the path."""
+    def bypassed():
+        with operators_bypassed():
+            detect(*inputs)
+
+    return alternating_ms({"operators": lambda: detect(*inputs),
+                           "direct": bypassed})
+
+
+def rounds_text(ms: dict) -> str:
+    """alternating_ms's readings as one phrase."""
+    return "; ".join(f"{side} {v['median']:.3f} (best {v['best']:.3f})"
+                     for side, v in ms.items()) + (
+        f" (median of {ROUNDS} alternating rounds of {ROUND_BATCHES})")
+
+
+def report_boundary(tag: str, res: dict, *inputs) -> None:
+    """Logs ``boundary_in_model`` of a phase's eager path (``res["detect"]``
+    on ``inputs``, by default the phase's last images) and drops the path,
+    so its model is freed."""
+    cost = boundary_in_model(res.pop("detect"), *(inputs or (res.pop(
+        "u8"),)))
+    extra = cost["operators"]["median"] - cost["direct"]["median"]
+    log(f"{tag}: the eager batch through the xdt operators against every "
+        f"operator's CUDA implementation called directly, ms a batch "
+        f"{rounds_text(cost)}: +{extra:.3f} ms "
+        f"({extra / cost['direct']['median'] * 100:.1f}%)")
+
+
+def dispatch_cost(rounds: int = DISPATCH_ROUNDS,
+                  calls: int = DISPATCH_CALLS) -> dict:
+    """Host microseconds a call of K3 and K1 on tiny tensors (the host's
+    work sets the rate) in alternating rounds of ``calls`` calls, host
+    clock to a sync, each side's median round: through the public wrapper
+    (shape checks and the operator), through the operator alone as
+    ``QuantConv`` calls it (its checks run once an input shape), and
+    through the operator's CUDA implementation called directly (the same
+    launch, no dispatcher). The operator less the direct call is what the
+    boundary costs a call in the model."""
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn(1, 8, 8, 64, generator=gen, device=dev).bfloat16()
+    sx = torch.tensor(0.05, device=dev)
+    xq = q8.quantize_activation(x, sx)
+    weight = q8.prepare_weight(torch.randint(
+        -127, 128, (64, 1, 1, 64), generator=gen, dtype=torch.int8,
+        device=dev), False)
+    scale = torch.rand(64, generator=gen, device=dev)
+    geometry = q8.conv_geometry((1, 1), (1, 1), (1, 1), ((0, 0), (0, 0)))
+    pairs = {
+        "quantize_s8": {
+            "operator": lambda: q8.quantize_activation(x, sx),
+            "direct": lambda: q8.quantize_cuda(x, sx)},
+        "int8_conv": {
+            "wrapper": lambda: q8.int8_conv2d(xq, weight, scale),
+            "operator": lambda: torch.ops.xdt.int8_conv.default(
+                xq, weight.kernel, scale, geometry, torch.bfloat16),
+            "direct": lambda: q8.conv_cuda(xq, weight.kernel, scale,
+                                           geometry, torch.bfloat16)}}
+    out = {}
+    with torch.inference_mode():
+        for name, sides in pairs.items():
+            ms = alternating_ms(sides, rounds, calls)
+            out[name] = {side: v["median"] * 1e3 for side, v in ms.items()}
+    return out
+
+
+def run_predict_artifact(directory: str, device, work: str) -> dict:
+    """cli.predict --artifact on a photo-sized JPEG that
+    make_voc_mini.write_voc_tree writes: the PNG it must write, and its
+    detections."""
+    import glob
+    import os
+    from x_detector_tpu_torch.cli import predict
+    from x_detector_tpu_torch.data.testdata.make_voc_mini import (
+        write_voc_tree)
+    write_voc_tree(f"{work}/voc", 1, hw=SERVE_RAW_HW)
+    jpeg, = glob.glob(f"{work}/voc/**/*.jpg", recursive=True)
+    png = f"{work}/predicted.png"
+    with contextlib.redirect_stdout(io.StringIO()):
+        boxes, scores, classes, valid = predict.main([
+            "--artifact", directory, "--device", str(device), "--input",
+            jpeg, "--output", png])
+    if not os.path.getsize(png) > 0:
+        raise AssertionError(f"cli.predict --artifact wrote no {png}")
+    return {"png_bytes": os.path.getsize(png), "valid": int(valid.sum())}
+
+
 def fused(cfg):
     """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
     as config 3 runs it."""
@@ -1805,10 +2159,11 @@ def main() -> int:
     # batch
     cfg = fused(lighthead_xception(800))
     torch.cuda.reset_peak_memory_stats()
-    paths["slice"] = res = run_slice(cfg, "cuda")
+    paths["slice"] = res = run_slice(cfg, "cuda", keep_path=True)
     check_slice("config 3", res, {"fused_sepconv": 14, "psroi_align": 1,
                                   "psroi_align_backward": 0})
     report_slice("slice: config 3 at 800 px, fused sepconv", res, BATCH)
+    report_boundary("slice: config 3", res)
     slice_reference_check(cfg.model, "cuda", ("rpn_cls", "rpn_loc"))
     torch.cuda.synchronize()
 
@@ -1817,12 +2172,14 @@ def main() -> int:
     cfg = lighthead_resnet50(800)
     torch.cuda.reset_peak_memory_stats()
     paths["config1"] = res = run_slice(cfg, "cuda", batches=CONFIG1_IMAGES,
-                                       batch_size=1, raw_hw=CONFIG1_RAW_HW)
+                                       batch_size=1, raw_hw=CONFIG1_RAW_HW,
+                                       keep_path=True)
     check_slice("config 1", res, {"fused_sepconv": 0, "psroi_align": 1,
                                   "psroi_align_backward": 0})
     report_slice(f"config1: Light-Head + ResNet-50 at 800 px from "
                  f"{CONFIG1_RAW_HW[0]} x {CONFIG1_RAW_HW[1]} uint8 images",
                  res, 1)
+    report_boundary("config1", res)
     slice_reference_check(cfg.model, "cuda", ("rpn_cls", "rpn_loc"))
     torch.cuda.synchronize()
 
@@ -1878,6 +2235,60 @@ def main() -> int:
         del model
         int8_reference_check(cfg.model, "cuda", keys, res["ranges"])
         torch.cuda.synchronize()
+
+    # serve: config 3 exported as a container and served from it, bit for
+    # bit with eager at buckets 1 and 16; int8 config 2 the same way;
+    # cli.predict --artifact
+    disp = dispatch_cost()
+    log("serve: the operator boundary's host cost, us a call of a tiny "
+        "call (median of alternating rounds): " + "; ".join(
+            f"{name}: " + ", ".join(f"{side} {us:.2f}"
+                                    for side, us in d.items())
+            + f" (the operator +{d['operator'] - d['direct']:.2f})"
+            for name, d in disp.items()))
+    with tempfile.TemporaryDirectory() as work:
+        cfg = fused(lighthead_xception(800))
+        res = run_serve(cfg, "cuda", f"{work}/config3")
+        paths["serve"] = res
+        per_batch = {"fused_sepconv": 14, "psroi_align": 1,
+                     "psroi_align_backward": 0}
+        for b, r in res["buckets"].items():
+            for side in r["ms"]:
+                if r[side]["per_batch"] != per_batch:
+                    raise AssertionError(f"serve bucket {b}: {side} launched "
+                                         f"{r[side]['per_batch']} a batch, "
+                                         f"expected {per_batch}")
+            held = ", ".join(side for side in r["ms"] if side != "eager")
+            log(f"serve: config 3 bucket {b}"
+                f"{' (baked)' if b in SERVE_BAKED else ''}: exported in "
+                f"{res['export_s'][b]:.1f} s; {held} bit for bit equal to "
+                f"eager (4 outputs), launches a batch {per_batch} on each; "
+                f"ms a batch {rounds_text(r['ms'])}")
+        log(f"serve: config 3 bucket {min(SERVE_BUCKETS)}: the program "
+            f"taking the weights as inputs (\"shared\") exported in "
+            f"{res['shared_export_s']:.1f} s; stored weights "
+            f"{res['weights_mb']:.1f} MiB")
+        pred = run_predict_artifact(f"{work}/config3", "cuda", work)
+        log(f"serve: cli.predict --artifact wrote its PNG "
+            f"({pred['png_bytes']} bytes, {pred['valid']} valid detections "
+            f"of a {SERVE_RAW_HW[0]} x {SERVE_RAW_HW[1]} JPEG)")
+        res = run_serve_int8(ssd_resnet50(512), "cuda", f"{work}/int8")
+        paths["serve_int8"] = res
+        per_batch = {"fused_sepconv": 0, "psroi_align": 0,
+                     "psroi_align_backward": 0, "int8_conv": 53,
+                     "int8_dwconv": 0, "quantize_s8": 53}
+        for side in ("eager", "loaded"):
+            if res[side]["per_batch"] != per_batch:
+                raise AssertionError(f"serve int8: {side} launched "
+                                     f"{res[side]['per_batch']} a batch, "
+                                     f"expected {per_batch}")
+        log(f"serve: int8 config 2 bucket {SERVE_INT8_BUCKET} (weights as "
+            f"inputs, stored {res['stored']}): exported in "
+            f"{res['export_s'][SERVE_INT8_BUCKET]:.1f} s; loaded bit for bit "
+            f"equal to the eager prequantized model, K1 53 / K3 53 / K2 0 a "
+            f"batch on both; ms a batch {rounds_text(res['ms'])}")
+        report_boundary("serve: int8 config 2", res, res.pop("x"))
+    torch.cuda.synchronize()
 
     cfg = train_config()
     torch.cuda.reset_peak_memory_stats()

@@ -18,6 +18,8 @@ torch = pytest.importorskip("torch")
 
 from x_detector_tpu_torch.config import lighthead_xception  # noqa: E402
 from x_detector_tpu_torch.inference import build_model  # noqa: E402
+from x_detector_tpu_torch.models.layers import (  # noqa: E402
+    prepare_for_inference)
 from x_detector_tpu_torch.ops import fused_sepconv as F  # noqa: E402
 from x_detector_tpu_torch.ops import psroi_align as P  # noqa: E402
 from x_detector_tpu_torch.psroi_bwd_variants import ohem_shaped  # noqa: E402
@@ -245,8 +247,8 @@ def test_model_with_kernels_matches_unfused_path(dev):
     cfg = lighthead_xception(64).model
     cfg = dataclasses.replace(cfg, backbone_widths=(32, 64, 96, 128),
                               head_dim=64)
-    fused = build_model(dataclasses.replace(cfg, backbone_fused_sepconv=True),
-                        dev, seed=0)
+    fused = prepare_for_inference(build_model(dataclasses.replace(
+        cfg, backbone_fused_sepconv=True), dev, seed=0))
     plain = build_model(cfg, dev, seed=None)
     plain.load_state_dict(fused.state_dict())
     x = torch.randn(2, 64, 64, 3, generator=torch.Generator(

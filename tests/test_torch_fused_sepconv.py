@@ -116,6 +116,7 @@ def test_module_fused_matches_jax_module(dilation):
     mod = SeparableConvBN(8, 12, dilation=(dilation, dilation), relu=False,
                           fused=True, dtype=torch.float32).eval()
     mod.load_state_dict(from_jax_variables(variables))
+    mod.prepare_for_inference()
     with torch.inference_mode():
         xt = torch.from_numpy(x).permute(0, 3, 1, 2)
         rt = torch.from_numpy(res).permute(0, 3, 1, 2)
@@ -128,14 +129,23 @@ def test_module_fused_matches_jax_module(dilation):
     np.testing.assert_allclose(got_unfused, ref, rtol=1e-5, atol=1e-5)
 
 
-def test_wrapper_rejects_non_cuda_device_without_fallback():
-    """A tensor that is neither on the CPU nor on a CUDA card is refused,
-    not quietly computed by the plain version."""
+def test_wrapper_rejects_non_cuda_device_without_fallback(monkeypatch):
+    """No tensor off the CPU is quietly computed by the plain version: on
+    the meta device the operator gives only its output's shape (its fake
+    implementation, which export traces through), launching nothing; the
+    CUDA implementation, handed tensors that are not on a card, raises."""
+    monkeypatch.setattr(F, "reference_separable_conv", None)
     a = {k: torch.from_numpy(v).to("meta")
          for k, v in _inputs(0, 1, 4, 4, 8, 8).items()}
+    out = F.fused_separable_conv(a["x"], a["wd"], a["wp"], a["scale"],
+                                 a["bias"])
+    assert out.device.type == "meta" and out.shape == (1, 4, 4, 8)
+    assert F.fused_separable_conv.launches == 0
+    ops = F.prepare_weights(*(torch.zeros_like(a[k], device="cpu")
+                              for k in ("wd", "wp", "scale", "bias")))
     with pytest.raises(ValueError, match="CUDA"):
-        F.fused_separable_conv(a["x"], a["wd"], a["wp"], a["scale"],
-                               a["bias"])
+        F.launch_cuda(torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16),
+                      *ops[:4], None, 1, True, ops.route)
     assert F.fused_separable_conv.launches == 0
 
 
@@ -240,8 +250,10 @@ def test_tma_route_takes_only_channel_counts_that_tma_can_address():
 
 def test_prepared_weights_on_the_cpu_take_the_plain_version():
     a = {k: torch.from_numpy(v) for k, v in _inputs(4, 2, 6, 7, 8, 16).items()}
-    ops = F.prepare_weights(a["wd"], a["wp"], a["scale"], a["bias"])
-    assert ops.route == "tma" and ops.wp_kernel is None
+    ops = F.prepare_weights(a["wd"], a["wp"], a["scale"], a["bias"],
+                            dtype=torch.float32)
+    assert ops.route == "tma" and ops.wp.shape == (16, 8)
+    assert ops.wp.dtype == torch.float32 and ops.wp.is_contiguous()
     got = F.fused_separable_conv_prepared(a["x"], ops, dilation=2,
                                           residual=a["residual"])
     ref = F.reference_separable_conv(a["x"], a["wd"], a["wp"], a["scale"],
@@ -251,37 +263,52 @@ def test_prepared_weights_on_the_cpu_take_the_plain_version():
 
 
 def test_module_caches_fused_operands_per_weight_version():
-    """SeparableConvBN prepares the fused route's operands once and reuses
-    them until a parameter or buffer changes: after load_state_dict and
-    after an in-place update they are rebuilt, and always equal freshly
-    prepared ones."""
+    """SeparableConvBN holds the fused route's operands in buffers once
+    prepared (eval mode only) and reads them in its forward; it drops them
+    on load_state_dict and train(), and an eval-mode forward without them
+    raises, naming the prepare step, rather than make them itself. Prepared
+    operands equal fresh ones."""
     torch.manual_seed(0)
     mod = SeparableConvBN(8, 16, fused=True, dtype=torch.float32).eval()
+    x = torch.randn(2, 8, 5, 6)
 
     def fresh():
         scale, bias = mod.bn.folded()
         return F.prepare_weights(mod.Conv_0.weight[:, 0].permute(1, 2, 0),
                                  mod.Conv_1.weight[:, :, 0, 0].t(), scale,
-                                 bias)
+                                 bias, dtype=torch.float32)
 
     def same(ops, ref):
         for got, want in zip(ops[:4], ref[:4]):
             torch.testing.assert_close(got, want, rtol=0, atol=0)
 
+    def unprepared():
+        assert mod.fused_wp is None
+        with pytest.raises(ValueError, match="prepare_for_inference"):
+            mod.fused_weights()
+        with pytest.raises(ValueError, match="prepare_for_inference"):
+            mod(x)
+
+    unprepared()
+    mod.prepare_for_inference()
     first = mod.fused_weights()
-    assert mod.fused_weights() is first
+    assert first.wp is mod.fused_wp and mod.fused_weights().wp is first.wp
+    assert "fused_wp" not in mod.state_dict()        # not persistent
     same(first, fresh())
     state = {k: v + 0.1 for k, v in mod.state_dict().items()}
     mod.load_state_dict(state)
+    unprepared()
+    mod.prepare_for_inference()
     second = mod.fused_weights()
-    assert second is not first
+    assert second.wp is not first.wp
     same(second, fresh())
-    with torch.no_grad():
-        mod.bn.running_var.mul_(2.0)
-    third = mod.fused_weights()
-    assert third is not second
-    same(third, fresh())
-    x = torch.randn(2, 8, 5, 6)
+    mod.train()
+    assert mod.fused_wp is None
+    with pytest.raises(ValueError, match="eval"):
+        mod.prepare_for_inference()
+    mod.eval()
+    unprepared()
+    mod.prepare_for_inference()
     with torch.inference_mode():
         got = mod(x)
         unfused = SeparableConvBN(8, 16, dtype=torch.float32).eval()

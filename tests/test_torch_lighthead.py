@@ -36,6 +36,8 @@ from x_detector_tpu.ops.pallas.psroi_align_kernel import (  # noqa: E402
     batched_psroi_align_pallas)
 from x_detector_tpu_torch.data.augment import preprocess_for_eval  # noqa: E402
 from x_detector_tpu_torch import inference  # noqa: E402
+from x_detector_tpu_torch.models.layers import (  # noqa: E402
+    prepare_for_inference)
 from x_detector_tpu_torch.models.lighthead import (  # noqa: E402
     LightHeadRCNN, lighthead_postprocess)
 from x_detector_tpu_torch.utils.convert import from_jax_variables  # noqa: E402
@@ -92,6 +94,7 @@ def _assert_outputs_close(got, ref, atol=ATOL, rtol=RTOL, keys=None):
 
 def test_fused_slice_outputs_match_jax(fused_slice):
     cfg, images, _, ref, _, port = fused_slice
+    prepare_for_inference(port)
     with torch.inference_mode():
         got = port(torch.from_numpy(images))
     assert set(got) == set(ref)

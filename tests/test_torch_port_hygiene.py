@@ -225,6 +225,47 @@ def test_cpu_rehearsal_of_chip_smoke_int8(path):
     assert _build.library.cache_info().currsize == 0   # nothing was built
 
 
+def test_cpu_rehearsal_of_chip_smoke_serve(tmp_path):
+    """chip_smoke's serve phase on the CPU at tiny shapes: the fused thin
+    Light-Head at 64 px as a raw-RGB letterbox container of buckets 1
+    (baked) and 2, loaded and held bit for bit to the eager path at each
+    bucket and through a program taking the weights as inputs, the
+    expected launches a batch read by counters that stay 0 (no kernel on
+    the CPU); the thin int8 SSD as a prequantized container holding int8
+    tensors, bit for bit against the eager model; cli.predict --artifact
+    writes its PNG."""
+    chip_smoke = _chip_smoke()
+    cfg = chip_smoke.fused(_thin(
+        port_config.lighthead_xception(64), large_sep_mid=16, head_dim=32,
+        backbone_widths=(16, 32, 48, 64),
+        proposals=port_config.ProposalConfig(pre_nms_topk_eval=128,
+                                             post_nms_topk_eval=32,
+                                             min_size=2.0),
+        nms=port_config.NMSConfig(max_output=20)))
+    res = chip_smoke.run_serve(cfg, "cpu", str(tmp_path / "lh"), (1, 2),
+                               (1,), batches=1, raw_hw=(30, 40), rounds=2)
+    assert sorted(res["export_s"]) == [1, 2]
+    for b, r in res["buckets"].items():
+        sides = ("eager", "loaded", "shared")[:3 if b == 1 else 2]
+        assert tuple(r["ms"]) == sides
+        for side in sides:
+            assert r[side]["per_batch"] == dict.fromkeys(
+                ("fused_sepconv", "psroi_align", "psroi_align_backward"), 0)
+            assert 0 < r["ms"][side]["best"] <= r["ms"][side]["median"]
+    assert res["weights_mb"] > 0
+    pred = chip_smoke.run_predict_artifact(str(tmp_path / "lh"), "cpu",
+                                           str(tmp_path))
+    assert pred["png_bytes"] > 0
+    ssd = _thin(port_config.ssd_resnet50(128))
+    res = chip_smoke.run_serve_int8(ssd, "cpu", str(tmp_path / "q"),
+                                    bucket=2, batches=1, rounds=2)
+    assert "torch.int8" in res["stored"]
+    assert set(res["ms"]) == {"eager", "loaded"}
+    assert res["loaded"]["per_batch"] == dict.fromkeys(
+        res["loaded"]["per_batch"], 0)
+    assert _build.library.cache_info().currsize == 0   # nothing was built
+
+
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     """Alone in a directory, on a machine without CUDA: a non-zero exit and
     no result line."""

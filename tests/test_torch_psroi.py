@@ -118,11 +118,21 @@ def test_bf16_features_widen_exactly(rng):
     torch.testing.assert_close(got, ref, atol=0.0, rtol=0.0)
 
 
-def test_wrapper_rejects_non_cuda_device_without_fallback(rng):
+def test_wrapper_rejects_non_cuda_device_without_fallback(rng,
+                                                          monkeypatch):
+    """On the meta device the operator gives only its output's shape (its
+    fake implementation), not the plain version's values; the CUDA
+    implementation raises on tensors that are not on a card."""
+    monkeypatch.setattr(P, "psroi_align_reference", None)
     feat = torch.zeros(1, 4, 4, 49, device="meta")
     rois = torch.zeros(1, 3, 4, device="meta")
+    out = P.batched_psroi_align(feat, rois, 7)
+    assert out.device.type == "meta" and out.shape == (1, 3, 7, 7, 1)
     with pytest.raises(ValueError, match="CUDA"):
-        P.batched_psroi_align(feat, rois, 7)
+        P.forward_cuda(torch.zeros(1, 4, 4, 49), torch.zeros(1, 3, 4), 7, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        P.backward_cuda(torch.zeros(1, 3, 7, 7, 1), torch.zeros(1, 3, 4), 4,
+                        4, torch.float32, 7, 2)
     assert P.batched_psroi_align.launches == 0
 
 

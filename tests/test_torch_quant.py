@@ -359,6 +359,7 @@ def test_tiny_int8_backbone_matches_jax(name):
     port = port_build("int8").eval()
     port.load_state_dict(from_jax_variables({**variables, "quant": qv}),
                          strict=True)
+    layers.prepare_for_inference(port)
     calib = port_build("calibrate").eval()
     calib.load_state_dict(from_jax_variables(variables), strict=True)
     with torch.no_grad():

@@ -45,6 +45,8 @@ from x_detector_tpu_torch.data.augment import (  # noqa: E402
 from x_detector_tpu_torch.models.detector import (  # noqa: E402
     postprocess_detections)
 from x_detector_tpu_torch.models.ssd import SSDModel  # noqa: E402
+from x_detector_tpu_torch.models.layers import (  # noqa: E402
+    prepare_for_inference)
 from x_detector_tpu_torch.ops import anchors as port_anchors  # noqa: E402
 from x_detector_tpu_torch.utils.convert import from_jax_variables  # noqa: E402
 
@@ -79,6 +81,7 @@ def ssd_pair(request):
     variables = perturb_bn(jax_init(module, jnp.asarray(images)))
     port = SSDModel(exp.model, dtype=torch.float32).eval()
     port.load_state_dict(from_jax_variables(variables), strict=True)
+    prepare_for_inference(port)
     return exp, images, module, variables, port
 
 

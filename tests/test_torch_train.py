@@ -64,8 +64,8 @@ def _t(x):
 
 @pytest.mark.parametrize("grid,c,h,w", [(7, 10, 9, 11), (3, 4, 10, 12)])
 def test_psroi_backward_matches_jax_bwd(rng, interpret_mode, grid, c, h, w):
-    """The port's plain backward and PSROIAlignFunction's backward on the
-    CPU against ``jax.grad`` of ``psroi_align_pallas`` (its ``_bwd``), with
+    """The port's plain backward and the forward operator's registered
+    backward on the CPU against ``jax.grad`` of ``psroi_align_pallas`` (its ``_bwd``), with
     edge and zero-area rois: the same fp32 products summed in another
     order, held to 1e-5."""
     feats = rng.normal(0, 1, (2, h, w, grid * grid * c)).astype(np.float32)

@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -135,3 +137,19 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error at launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def launch(entry: str, what: str, on: torch.Tensor, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the raw current
+    stream of ``on``'s card, with that card current; raise if it reported
+    a CUDA error. The card is switched only when another one is current:
+    a launch is host-bound, and a ``torch.cuda.device`` guard and a
+    ``torch.cuda.Stream`` object cost more host time than the launch."""
+    index = on.get_device()
+    fn = getattr(library(), entry)
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, what)

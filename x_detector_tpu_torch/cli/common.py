@@ -131,6 +131,30 @@ def eval_variables(state: TrainState, use_ema: Optional[bool] = None
     return variables
 
 
+def restored_model(args, cfg: ExperimentConfig, device, dtype: torch.dtype,
+                   what: str) -> torch.nn.Module:
+    """The model of ``cfg`` on ``device`` with the newest checkpoint of
+    ``--model-dir`` (its EMA shadow when it carries one, or as
+    ``--use-ema`` says), in eval mode; random weights from ``--seed`` when
+    there is no checkpoint. ``what`` names the use in the messages."""
+    from x_detector_tpu_torch.train.checkpoint import CheckpointManager
+    from x_detector_tpu_torch.train.trainer import create_model_and_state
+    state = create_model_and_state(cfg, device, seed=args.seed, dtype=dtype)
+    ckpt = CheckpointManager(f"{args.model_dir}/ckpt")
+    if ckpt.latest_step() is not None:
+        state, _ = ckpt.restore(state)
+        print(f"{what} checkpoint at step {state.step}")
+    else:
+        print(f"WARNING: no checkpoint found, {what} random init")
+    ckpt.close()
+    use_ema = (state.ema_params is not None if args.use_ema is None
+               else args.use_ema)
+    state.model.load_state_dict(eval_variables(state, use_ema))
+    if use_ema:
+        print(f"{what} EMA shadow weights")
+    return state.model.eval()
+
+
 def batch_iterator(args, cfg: ExperimentConfig, training: bool,
                    canvas_size: Optional[int] = None, start_batch: int = 0,
                    cuda_device: int = 0) -> Iterator[Dict[str, np.ndarray]]:

@@ -38,6 +38,7 @@ from x_detector_tpu_torch.cli import common
 from x_detector_tpu_torch.cli.evaluate import run_eval
 from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
 from x_detector_tpu_torch.inference import build_eval_fn, build_model
+from x_detector_tpu_torch.models.layers import prepare_for_inference
 from x_detector_tpu_torch.parallel import mesh
 from x_detector_tpu_torch.parallel.data_parallel import make_dp_train_step
 from x_detector_tpu_torch.train.checkpoint import CheckpointManager
@@ -218,6 +219,7 @@ def periodic_eval(args, cfg, state: TrainState, eval_model, eval_fn,
                                  dtype=common.DTYPES[args.dtype])
         eval_fn = build_eval_fn(eval_model, cfg, device)
     eval_model.load_state_dict(common.eval_variables(state))
+    prepare_for_inference(eval_model)       # the load dropped the operands
     res = run_eval(eval_model, cfg, common.batch_iterator(
         args, cfg, training=False, cuda_device=common.cuda_index(device)),
         args.eval_batches, eval_fn=eval_fn)

@@ -9,6 +9,10 @@ loads or initialises its weights, then::
     detect = build_eval_fn(model, cfg, device)
     boxes, scores, classes, valid = detect(preprocess_for_eval(images_u8,
                                                                cfg.data))
+
+:class:`ServingModule` is the same function as one module, the graph that
+``cli/export.py`` exports (the JAX package's ``serving_fn``), with the
+preprocessing and the letterbox unscaling inside on request.
 """
 
 from __future__ import annotations
@@ -16,9 +20,12 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple, Union
 
 import torch
+from torch import nn
 
+from x_detector_tpu_torch.data.augment import preprocess_for_eval
 from x_detector_tpu_torch.models.detector import postprocess_detections
-from x_detector_tpu_torch.models.layers import init_flax_like
+from x_detector_tpu_torch.models.layers import (init_flax_like,
+                                                prepare_for_inference)
 from x_detector_tpu_torch.models.lighthead import (LightHeadRCNN,
                                                    lighthead_postprocess)
 from x_detector_tpu_torch.models.ssd import SSDModel
@@ -54,7 +61,9 @@ def build_eval_fn(model: Model, cfg, device
     """images [B, S, S, 3] (preprocessed, NHWC) -> (boxes [B, K, 4],
     scores [B, K], classes [B, K] int32, valid [B, K] bool) on ``device``,
     with K = ``cfg.model.nms.max_output``. An SSD model decodes against its
-    ``anchors`` buffer, which moved to the device with it."""
+    ``anchors`` buffer, which moved to the device with it. ``model`` must
+    be in eval mode: its kernel operands are prepared here
+    (``models.layers.prepare_for_inference``)."""
     device = torch.device(device)
     want = _model_class(cfg.model.family)
     if not isinstance(model, want):
@@ -64,6 +73,7 @@ def build_eval_fn(model: Model, cfg, device
     if param_device.type != device.type or (
             device.index is not None and param_device != device):
         raise ValueError(f"model is on {param_device}, not on {device}")
+    prepare_for_inference(model)
 
     def detect(images: torch.Tensor) -> Detections:
         with torch.inference_mode():
@@ -85,3 +95,44 @@ def postprocess(model: Model, out, model_cfg) -> MulticlassNMSResult:
         iou_threshold=ncfg.iou_threshold,
         score_threshold=ncfg.score_threshold, fast_mode=ncfg.fast_mode,
         approx_prefilter=ncfg.approx_prefilter)
+
+
+def unscale_boxes(boxes: torch.Tensor, box_scale: torch.Tensor
+                  ) -> torch.Tensor:
+    """Boxes on a letterboxed canvas [B, K, 4] -> normalized corners of the
+    original images, ``clip(boxes / max(s, 1e-6), 0, 1)`` with ``s`` the
+    content fraction [B, 2] = [fy, fx] of each canvas."""
+    s = box_scale[:, None, [0, 1, 0, 1]]
+    return torch.clamp(boxes / torch.clamp_min(s, 1e-6), 0.0, 1.0)
+
+
+class ServingModule(nn.Module):
+    """images -> (boxes, scores, classes, valid): the JAX package's export
+    ``serving_fn`` (``x_detector_tpu/cli/export.py:196``) over ``model`` (in
+    eval mode, prepared), in three variants:
+
+      * pre-whitened images [B, S, S, 3] float32 (``raw_rgb=False``);
+      * raw [0, 255] RGB at the model's size, whitened inside by
+        ``preprocess_for_eval`` (``raw_rgb=True``);
+      * with ``raw_rgb`` and a letterbox config (``cfg.data.letterbox``),
+        also ``box_scale`` [B, 2] (``serving.letterbox_batch``), the boxes
+        unscaled to the original images (:func:`unscale_boxes`).
+    """
+
+    def __init__(self, model: Model, cfg, raw_rgb: bool = False):
+        super().__init__()
+        self.model, self.cfg, self.raw_rgb = model, cfg, raw_rgb
+        self.letterbox = bool(raw_rgb and cfg.data.letterbox)
+
+    def forward(self, images: torch.Tensor,
+                box_scale: Optional[torch.Tensor] = None) -> Detections:
+        if self.letterbox != (box_scale is not None):
+            raise ValueError(f"letterbox={self.letterbox}: box_scale is "
+                             f"{'missing' if self.letterbox else 'unused'}")
+        if self.raw_rgb:
+            images = preprocess_for_eval(images, self.cfg.data)
+        det = postprocess(self.model, self.model(images), self.cfg.model)
+        boxes = det.boxes
+        if self.letterbox:
+            boxes = unscale_boxes(boxes, box_scale)
+        return boxes, det.scores, det.classes, det.valid

@@ -17,6 +17,16 @@ Post-training int8 quantization (the JAX package's ``QuantConv``): with
 in place of their ``nn.Conv2d``; its mode is that of
 ``ModelConfig.backbone_quant`` ("calibrate", "calibrate:p<pct>" or "int8",
 ``config.check_backbone_quant``).
+
+Inference operands: :func:`prepare_for_inference` (a model in ``eval()``
+mode) computes the fused route's and the int8 convs' kernel operands once
+into buffers that the forward then reads; an exported program reads them
+as it reads the weights. They are non-persistent (never in a state dict or
+checkpoint: they follow from the weights) and are dropped by ``train()``,
+``load_state_dict`` and ``QuantConv.set_int8_weight``. An eval-mode
+forward of a fused block or an int8 conv without them raises: it never
+makes its operands itself, so it never makes them on every call. Only an
+int8 conv in training mode makes its operands in each forward.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from x_detector_tpu_torch.config import (calibration_percentile,
                                          check_backbone_quant)
 from x_detector_tpu_torch.ops import int8_conv
 from x_detector_tpu_torch.ops.fused_sepconv import (
-    fused_separable_conv_prepared, prepare_weights)
+    SepConvWeights, fused_separable_conv_prepared, prepare_weights, route_for)
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -133,6 +143,38 @@ class BatchNorm2D(nn.Module):
                 + bias.to(x.dtype)[None, :, None, None])
 
 
+# The prepared operands' buffers (prepare_for_inference)
+INT8_OPERANDS = ("int8_sx", "int8_scale", "int8_kernel")
+FUSED_OPERANDS = ("fused_wd", "fused_wp", "fused_scale", "fused_bias")
+
+
+def _check_eval(module: nn.Module) -> None:
+    if module.training:
+        raise ValueError(f"{type(module).__name__}: prepare_for_inference "
+                         f"needs the module in eval() mode")
+
+
+def _unprepared(module: nn.Module) -> ValueError:
+    return ValueError(
+        f"{type(module).__name__}: an eval-mode forward reads the operands "
+        f"that models.layers.prepare_for_inference(model) makes; call it "
+        f"after eval() and after changing the weights (build_eval_fn, "
+        f"quant and cli.export do)")
+
+
+def prepare_for_inference(model: nn.Module) -> nn.Module:
+    """Hold every kernel operand that ``model``'s forward would make from
+    its weights (the fused separable blocks' and the int8 convs') in
+    buffers, for inference: ``model`` must be in ``eval()`` mode. Call it
+    again after changing weights in place in eval mode; ``train()`` and
+    ``load_state_dict`` drop the operands themselves."""
+    _check_eval(model)
+    for m in model.modules():
+        if isinstance(m, (QuantConv, SeparableConvBN)):
+            m.prepare_for_inference()
+    return model
+
+
 # calibrate:p<pct> estimates the percentile on at most this many elements
 # of |x|, a strided subsample (x_detector_tpu/models/layers.py:141-148)
 PERCENTILE_SAMPLE = 1 << 20
@@ -174,8 +216,11 @@ class QuantConv(nn.Conv2d):
     "int8": ``x`` to int8 at ``sx = max(act_amax, 1e-6) / 127``, the weight
     per output channel at ``sw`` (``ops.int8_conv.quantize_weight``), an
     int8 conv with int32 sums, ``dtype(float(acc) * (sx * sw))``, then the
-    bias in ``dtype``. The kernels' operands are made once per version of
-    the weight and ``act_amax`` and cached. A prequantized module
+    bias in ``dtype``. :meth:`prepare_for_inference` makes the kernels'
+    operands (``int8_sx``, ``int8_scale`` = sx * sw and ``int8_kernel``)
+    once, and an eval-mode forward reads them (raising without them); in
+    training mode each forward makes its own. The launch geometry and the
+    operands' shape checks run once an input shape. A prequantized module
     (``quant.prequantize``) holds an int8 ``weight`` (no gradient) and a
     buffer ``w_scale`` [Cout], and skips the weight quantization."""
 
@@ -196,8 +241,12 @@ class QuantConv(nn.Conv2d):
             raise ValueError("int8 grouped convs: the depthwise 3x3 with "
                              "square stride and dilation only")
         self.mode, self.pads, self.dtype = mode, pads, dtype
+        # the int8 operators' checked geometry (int8_conv.conv_geometry) by
+        # input shape (C, H, W)
+        self._geometry = {}
         self.register_buffer("act_amax", torch.zeros(()))
-        self._int8_cache = None             # (key, (sx, scale, Int8Weight))
+        for name in INT8_OPERANDS:
+            self.register_buffer(name, None, persistent=False)
 
     @property
     def depthwise(self) -> bool:
@@ -212,50 +261,79 @@ class QuantConv(nn.Conv2d):
         return conv2d(x, self, self.pads, self.dtype)
 
     def int8_operands(self):
-        """(sx, sx * sw [Cout], ``Int8Weight``), rebuilt when the weight,
-        ``w_scale`` or ``act_amax`` was replaced or changed in place
-        (keyed on each tensor's storage and ``_version``)."""
+        """(sx, sx * sw [Cout], ``Int8Weight``) from the weight (or the int8
+        weight and ``w_scale``) and ``act_amax``."""
         w_scale = self._buffers.get("w_scale")
-        sources = [self.weight, self.act_amax] + (
-            [] if w_scale is None else [w_scale])
-        key = tuple((t.data_ptr(), t._version) for t in sources)
-        if self._int8_cache is None or self._int8_cache[0] != key:
+        if self.weight.dtype == torch.int8:
+            if w_scale is None:
+                raise ValueError("an int8 weight needs its w_scale "
+                                 "(quant.prequantize stores both)")
+            wq, sw = self.weight, w_scale
+        else:
+            wq, sw = int8_conv.quantize_weight(self.weight)
+        sx = int8_conv.activation_scale(self.act_amax)
+        return sx, sx * sw, int8_conv.prepare_weight(
+            wq.permute(0, 2, 3, 1), depthwise=self.depthwise)
+
+    def prepare_for_inference(self) -> None:
+        """Hold the int8 operands in buffers (int8 mode, ``eval()`` only)."""
+        _check_eval(self)
+        self.release_prepared()
+        if self.mode == "int8":
             with torch.no_grad():
-                if self.weight.dtype == torch.int8:
-                    if w_scale is None:
-                        raise ValueError("an int8 weight needs its w_scale "
-                                         "(quant.prequantize stores both)")
-                    wq, sw = self.weight, w_scale
-                else:
-                    wq, sw = int8_conv.quantize_weight(self.weight)
-                sx = int8_conv.activation_scale(self.act_amax)
-                operands = (sx, sx * sw, int8_conv.prepare_weight(
-                    wq.permute(0, 2, 3, 1), depthwise=self.depthwise))
-            self._int8_cache = (key, operands)
-        return self._int8_cache[1]
+                sx, scale, weight = self.int8_operands()
+            self.int8_sx, self.int8_scale = sx, scale
+            self.int8_kernel = weight.kernel
+
+    def release_prepared(self) -> None:
+        for name in INT8_OPERANDS:
+            setattr(self, name, None)
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.release_prepared()
+        return super().train(mode)
 
     def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
-        sx, scale, weight = self.int8_operands()
-        pads = self.pads
-        if pads == "SAME":
-            pads = same_pads(x.shape[2:], self.kernel_size, self.stride,
-                             self.dilation)
+        if self.training:
+            with torch.no_grad():
+                sx, scale, weight = self.int8_operands()
+            kernel = weight.kernel
+        elif self.int8_kernel is None:
+            raise _unprepared(self)
+        else:
+            sx, scale, kernel = self.int8_sx, self.int8_scale, self.int8_kernel
         xq = int8_conv.quantize_activation(
             x.permute(0, 2, 3, 1).contiguous(), sx)
-        if self.depthwise:
-            y = int8_conv.int8_depthwise_conv2d(
-                xq, weight, scale, stride=self.stride[0],
-                dilation=self.dilation[0], pads=pads, out_dtype=self.dtype)
-        else:
-            y = int8_conv.int8_conv2d(
-                xq, weight, scale, stride=self.stride, dilation=self.dilation,
-                pads=pads, out_dtype=self.dtype)
+        geometry = self._geometry.get(x.shape[1:])
+        if geometry is None:
+            geometry = self._geometry[x.shape[1:]] = self._check_launch(
+                xq.shape, kernel, scale)
+        # the operator itself: its operands' shapes were checked with the
+        # geometry, once for this input shape
+        op = torch.ops.xdt.int8_dwconv if self.depthwise else (
+            torch.ops.xdt.int8_conv)
+        y = op.default(xq, kernel, scale, geometry, self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y.permute(0, 3, 1, 2)              # channels_last NCHW view
 
+    def _check_launch(self, xq_shape, kernel, scale) -> list:
+        """The geometry of a call on an input of ``xq_shape`` (NHWC), its
+        operands' shapes checked."""
+        pads = self.pads
+        if pads == "SAME":
+            pads = same_pads(xq_shape[1:3], self.kernel_size, self.stride,
+                             self.dilation)
+        geometry = int8_conv.conv_geometry(self.kernel_size, self.stride,
+                                           self.dilation, pads)
+        int8_conv.check_operand_shapes(type(self).__name__, xq_shape, kernel,
+                                       scale, geometry, self.depthwise)
+        return geometry
+
     def set_int8_weight(self, wq: torch.Tensor, w_scale: torch.Tensor):
         """Hold int8 ``wq`` (OIHW) and its per-channel ``w_scale``."""
+        self.release_prepared()
         self.weight = nn.Parameter(wq, requires_grad=False)
         self.register_buffer("w_scale", w_scale)
 
@@ -264,6 +342,7 @@ class QuantConv(nn.Conv2d):
                               error_msgs):
         # take the stored weight's type: int8 with its w_scale (a
         # prequantized checkpoint) or float without one
+        self.release_prepared()
         weight = state_dict.get(prefix + "weight")
         if weight is not None:
             device = self.weight.device
@@ -325,9 +404,10 @@ class SeparableConvBN(nn.Module):
     ``fused=True`` routes stride-1 calls at inference through the fused
     kernel (``ops/fused_sepconv.py``); training, stride-2 and quantized
     calls keep the two convs (with ``quant``, two :class:`QuantConv`). The
-    parameters are the same either way; the fused route's operands (folded
-    BN, taps, ``wp`` in the kernel's layout) are prepared once per version
-    of the parameters and buffers and cached.
+    parameters are the same either way; the fused route's operands (taps,
+    ``wp`` in the compute dtype and the route's layout, the folded BN) are
+    held in buffers by :meth:`prepare_for_inference`, which the fused
+    route reads (raising without them).
     ``forward(x, residual)`` is the
     Xception unit's epilogue ``relu(bn(x) + residual)`` (the module then has
     ``relu=False``).
@@ -359,23 +439,45 @@ class SeparableConvBN(nn.Module):
             self.Conv_1 = QuantConv(in_features, features, (1, 1),
                                     mode=quant, dtype=dtype)
         self.bn = BatchNorm2D(features)
-        self._fused_cache = None            # (key, SepConvWeights)
+        self.route = route_for(in_features, features)
+        for name in FUSED_OPERANDS:
+            self.register_buffer(name, None, persistent=False)
 
-    def fused_weights(self):
-        """The fused route's operands, rebuilt when a parameter or buffer
-        was replaced (``.to``) or changed in place (``load_state_dict``, an
-        optimizer step): keyed on each tensor's storage and ``_version``."""
-        sources = (self.Conv_0.weight, self.Conv_1.weight, self.bn.weight,
-                   self.bn.bias, self.bn.running_mean, self.bn.running_var)
-        key = tuple((t.data_ptr(), t._version) for t in sources)
-        if self._fused_cache is None or self._fused_cache[0] != key:
+    def fused_weights(self) -> SepConvWeights:
+        """The fused route's prepared operands (:meth:`prepare_for_inference`);
+        raises without them."""
+        if self.fused_wp is None:
+            raise _unprepared(self)
+        return SepConvWeights(self.fused_wd, self.fused_wp, self.fused_scale,
+                              self.fused_bias, self.route)
+
+    def prepare_for_inference(self) -> None:
+        """Hold the fused route's operands in buffers (``eval()`` only),
+        made from the parameters and BatchNorm statistics."""
+        _check_eval(self)
+        self.release_prepared()
+        if self.takes_fused_route:
             with torch.no_grad():
                 scale, bias = self.bn.folded()
-                weights = prepare_weights(
+                operands = prepare_weights(
                     self.Conv_0.weight[:, 0].permute(1, 2, 0),
-                    self.Conv_1.weight[:, :, 0, 0].t(), scale, bias)
-            self._fused_cache = (key, weights)
-        return self._fused_cache[1]
+                    self.Conv_1.weight[:, :, 0, 0].t(), scale, bias,
+                    route=self.route, dtype=self.dtype)
+            for name, t in zip(FUSED_OPERANDS, operands):
+                setattr(self, name, t.clone())   # no view of a parameter
+
+    def release_prepared(self) -> None:
+        for name in FUSED_OPERANDS:
+            setattr(self, name, None)
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.release_prepared()
+        return super().train(mode)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.release_prepared()
+        super()._load_from_state_dict(*args, **kwargs)
 
     @property
     def takes_fused_route(self) -> bool:

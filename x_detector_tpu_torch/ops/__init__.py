@@ -1,1 +1,4 @@
-"""Geometry, NMS and the kernel wrappers (each with its plain version)."""
+"""Geometry, NMS, matching and the hand kernels' wrappers. Importing the
+package registers the kernels' operators (``ops/library.py``)."""
+
+from x_detector_tpu_torch.ops import library  # noqa: F401

@@ -1,8 +1,10 @@
 """Fused depthwise-separable conv: dw3x3 -> 1x1 -> folded BN [+ residual]
 -> ReLU, in one pass over the activation (inference, stride 1).
 
-``fused_separable_conv`` launches a CUDA kernel on CUDA tensors and runs the
-plain version ``reference_separable_conv`` on CPU tensors. Both follow one
+``fused_separable_conv`` calls the operator ``xdt::fused_sepconv``
+(``ops/library.py``): on CUDA tensors its implementation
+(:func:`launch_cuda`) launches a CUDA kernel, on CPU tensors it runs the
+plain version ``reference_separable_conv``. Both follow one
 rounding order, that of the JAX package's fused kernel: the 9 taps
 accumulate in fp32 and are rounded to ``x.dtype``; the pointwise product
 accumulates in fp32 over ``x.dtype`` operands; the affine, the residual and
@@ -18,16 +20,17 @@ Two kernels, two routes, chosen by the channel counts alone:
 Each route counts its launches in ``fused_separable_conv.route_launches``;
 ``fused_separable_conv.launches`` counts both.
 
-:func:`prepare_weights` turns the layer's parameters into the kernel's
-operands (``wp`` in bf16, transposed for the ``"tma"`` route); the model
-caches them per weight version (``models/layers.py``).
+:func:`prepare_weights` turns the layer's parameters into the operator's
+operands (``wp`` in the compute dtype, transposed for the ``"tma"``
+route); the model holds them as buffers (``models/layers.py``,
+``SeparableConvBN.prepare_for_inference``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -165,34 +168,43 @@ def bound_ms(b: int, h: int, w: int, cin: int, cout: int,
 
 
 class SepConvWeights(NamedTuple):
-    """One layer's operands: the plain version's (``wd`` [3, 3, Cin],
-    ``wp`` [Cin, Cout], ``scale``, ``bias``, all fp32) and, on a CUDA
-    device, the kernel's ``wp`` in bf16 for its route: [Cout, Cin] for
-    "tma", [Cin, Cout] for "wmma"."""
+    """One layer's operands: ``wd`` [3, 3, Cin], ``scale`` and ``bias``
+    [Cout], all fp32, and ``wp`` in the compute dtype laid out for its
+    route: [Cout, Cin] for "tma", [Cin, Cout] for "wmma"."""
     wd: torch.Tensor
     wp: torch.Tensor
     scale: torch.Tensor
     bias: torch.Tensor
     route: str
-    wp_kernel: Optional[torch.Tensor]
 
 
-def prepare_weights(wd, wp, scale, bias, *, route=None) -> SepConvWeights:
-    """The operands of :func:`fused_separable_conv_prepared`. ``route``
-    None picks :func:`route_for`; "wmma" may be asked for any shape."""
+def prepare_weights(wd, wp, scale, bias, *, route=None,
+                    dtype: torch.dtype = torch.bfloat16) -> SepConvWeights:
+    """The operands of :func:`fused_separable_conv_prepared` from ``wp``
+    [Cin, Cout], rounded to ``dtype`` (the activations' dtype: bf16 for
+    the kernel), each contiguous. ``route`` None picks :func:`route_for`;
+    "wmma" may be asked for any shape."""
     route = route or route_for(*wp.shape)
     if route not in ROUTES:
         raise ValueError(f"route {route!r} is not one of {ROUTES}")
     if route == "tma" and route_for(*wp.shape) != "tma":
         raise ValueError(f"the tma route takes Cin and Cout that are "
                          f"multiples of 8, not {tuple(wp.shape)}")
-    kernel = None
-    if wp.device.type == "cuda":
-        wp16 = wp.to(torch.bfloat16)
-        kernel = (wp16.t() if route == "tma" else wp16).contiguous()
-    return SepConvWeights(wd.contiguous(), wp.contiguous(),
-                          scale.contiguous(), bias.contiguous(), route,
-                          kernel)
+    wp = (wp.t() if route == "tma" else wp).to(dtype).contiguous()
+    return SepConvWeights(wd.float().contiguous(), wp,
+                          scale.float().contiguous(),
+                          bias.float().contiguous(), route)
+
+
+def plain_prepared(x, wd, wp, scale, bias, residual, dilation: int,
+                   relu: bool, route: str):
+    """``xdt::fused_sepconv`` on CPU tensors: the plain version on
+    :func:`prepare_weights`'s operands."""
+    if route == "tma":
+        wp = wp.t().contiguous()
+    return reference_separable_conv(x, wd, wp, scale, bias,
+                                    dilation=dilation, relu=relu,
+                                    residual=residual)
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,36 +218,49 @@ def fused_separable_conv(x, wd, wp, scale, bias, *, dilation=1, relu=True,
 
     Shapes and dtypes as in :func:`reference_separable_conv`. On a CUDA
     device the kernel takes bf16 ``x`` (and ``residual``) and fp32
-    ``wd``/``wp``/``scale``/``bias``, all contiguous; ``wp`` is rounded to
-    bf16 here, as the plain version rounds it.
+    ``wd``/``wp``/``scale``/``bias``; ``wp`` is rounded to ``x.dtype`` here,
+    as the plain version rounds it.
     """
-    if x.device.type == "cpu":
-        return reference_separable_conv(x, wd, wp, scale, bias,
-                                        dilation=dilation, relu=relu,
-                                        residual=residual)
     return fused_separable_conv_prepared(
-        x, prepare_weights(wd, wp, scale, bias), dilation=dilation,
-        relu=relu, residual=residual)
+        x, prepare_weights(wd, wp, scale, bias, dtype=x.dtype),
+        dilation=dilation, relu=relu, residual=residual)
 
 
 def fused_separable_conv_prepared(x, weights: SepConvWeights, *, dilation=1,
                                   relu=True, residual=None):
     """:func:`fused_separable_conv` on operands from
-    :func:`prepare_weights`."""
-    wd, wp, scale, bias, route, wp_kernel = weights
-    if x.device.type == "cpu":
-        return reference_separable_conv(x, wd, wp, scale, bias,
-                                        dilation=dilation, relu=relu,
-                                        residual=residual)
-    if x.device.type != "cuda" or wp_kernel is None:
-        raise ValueError(f"fused_separable_conv: x on {x.device}, weights "
-                         f"prepared on {wp.device}; need one CUDA device")
+    :func:`prepare_weights`: the operator ``xdt::fused_sepconv``."""
+    wd, wp, scale, bias, route = weights
     b, h, w, cin = x.shape
-    cout = wp.shape[-1]
-    tensors = {"x": x, "wd": wd, "wp": wp_kernel, "scale": scale,
-               "bias": bias}
+    cout = wp.shape[0] if route == "tma" else wp.shape[1]
+    shapes = {"wd": (3, 3, cin), "scale": (cout,), "bias": (cout,),
+              "residual": (b, h, w, cout),
+              "wp": (cout, cin) if route == "tma" else (cin, cout)}
+    for name, t in (("wd", wd), ("wp", wp), ("scale", scale), ("bias", bias),
+                    ("residual", residual)):
+        if t is not None and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"fused_separable_conv: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shapes[name]}")
+    if x.dim() != 4 or int(dilation) < 1:
+        raise ValueError(f"x must be [B, H, W, C] and dilation >= 1; got "
+                         f"{tuple(x.shape)}, {dilation}")
+    return torch.ops.xdt.fused_sepconv.default(
+        x, wd, wp, scale, bias, residual, int(dilation), bool(relu), route)
+
+
+def launch_cuda(x, wd, wp, scale, bias, residual, dilation: int, relu: bool,
+                route: str):
+    """``xdt::fused_sepconv`` on CUDA tensors: checks what the kernels
+    take, plans the "tma" route's launch (:func:`plan_launch`) and launches
+    the route's kernel."""
+    b, h, w, cin = x.shape
+    cout = wp.shape[0] if route == "tma" else wp.shape[1]
+    tensors = {"x": x, "wd": wd, "wp": wp, "scale": scale, "bias": bias}
     if residual is not None:
         tensors["residual"] = residual
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_separable_conv: x on {x.device}; the "
+                         f"kernels take CUDA tensors")
     for name, t in tensors.items():
         if t.device != x.device:
             raise ValueError(f"fused_separable_conv: {name} on {t.device}, "
@@ -247,38 +272,24 @@ def fused_separable_conv_prepared(x, weights: SepConvWeights, *, dilation=1,
         if t.dtype != want:
             raise TypeError(f"fused_separable_conv: {name} is {t.dtype}, "
                             f"the kernel takes {want}")
-    shapes = {"wd": (3, 3, cin), "scale": (cout,), "bias": (cout,),
-              "residual": (b, h, w, cout),
-              "wp": (cout, cin) if route == "tma" else (cin, cout)}
-    for name, t in tensors.items():
-        if name != "x" and tuple(t.shape) != shapes[name]:
-            raise ValueError(f"fused_separable_conv: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shapes[name]}")
-    if x.dim() != 4 or int(dilation) < 1:
-        raise ValueError(f"x must be [B, H, W, C] and dilation >= 1; got "
-                         f"{tuple(x.shape)}, {dilation}")
     if route == "tma" and any(t.data_ptr() % 16 for t in tensors.values()):
         raise ValueError("fused_separable_conv: the tma route needs 16-byte "
                          "aligned operands")
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _build.library()
     res_ptr = residual.data_ptr() if residual is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (x.data_ptr(), wd.data_ptr(), wp_kernel.data_ptr(),
-                scale.data_ptr(), bias.data_ptr(), res_ptr, out.data_ptr())
-        dims = (b, h, w, cin, cout, int(dilation), int(bool(relu)))
-        if route == "tma":
-            p = plan_launch(b, h, w, cin, cout, int(dilation),
-                            _sm_count(x.device.index or 0))
-            err = lib.xdt_fused_sepconv_tma(*ptrs, *dims, p.th, p.tw,
-                                            p.stages, p.smem_bytes,
-                                            p.bn, p.grid, stream)
-        else:
-            err = lib.xdt_fused_sepconv_wmma(*ptrs, *dims, stream)
-    _build.check(err, f"fused_sepconv ({route})")
+    ptrs = (x.data_ptr(), wd.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), res_ptr, out.data_ptr())
+    dims = (b, h, w, cin, cout, dilation, int(relu))
+    what = f"fused_sepconv ({route})"
+    if route == "tma":
+        p = plan_launch(b, h, w, cin, cout, dilation,
+                        _sm_count(x.device.index or 0))
+        _build.launch("xdt_fused_sepconv_tma", what, x, *ptrs, *dims, p.th,
+                      p.tw, p.stages, p.smem_bytes, p.bn, p.grid)
+    else:
+        _build.launch("xdt_fused_sepconv_wmma", what, x, *ptrs, *dims)
     fused_separable_conv.launches += 1
     fused_separable_conv.route_launches[route] += 1
     return out

@@ -13,23 +13,25 @@ accumulation there, three kernels of ``csrc/int8_conv.cu`` here:
   * :func:`int8_depthwise_conv2d` (K2): the depthwise 3x3, the same
     epilogue.
 
-Each launches its kernel on CUDA tensors (or raises on what the kernel does
-not take) and runs its plain version on CPU tensors. The plain versions sum
-the same integers exactly in float64 (|sum| <= 127^2 * 4608 for
-ResNet's 3x3 x 512, far under 2^53) and round as the kernels do, so a
-kernel equals its plain version bit for bit at every shape. Each wrapper
-counts its launches in ``<wrapper>.launches``.
+Each calls its operator (``xdt::quantize_s8``, ``xdt::int8_conv``,
+``xdt::int8_dwconv``; ``ops/library.py``), which launches the kernel on CUDA
+tensors (or raises on what the kernel does not take: :func:`quantize_cuda`,
+:func:`conv_cuda`, :func:`dwconv_cuda`) and runs the plain version on CPU
+tensors. The plain versions sum the same integers exactly in float64
+(|sum| <= 127^2 * 4608 for ResNet's 3x3 x 512, far under 2^53) and round
+as the kernels do, so a kernel equals its plain version bit for bit at
+every shape. Each wrapper counts its launches in ``<wrapper>.launches``.
 
 :func:`quantize_weight` is the per-output-channel weight quantization, run
-once per weight version by ``models.layers.QuantConv`` and by
-``quant.prequantize``; :func:`prepare_weight` lays the int8 weight out for
-the kernel once.
+by ``models.layers.QuantConv`` when it prepares its operands and by
+``quant.prequantize``; :func:`prepare_weight` lays the int8 weight out as
+the operators take it, on every device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,11 +83,17 @@ def quantize_activation_reference(x: torch.Tensor,
 
 
 def quantize_activation(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """int8 of ``x``'s shape. On the card ``x`` is contiguous bf16 or fp32
-    and ``sx`` a one-element fp32 tensor on the same device, read there (no
-    host sync)."""
-    if x.device.type == "cpu":
-        return quantize_activation_reference(x, sx)
+    """int8 of ``x``'s shape: the operator ``xdt::quantize_s8``. On the
+    card ``x`` is contiguous bf16 or fp32 and ``sx`` a one-element fp32
+    tensor on the same device, read there (no host sync)."""
+    if sx.numel() != 1:
+        raise ValueError(f"quantize_activation: sx must be one value, got "
+                         f"{tuple(sx.shape)}")
+    return torch.ops.xdt.quantize_s8.default(x, sx)
+
+
+def quantize_cuda(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """``xdt::quantize_s8`` on CUDA tensors: K3."""
     _same_cuda_device("quantize_activation", x, sx=sx)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"quantize_activation: x is {x.dtype}; the kernel "
@@ -103,13 +111,9 @@ def quantize_activation(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"quantize_activation: {n} elements, the kernel "
                          f"takes < 2^31")
     vec = 8 if x.data_ptr() % 16 == 0 and q.data_ptr() % 8 == 0 else 1
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.xdt_quantize_s8(x.data_ptr(), sx.data_ptr(), q.data_ptr(),
-                                  int(x.dtype == torch.bfloat16), n, vec,
-                                  stream)
-    _build.check(err, "quantize_activation")
+    _build.launch("xdt_quantize_s8", "quantize_activation", x, x.data_ptr(),
+                  sx.data_ptr(), q.data_ptr(), int(x.dtype == torch.bfloat16),
+                  n, vec)
     quantize_activation.launches += 1
     return q
 
@@ -117,13 +121,13 @@ def quantize_activation(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
 # ---- the weights ------------------------------------------------------------
 
 class Int8Weight(NamedTuple):
-    """One conv's int8 weight: ``wq`` OHWI [Cout, kh, kw, Cin/groups] (the
-    plain versions' operand) and, on a CUDA device, the kernel's: [Cout,
-    Kp] for the dense conv (K = kh*kw*Cin padded with zeros to a multiple
-    of 64) or [9, C] for the depthwise 3x3."""
-    wq: torch.Tensor
+    """One conv's int8 weight as the operators take it on every device:
+    ``kernel`` [Cout, Kp] for the dense conv (OHWI flattened, K =
+    kh*kw*Cin padded with zeros to a multiple of 64) or [9, C] for the
+    depthwise 3x3; ``ksize`` (kh, kw)."""
+    kernel: torch.Tensor
+    ksize: Tuple[int, int]
     depthwise: bool
-    kernel: Optional[torch.Tensor]
 
 
 def prepare_weight(wq: torch.Tensor, depthwise: bool) -> Int8Weight:
@@ -135,17 +139,23 @@ def prepare_weight(wq: torch.Tensor, depthwise: bool) -> Int8Weight:
     if depthwise and tuple(wq.shape[1:]) != (3, 3, 1):
         raise ValueError(f"the depthwise kernel takes a 3x3 of one channel a "
                          f"group: [C, 3, 3, 1], got {tuple(wq.shape)}")
-    wq = wq.contiguous()
-    kernel = None
-    if wq.device.type == "cuda":
-        if depthwise:
-            kernel = wq[:, :, :, 0].permute(1, 2, 0).reshape(9, -1)
-        else:
-            k = wq[0].numel()
-            kernel = F.pad(wq.reshape(wq.shape[0], k),
-                           (0, _round_up(k, KBK) - k))
-        kernel = kernel.contiguous()
-    return Int8Weight(wq, depthwise, kernel)
+    if depthwise:
+        kernel = wq[:, :, :, 0].permute(1, 2, 0).reshape(9, -1)
+    else:
+        k = wq[0].numel()
+        kernel = F.pad(wq.reshape(wq.shape[0], k),
+                       (0, _round_up(k, KBK) - k))
+    return Int8Weight(kernel.contiguous(), tuple(wq.shape[1:3]), depthwise)
+
+
+def unpack_weight(kernel: torch.Tensor, ksize: Sequence[int], cin: int,
+                  depthwise: bool) -> torch.Tensor:
+    """:func:`prepare_weight`'s ``kernel`` back to the int8 OHWI weight of
+    the plain versions."""
+    if depthwise:
+        return kernel.t().reshape(-1, 3, 3, 1)
+    kh, kw = ksize
+    return kernel[:, :kh * kw * cin].reshape(-1, kh, kw, cin)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -161,11 +171,20 @@ def output_size(size: Sequence[int], kernel: Sequence[int],
                  (lo, hi) in zip(size, kernel, stride, dilation, pads))
 
 
-def _check_geometry(what: str, stride, dilation, pads) -> None:
-    if min(*stride, *dilation) < 1 or min(p for pair in pads for p in pair
-                                          ) < 0:
-        raise ValueError(f"{what}: stride {stride} and dilation {dilation} "
-                         f"must be >= 1 and pads {pads} >= 0")
+def conv_geometry(ksize: Sequence[int], stride: Sequence[int],
+                  dilation: Sequence[int], pads: Pads) -> list:
+    """A call's geometry as the operators take it, one ``int[]``: [kh, kw,
+    sh, sw, dh, dw, top, bottom, left, right]; stride and dilation >= 1,
+    pads >= 0."""
+    (top, bottom), (left, right) = pads
+    geometry = [int(v) for v in (*ksize, *stride, *dilation, top, bottom,
+                                 left, right)]
+    if len(geometry) != 10 or min(geometry[2:6]) < 1 or min(
+            geometry[6:]) < 0:
+        raise ValueError(f"ksize {tuple(ksize)}, stride {tuple(stride)} and "
+                         f"dilation {tuple(dilation)} must be pairs >= 1 and "
+                         f"pads {pads} >= 0")
+    return geometry
 
 
 def _same_cuda_device(what: str, x: torch.Tensor, **tensors) -> None:
@@ -179,19 +198,51 @@ def _same_cuda_device(what: str, x: torch.Tensor, **tensors) -> None:
                              f"{x.device}; need one CUDA device")
 
 
-def _check_operands(what: str, xq, weight: Int8Weight, scale, out_dtype):
-    _same_cuda_device(what, xq, weight=weight.kernel, scale=scale)
-    if xq.dtype != torch.int8 or xq.dim() != 4 or not xq.is_contiguous():
+def _check_operands(what: str, xq, kernel, scale, out_dtype):
+    """What the kernels take, on top of the shapes the wrappers check."""
+    _same_cuda_device(what, xq, weight=kernel, scale=scale)
+    if xq.dtype != torch.int8 or not xq.is_contiguous():
         raise ValueError(f"{what}: xq must be contiguous int8 [B, H, W, C], "
                          f"got {xq.dtype} {tuple(xq.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: the kernel writes bf16 or fp32, not "
                         f"{out_dtype}")
-    cout = weight.wq.shape[0]
-    if (scale.dtype != torch.float32 or tuple(scale.shape) != (cout,)
-            or not scale.is_contiguous()):
-        raise ValueError(f"{what}: scale must be contiguous fp32 [{cout}], "
-                         f"got {scale.dtype} {tuple(scale.shape)}")
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        raise ValueError(f"{what}: scale must be contiguous fp32, got "
+                         f"{scale.dtype}")
+    if kernel.dtype != torch.int8 or not kernel.is_contiguous():
+        raise ValueError(f"{what}: the weight operand must be contiguous "
+                         f"int8, got {kernel.dtype}")
+
+
+def check_operand_shapes(what: str, x_shape: Sequence[int],
+                         kernel: torch.Tensor, scale: torch.Tensor,
+                         geometry: Sequence[int], depthwise: bool) -> None:
+    """What every implementation takes: [B, H, W, C] ``xq``, the weight
+    operand of :func:`prepare_weight` for a ``geometry``'s kernel size
+    (a depthwise one a 3x3 of square stride and dilation) and a [Cout]
+    ``scale``. Checked by the wrappers before the operators, and by
+    ``QuantConv`` once an input shape."""
+    if len(x_shape) != 4:
+        raise ValueError(f"{what}: xq must be [B, H, W, C], got "
+                         f"{tuple(x_shape)}")
+    c = x_shape[-1]
+    if depthwise:
+        _square_3x3(what, geometry)
+        expected, cout = (9, c), c
+    else:
+        cout = kernel.shape[0]
+        expected = (cout, _round_up(geometry[0] * geometry[1] * c, KBK))
+    if tuple(kernel.shape) != expected:
+        raise ValueError(f"{what}: xq has {c} channels, the weight operand "
+                         f"is {tuple(kernel.shape)}, not {expected}")
+    if tuple(scale.shape) != (cout,):
+        raise ValueError(f"{what}: scale must be [{cout}], got "
+                         f"{tuple(scale.shape)}")
+
+
+def _pairs(geometry: Sequence[int]) -> Pads:
+    return ((geometry[6], geometry[7]), (geometry[8], geometry[9]))
 
 
 def _dequantize(acc: torch.Tensor, scale: torch.Tensor,
@@ -246,44 +297,54 @@ def int8_conv2d(xq: torch.Tensor, weight: Int8Weight, scale: torch.Tensor,
                                                                 (0, 0)),
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """``dtype(float(conv(xq, wq)) * scale)``: [B, H, W, Cin] int8 with a
-    prepared weight (:func:`prepare_weight`) -> [B, Ho, Wo, Cout]."""
-    stride, dilation = tuple(stride), tuple(dilation)
-    _check_geometry("int8_conv2d", stride, dilation, pads)
+    prepared weight (:func:`prepare_weight`) -> [B, Ho, Wo, Cout], the
+    operator ``xdt::int8_conv``."""
     if weight.depthwise:
         raise ValueError("int8_conv2d: a depthwise weight; use "
                          "int8_depthwise_conv2d")
-    if xq.device.type == "cpu":
-        return int8_conv2d_reference(xq, weight.wq, scale, stride=stride,
-                                     dilation=dilation, pads=pads,
-                                     out_dtype=out_dtype)
-    _check_operands("int8_conv2d", xq, weight, scale, out_dtype)
+    geometry = conv_geometry(weight.ksize, stride, dilation, pads)
+    check_operand_shapes("int8_conv2d", xq.shape, weight.kernel, scale,
+                         geometry, False)
+    return torch.ops.xdt.int8_conv.default(xq, weight.kernel, scale,
+                                           geometry, out_dtype)
+
+
+def conv_plain(xq, kernel, scale, geometry, out_dtype):
+    """``xdt::int8_conv`` on CPU tensors: the plain version."""
+    return int8_conv2d_reference(
+        xq, unpack_weight(kernel, geometry[:2], xq.shape[-1], False), scale,
+        stride=geometry[2:4], dilation=geometry[4:6], pads=_pairs(geometry),
+        out_dtype=out_dtype)
+
+
+def conv_output(xq, cout, geometry, out_dtype):
+    """An empty [B, Ho, Wo, ``cout``] output of ``xdt::int8_conv`` or
+    ``xdt::int8_dwconv``."""
+    ho, wo = output_size(xq.shape[1:3], geometry[:2], geometry[2:4],
+                         geometry[4:6], _pairs(geometry))
+    return torch.empty((xq.shape[0], max(ho, 0), max(wo, 0), cout),
+                       dtype=out_dtype, device=xq.device)
+
+
+def conv_cuda(xq, kernel, scale, geometry, out_dtype):
+    """``xdt::int8_conv`` on CUDA tensors: K1."""
+    _check_operands("int8_conv2d", xq, kernel, scale, out_dtype)
     b, h, w, cin = xq.shape
-    cout, kh, kw, wcin = weight.wq.shape
-    if wcin != cin:
-        raise ValueError(f"int8_conv2d: xq has {cin} channels, the weight "
-                         f"{wcin}")
-    kp = weight.kernel.shape[1]
-    if tuple(weight.kernel.shape) != (cout, _round_up(kh * kw * cin, KBK)):
-        raise ValueError(f"int8_conv2d: kernel operand "
-                         f"{tuple(weight.kernel.shape)} is not [Cout, Kp]")
-    ho, wo = output_size((h, w), (kh, kw), stride, dilation, pads)
-    out = torch.empty((b, max(ho, 0), max(wo, 0), cout), dtype=out_dtype,
-                      device=xq.device)
+    cout, kp = kernel.shape
+    kh, kw, sh, sw, dh, dw, top, _, left, _ = geometry
+    out = conv_output(xq, cout, geometry, out_dtype)
     if out.numel() == 0:
         return out
+    ho, wo = out.shape[1:3]
     if b * ho * wo > _INT_MAX:
         raise ValueError(f"int8_conv2d: {b * ho * wo} output pixels, the "
                          f"kernel takes < 2^31")
     plan = plan_conv(cin, cout, xq.data_ptr())
-    lib = _build.library()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.xdt_int8_conv(
-            xq.data_ptr(), weight.kernel.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, cin,
-            ho, wo, cout, kh, kw, *stride, *dilation, pads[0][0], pads[1][0],
-            kp, plan.bn, plan.vec, stream)
-    _build.check(err, "int8_conv2d")
+    _build.launch(
+        "xdt_int8_conv", "int8_conv2d", xq, xq.data_ptr(), kernel.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        b, h, w, cin, ho, wo, cout, kh, kw, sh, sw, dh, dw, top, left, kp,
+        plan.bn, plan.vec)
     int8_conv2d.launches += 1
     return out
 
@@ -324,38 +385,54 @@ def int8_depthwise_conv2d(xq: torch.Tensor, weight: Int8Weight,
                           out_dtype: torch.dtype = torch.bfloat16
                           ) -> torch.Tensor:
     """The depthwise 3x3 of :func:`int8_conv2d`, square ``stride`` and
-    ``dilation``: [B, H, W, C] int8 -> [B, Ho, Wo, C]."""
-    s, d = int(stride), int(dilation)
-    _check_geometry("int8_depthwise_conv2d", (s,), (d,), pads)
+    ``dilation``: [B, H, W, C] int8 -> [B, Ho, Wo, C], the operator
+    ``xdt::int8_dwconv``."""
     if not weight.depthwise:
         raise ValueError("int8_depthwise_conv2d: a dense weight; use "
                          "int8_conv2d")
-    if xq.device.type == "cpu":
-        return int8_depthwise_conv2d_reference(
-            xq, weight.wq, scale, stride=s, dilation=d, pads=pads,
-            out_dtype=out_dtype)
-    _check_operands("int8_depthwise_conv2d", xq, weight, scale, out_dtype)
+    s, d = int(stride), int(dilation)
+    geometry = conv_geometry((3, 3), (s, s), (d, d), pads)
+    check_operand_shapes("int8_depthwise_conv2d", xq.shape, weight.kernel,
+                         scale, geometry, True)
+    return torch.ops.xdt.int8_dwconv.default(xq, weight.kernel, scale,
+                                             geometry, out_dtype)
+
+
+def _square_3x3(what: str, geometry: Sequence[int]) -> Tuple[int, int]:
+    """(stride, dilation) of a depthwise call's ``geometry``."""
+    kh, kw, sh, sw, dh, dw = geometry[:6]
+    if (kh, kw) != (3, 3) or sh != sw or dh != dw:
+        raise ValueError(f"{what}: the depthwise kernel takes a 3x3 of "
+                         f"square stride and dilation, got {geometry}")
+    return sh, dh
+
+
+def dwconv_plain(xq, kernel, scale, geometry, out_dtype):
+    """``xdt::int8_dwconv`` on CPU tensors: the plain version."""
+    s, d = _square_3x3("int8_depthwise_conv2d", geometry)
+    return int8_depthwise_conv2d_reference(
+        xq, unpack_weight(kernel, (3, 3), xq.shape[-1], True), scale,
+        stride=s, dilation=d, pads=_pairs(geometry), out_dtype=out_dtype)
+
+
+def dwconv_cuda(xq, kernel, scale, geometry, out_dtype):
+    """``xdt::int8_dwconv`` on CUDA tensors: K2."""
+    _check_operands("int8_depthwise_conv2d", xq, kernel, scale, out_dtype)
+    stride, dilation = _square_3x3("int8_depthwise_conv2d", geometry)
     b, h, w, c = xq.shape
-    if weight.wq.shape[0] != c or tuple(weight.kernel.shape) != (9, c):
-        raise ValueError(f"int8_depthwise_conv2d: xq has {c} channels, the "
-                         f"weight {tuple(weight.wq.shape)}")
-    ho, wo = output_size((h, w), (3, 3), (s, s), (d, d), pads)
-    out = torch.empty((b, max(ho, 0), max(wo, 0), c), dtype=out_dtype,
-                      device=xq.device)
+    out = conv_output(xq, c, geometry, out_dtype)
     if out.numel() == 0:
         return out
+    ho, wo = out.shape[1:3]
     if b * ho * wo * c > _INT_MAX:
         raise ValueError(f"int8_depthwise_conv2d: {b * ho * wo * c} outputs"
                          f", the kernel takes < 2^31")
-    vec = depthwise_vec(c, xq.data_ptr(), weight.kernel.data_ptr())
-    lib = _build.library()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.xdt_int8_dwconv(
-            xq.data_ptr(), weight.kernel.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), b, h, w, c, ho,
-            wo, s, d, pads[0][0], pads[1][0], vec, stream)
-    _build.check(err, "int8_depthwise_conv2d")
+    vec = depthwise_vec(c, xq.data_ptr(), kernel.data_ptr())
+    _build.launch(
+        "xdt_int8_dwconv", "int8_depthwise_conv2d", xq, xq.data_ptr(),
+        kernel.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), b, h, w, c, ho, wo, stride,
+        dilation, geometry[6], geometry[8], vec)
     int8_depthwise_conv2d.launches += 1
     return out
 

@@ -12,7 +12,9 @@ pairs) and runs them together:
      fixpoint of ``S[t] = any_{j<t}(~S[j] & IoU[j,t] > thr)``. The recurrence
      has a unique solution, so the fixpoint is exact sequential greedy NMS.
      The fixpoint runs for all rows at once until no row changes: one host
-     sync per few iterations, not one per row.
+     sync per few iterations, not one per row. It is the operator
+     ``xdt::self_suppress`` (``ops/library.py``), so that an exported
+     program runs the same host-checked loop as eager code.
   3. Survivors keep their scores, the rest get -1, and a stable descending
      sort keeps the first ``max_output``. Ties go to the lower index, as
      ``lax.top_k`` breaks them (``torch.topk`` gives no tie order on CUDA).
@@ -53,9 +55,10 @@ def topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _self_suppress(mask: torch.Tensor) -> torch.Tensor:
+def self_suppress(mask: torch.Tensor) -> torch.Tensor:
     """mask [R, T, T] bool, True where row j suppresses column t (j < t).
-    Returns the exact greedy suppressed flags [R, T].
+    Returns the exact greedy suppressed flags [R, T]: the implementation of
+    ``xdt::self_suppress`` on every device.
 
     Jacobi steps run in groups of ``CHECK_EVERY`` between host checks for a
     fixpoint: steps past the fixpoint leave it unchanged, and T steps always
@@ -103,7 +106,7 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
         over = box_ops.iou(tile, boxes[:, :start + TILE]) > iou_threshold
         prev = over[..., :start].any(dim=-1)
         mask = over[..., start:] & tri & ~prev[..., None]
-        sup = _self_suppress(mask) | prev
+        sup = torch.ops.xdt.self_suppress.default(mask) | prev
         boxes[:, start:start + TILE] = torch.where(sup[..., None], 0.0, tile)
 
     alive = (box_ops.area(boxes) > 0) & (scores > score_threshold)

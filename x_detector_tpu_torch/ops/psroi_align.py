@@ -9,12 +9,15 @@ Semantics (those of ``x_detector_tpu/ops/psroi_align.py``):
     ``[0, extent - 1]``, read bilinearly and averaged.
   * Output: [B, R, k, k, C] float32.
 
-``batched_psroi_align`` goes through ``PSROIAlignFunction``: on CUDA tensors
-its forward and backward launch the kernels of ``csrc/psroi_align.cu``; on
-CPU tensors they run the plain versions ``psroi_align_reference`` (a
-gather) and ``psroi_align_backward_reference`` (the transposed contractions
-of the JAX package's ``_bwd``). The gradient goes to the features only, in
-their dtype (fp32 sums, one rounding on store); the rois get none.
+``batched_psroi_align`` calls the operator ``xdt::psroi_align_fwd`` and
+``psroi_align_backward`` calls ``xdt::psroi_align_bwd`` (``ops/library.py``);
+the forward's gradient is the backward operator. The dispatcher picks the
+implementation from the tensors' device: on CUDA tensors the kernels of
+``csrc/psroi_align.cu`` (:func:`forward_cuda`, :func:`backward_cuda`); on CPU
+tensors the plain versions ``psroi_align_reference`` (a gather) and
+``psroi_align_backward_reference`` (the transposed contractions of the JAX
+package's ``_bwd``). The gradient goes to the features only, in their dtype
+(fp32 sums, one rounding on store); the rois get none.
 
 The kernels' launches are planned here, on the host: the forward's (threads,
 rois per block, the paired-channel path, the tap table's shared memory) by
@@ -166,10 +169,10 @@ def plan_forward(b: int, r: int, grid: int, c: int, samples: int,
                        blocks_per_image, lanes_per_roi)
 
 
-def _forward(features: torch.Tensor, rois: torch.Tensor, grid: int,
-             samples: int) -> torch.Tensor:
-    if features.device.type == "cpu":
-        return psroi_align_reference(features, rois, grid, samples)
+def forward_cuda(features: torch.Tensor, rois: torch.Tensor, grid: int,
+                 samples: int) -> torch.Tensor:
+    """``xdt::psroi_align_fwd`` on CUDA tensors: checks what the kernel
+    takes, plans the launch (:func:`plan_forward`) and launches it."""
     if features.device.type != "cuda" or rois.device != features.device:
         raise ValueError(f"batched_psroi_align: features on {features.device}"
                          f", rois on {rois.device}; need both on one CUDA "
@@ -178,13 +181,7 @@ def _forward(features: torch.Tensor, rois: torch.Tensor, grid: int,
         raise TypeError(f"features must be bf16 or fp32, got {features.dtype}")
     if rois.dtype != torch.float32:
         raise TypeError(f"rois must be fp32, got {rois.dtype}")
-    if features.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4:
-        raise ValueError(f"bad shapes {tuple(features.shape)} / "
-                         f"{tuple(rois.shape)}")
     b, h, w, kkc = features.shape
-    if grid < 1 or kkc % (grid * grid) or rois.shape[0] != b:
-        raise ValueError(f"{kkc} channels do not split into {grid}x{grid} "
-                         f"groups, or batch {b} != {rois.shape[0]}")
     if not (features.is_contiguous() and rois.is_contiguous()):
         raise ValueError("features and rois must be contiguous")
     r, c = rois.shape[1], kkc // (grid * grid)
@@ -196,15 +193,12 @@ def _forward(features: torch.Tensor, rois: torch.Tensor, grid: int,
     pair = 2 * features.element_size()
     plan = plan_forward(b, r, grid, c, samples,
                         features.data_ptr() % pair == 0)
-    lib = _build.library()
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.xdt_psroi_align_fwd(
-            features.data_ptr(), rois.data_ptr(), out.data_ptr(),
-            int(features.dtype == torch.bfloat16), b, h, w, r, grid, c,
-            samples, plan.threads, plan.rois_per_block, int(plan.paired),
-            int(plan.tabled), plan.smem_bytes, stream)
-    _build.check(err, "psroi_align")
+    _build.launch(
+        "xdt_psroi_align_fwd", "psroi_align", features, features.data_ptr(),
+        rois.data_ptr(), out.data_ptr(),
+        int(features.dtype == torch.bfloat16), b, h, w, r, grid, c, samples,
+        plan.threads, plan.rois_per_block, int(plan.paired),
+        int(plan.tabled), plan.smem_bytes)
     batched_psroi_align.launches += 1
     return out
 
@@ -288,14 +282,24 @@ def psroi_align_backward(grad: torch.Tensor, rois: torch.Tensor,
                          height: int, width: int, dtype: torch.dtype,
                          grid: int = 7, samples: int = 2) -> torch.Tensor:
     """The features' gradient [B, H, W, k*k*C] in ``dtype`` (bf16 or fp32)
-    from the upstream gradient [B, R, k, k, C]. CPU tensors take the plain
-    version; CUDA tensors launch the deterministic tiled kernel (fp32 sums
-    in roi order, one rounding on store, no atomics): a pre-pass writes
-    each roi's sample extents (empty for a zero gradient row) into
-    scratch, then the tiles run with :func:`plan_backward`'s plan."""
-    if grad.device.type == "cpu":
-        return psroi_align_backward_reference(grad, rois, height, width,
-                                              dtype, grid, samples)
+    from the upstream gradient [B, R, k, k, C]: the operator
+    ``xdt::psroi_align_bwd``. CPU tensors take the plain version; CUDA
+    tensors launch the deterministic tiled kernel (:func:`backward_cuda`)."""
+    b, r = rois.shape[:2]
+    if tuple(grad.shape[:4]) != (b, r, grid, grid) or grad.dim() != 5:
+        raise ValueError(f"grad {tuple(grad.shape)} / rois "
+                         f"{tuple(rois.shape)} do not fit grid {grid}")
+    return torch.ops.xdt.psroi_align_bwd.default(grad, rois, height, width,
+                                                 dtype, grid, samples)
+
+
+def backward_cuda(grad: torch.Tensor, rois: torch.Tensor, height: int,
+                  width: int, dtype: torch.dtype, grid: int,
+                  samples: int) -> torch.Tensor:
+    """``xdt::psroi_align_bwd`` on CUDA tensors (fp32 sums in roi order,
+    one rounding on store, no atomics): a pre-pass writes each roi's sample
+    extents (empty for a zero gradient row) into scratch, then the tiles
+    run with :func:`plan_backward`'s plan."""
     if grad.device.type != "cuda" or rois.device != grad.device:
         raise ValueError(f"psroi_align_backward: grad on {grad.device}, "
                          f"rois on {rois.device}; need one CUDA device")
@@ -320,47 +324,39 @@ def psroi_align_backward(grad: torch.Tensor, rois: torch.Tensor,
     plan = plan_backward(height, width, r, grid, c)
     rois = rois.contiguous()
     ext = torch.empty(b * r, 4, dtype=torch.float32, device=grad.device)
-    lib = _build.library()
-    with torch.cuda.device(grad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.xdt_psroi_align_bwd(
-            grad.data_ptr(), rois.data_ptr(), out.data_ptr(),
-            ext.data_ptr(), int(dtype == torch.bfloat16), b, height, width,
-            r, grid, c, samples, plan.threads, plan.cap, plan.smem_bytes,
-            stream)
-    _build.check(err, "psroi_align_backward")
+    _build.launch(
+        "xdt_psroi_align_bwd", "psroi_align_backward", grad,
+        grad.data_ptr(), rois.data_ptr(), out.data_ptr(), ext.data_ptr(),
+        int(dtype == torch.bfloat16), b, height, width, r, grid, c, samples,
+        plan.threads, plan.cap, plan.smem_bytes)
     psroi_align_backward.launches += 1
     return out
 
 
-class PSROIAlignFunction(torch.autograd.Function):
-    """PSROIAlign with its hand backward (the port of the JAX package's
-    ``custom_vjp``): the gradient flows to the features only."""
-
-    @staticmethod
-    def forward(ctx, features, rois, grid: int, samples: int):
-        ctx.save_for_backward(rois)
-        ctx.shape = features.shape
-        ctx.dtype = features.dtype
-        ctx.grid, ctx.samples = grid, samples
-        return _forward(features, rois, grid, samples)
-
-    @staticmethod
-    def backward(ctx, grad):
-        rois, = ctx.saved_tensors
-        _, h, w, _ = ctx.shape
-        dfeat = psroi_align_backward(grad, rois, h, w, ctx.dtype, ctx.grid,
-                                     ctx.samples)
-        return dfeat, None, None, None
+def _check_forward_shapes(features: torch.Tensor, rois: torch.Tensor,
+                         grid: int) -> None:
+    """What every implementation of the forward takes: [B, H, W, k*k*C]
+    features and [B, R, 4] rois."""
+    if features.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4:
+        raise ValueError(f"bad shapes {tuple(features.shape)} / "
+                         f"{tuple(rois.shape)}")
+    kkc = features.shape[-1]
+    if grid < 1 or kkc % (grid * grid) or rois.shape[0] != features.shape[0]:
+        raise ValueError(f"{kkc} channels do not split into {grid}x{grid} "
+                         f"groups, or batch {features.shape[0]} != "
+                         f"{rois.shape[0]}")
 
 
 def batched_psroi_align(features: torch.Tensor, rois: torch.Tensor,
                         grid: int = 7, samples: int = 2) -> torch.Tensor:
     """[B, H, W, k*k*C] (bf16 or fp32) x [B, R, 4] fp32 -> [B, R, k, k, C]
-    fp32, differentiable in ``features``. CPU tensors take the plain
-    versions; CUDA tensors launch the kernels, which read bf16 or fp32
-    features and accumulate in fp32."""
-    return PSROIAlignFunction.apply(features, rois, grid, samples)
+    fp32, differentiable in ``features`` (its backward is
+    ``xdt::psroi_align_bwd``). CPU tensors take the plain versions; CUDA
+    tensors launch the kernels, which read bf16 or fp32 features and
+    accumulate in fp32."""
+    _check_forward_shapes(features, rois, grid)
+    return torch.ops.xdt.psroi_align_fwd.default(features, rois, grid,
+                                                 samples)
 
 
 batched_psroi_align.launches = 0

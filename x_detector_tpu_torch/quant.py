@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from x_detector_tpu_torch import inference
-from x_detector_tpu_torch.models.layers import QuantConv
+from x_detector_tpu_torch.models.layers import (QuantConv,
+                                                prepare_for_inference)
 from x_detector_tpu_torch.ops.int8_conv import quantize_weight
 
 
@@ -55,9 +56,11 @@ def calibrate_backbone(cfg, model: nn.Module,
     ("calibrate", or "calibrate:p<percentile>" below 100) over ``batches``
     (eval-preprocessed [B, S, S, 3] images), from ``act_amax`` = 0: the
     running max of each batch's statistic. Leaves the ranges in the
-    ``act_amax`` buffers, the modes and the train flag as they were, and
-    returns the ranges keyed as in the state dict. On an empty stream, or
-    an error, it raises and leaves the ranges as they were."""
+    ``act_amax`` buffers, the modes and the train flag as they were (a
+    model in eval mode prepared anew for the new ranges,
+    ``models.layers.prepare_for_inference``), and returns the ranges keyed
+    as in the state dict. On an empty stream, or an error, it raises and
+    leaves the ranges as they were."""
     convs = quant_convs(model)
     if not convs:
         raise ValueError(f"{cfg.model.name}: the model has no QuantConv; "
@@ -88,6 +91,8 @@ def calibrate_backbone(cfg, model: nn.Module,
         for name, m in convs.items():
             m.mode = before[name][0]
         model.train(was_training)
+    if not was_training:
+        prepare_for_inference(model)
     return {f"{name}.act_amax": m.act_amax.detach().clone()
             for name, m in convs.items()}
 
@@ -97,11 +102,11 @@ def prequantize(target: Union[nn.Module, Mapping[str, torch.Tensor]]):
     by the formula QuantConv applies (``quantize_weight``), as int8 with
     its [Cout] ``w_scale``.
 
-    ``target`` is a model (changed in place and returned) or its state dict
-    (a new dict is returned). Raises, changing nothing, when a conv's
-    weight is already int8, when an ``act_amax`` is not positive (an
-    uncalibrated conv would saturate every activation) or when there is no
-    calibrated conv."""
+    ``target`` is a model (changed in place and returned; in eval mode its
+    operands prepared anew) or its state dict (a new dict is returned).
+    Raises, changing nothing, when a conv's weight is already int8, when an
+    ``act_amax`` is not positive (an uncalibrated conv would saturate every
+    activation) or when there is no calibrated conv."""
     if isinstance(target, nn.Module):
         convs = {name: (m.weight, m.act_amax)
                  for name, m in quant_convs(target).items()}
@@ -125,6 +130,8 @@ def prequantize(target: Union[nn.Module, Mapping[str, torch.Tensor]]):
         modules = dict(target.named_modules())
         for name, (wq, sw) in quantized.items():
             modules[name].set_int8_weight(wq, sw)
+        if not target.training:
+            prepare_for_inference(target)
         return target
     state = dict(target)
     for name, (wq, sw) in quantized.items():
