@@ -49,6 +49,23 @@ Phases; each raises on failure and the script then exits non-zero:
                 128 px on the card (bf16, kernels) against the CPU (fp32,
                 plain versions): config 1 on the RPN outputs, the SSD models
                 on cls_logits and box_codes.
+  7b. fast   -- MaxpoolNMS (ops/maxpool_nms.py): config 3 with
+                proposals.fast_nms and config 2 with nms.fast_mode, each
+                beside its exact path on the same weights and images
+                (run_fast): launches (config 3: B2 14 and B1's forward 1 a
+                batch), NMS's host-checked fixpoint (xdt::self_suppress,
+                counted in ops.nms.self_suppress.calls) never in config 3's
+                proposal stage (the model's forward) and never at all in
+                config 2's tail, where the exact paths ran it; both paths'
+                batch ms in alternating rounds; config 3's fast batch under
+                utils.profiling.trace (the trace must name B2's and B1's
+                kernels) and timed by utils.profiling.DeviceTimer; its
+                128 px card-vs-CPU check.
+  7c. dense  -- config 3's fused model with Xception-lite's stage 1 dense
+                (XceptionLite(dense_stages=1), built by dense_backbone): B2
+                10 times a batch, B1's forward once; its batch ms against
+                the separable model's in alternating rounds; the 128 px
+                check of the dense model.
   8. int8    -- config 2, then config 3 (with its fused flag, which an
                 int8 backbone does not take), in int8 at full width: the
                 seeded weights calibrated on the card
@@ -109,6 +126,21 @@ Phases; each raises on failure and the script then exits non-zero:
                 head's gradients and updates.
  11. train_xdet -- the same for xdet_xception (no shadow; trained unfused,
                 so B2 never launches).
+ 11b. train_act8 -- config 4's step with backbone_quant="act8" (QuantConv's
+                training probe): K3 once a backbone conv (36) a step, B1
+                once each way, every parameter moved, step ms against the
+                bf16 step's; then at the stage-1 shape [16, 128, 200, 200]
+                the act8 depthwise and pointwise convs against the plain
+                conv under cuDNN deterministic (act8_grad_check): output
+                and dL/dx bitwise, 0 < dL/dk relative RMS < 0.02.
+ 11c. train_remat -- 3 steps of config 4, then of config 2 (ResNet, EMA),
+                with backbone_remat_stages=2 against 3 without, from the
+                same seed, batches and draws, under
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                and cuDNN deterministic (run_remat_pair): every tensor of
+                the train state bitwise equal; each side's peak memory and
+                step ms; the ops warned as having no deterministic version.
+ 11d. dense_train -- config 4's step with dense_stages=1: B1 once each way.
  12. cli     -- the train and evaluate CLIs in this process, into a
                 temporary directory: config 2 for 4 steps with a checkpoint
                 every 2, the checkpoint reloaded bit for bit (step and data
@@ -116,6 +148,13 @@ Phases; each raises on failure and the script then exits non-zero:
                 steps 1-6; cli.evaluate on that directory (the EMA shadow, a
                 finite mAP in [0, 1]); then lighthead_xception (config 4's
                 model) for 2 steps: B1's forward and backward once a step.
+ 12b. cli_rest -- cli.train --pretrained --tensorboard on
+                lighthead_resnet50 (run_cli_rest): a .pth under
+                torchvision's names and ResNet-50's shapes, of seeded values
+                (torchvision_resnet50_state), grafted bit for bit, 2 steps
+                (B1 once each way a step); the event file read back by
+                utils.logging.read_events, CRCs checked, holding every
+                scalar of metrics.jsonl.
  13. dp      -- config 5, data-parallel Light-Head training: (a) at its
                 global batch of 128 on this card, world 1 over a real NCCL
                 group, 16 microbatches of 8 at 800 px, one warm-up and
@@ -130,7 +169,8 @@ Phases; each raises on failure and the script then exits non-zero:
                 naming the visible count.
  14. data    -- the native loader built from the port's C++ (the decoder it
                 found printed); the committed mini VOCdevkit through
-                cli.convert_voc; its JPEGs decoded against the pixels
+                cli.convert_voc; cli.inspect_data over those shards (a PNG
+                an image id); its JPEGs decoded against the pixels
                 libjpeg gives (the committed .npz); a resumed stream
                 bitwise equal to the uninterrupted one; DATA_PHOTOS
                 photo-sized JPEGs (500 x 375, 4:2:0) made with PIL through
@@ -604,13 +644,37 @@ def config_rois(gen, batch: int, r: int, dev) -> torch.Tensor:
     return rois.contiguous()
 
 
-def slice_model(model_cfg, device, seed: int = SEED):
+def dense_backbone(model, model_cfg, dense_stages: int) -> None:
+    """Put in ``model.backbone`` the config's Xception-lite built with
+    ``dense_stages`` (a constructor argument of the backbone, as in the JAX
+    package; no ModelConfig field), its weights left to be set."""
+    from x_detector_tpu_torch.models.lighthead import LightHeadRCNN
+    from x_detector_tpu_torch.models.xception import XceptionLite
+    kw = {}
+    if model_cfg.backbone_stages is not None:
+        kw["units_per_stage"] = tuple(model_cfg.backbone_stages)
+    if model_cfg.backbone_widths is not None:
+        kw["widths"] = tuple(model_cfg.backbone_widths)
+    model.backbone = XceptionLite(
+        dilate_c5=isinstance(model, LightHeadRCNN), dense_stages=dense_stages,
+        fused_sepconv=model_cfg.backbone_fused_sepconv,
+        remat_stages=model_cfg.backbone_remat_stages,
+        quant=model_cfg.backbone_quant, dtype=model.backbone.dtype, **kw)
+
+
+def slice_model(model_cfg, device, seed: int = SEED, dense_stages: int = 0,
+                dtype: torch.dtype = torch.bfloat16):
     """The config's model with seeded random weights and BatchNorm
     statistics moved off their initial values, so the folded affine is not
-    identity."""
+    identity; with ``dense_stages``, its Xception-lite's first stages dense
+    (``dense_backbone``)."""
     from x_detector_tpu_torch.inference import build_model
-    from x_detector_tpu_torch.models.layers import BatchNorm2D
-    model = build_model(model_cfg, "cpu", seed=seed)
+    from x_detector_tpu_torch.models.layers import BatchNorm2D, init_flax_like
+    model = build_model(model_cfg, "cpu", seed=seed, dtype=dtype)
+    if dense_stages:
+        dense_backbone(model, model_cfg, dense_stages)
+        init_flax_like(model, torch.Generator().manual_seed(seed))
+        model.eval()
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -649,7 +713,8 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     one warm-up batch then ``batches`` timed ones, on ``model`` (by default
     ``slice_model``'s). Returns every kernel's launch count over all of
     them (and B2's by route; with ``backbone_quant`` also the int8
-    kernels'), what the model should give (B2 a fused block a batch, B1's
+    kernels'; and ``suppress``, NMS's fixpoint calls, ``suppress_counts``),
+    what the model should give (B2 a fused block a batch, B1's
     forward one a batch for Light-Head, B1's backward none; K1 a dense
     QuantConv, K2 a depthwise one, K3 each), the timed seconds per batch,
     the anchor count and the detections of the last batch; with
@@ -678,12 +743,13 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     for fn in counters.values():
         fn.launches = 0
     seconds = []
-    for u8 in images:
-        t0 = time.perf_counter()
-        det = detect(preprocess_for_eval(u8, cfg.data))
-        sync()
-        seconds.append(time.perf_counter() - t0)
-        check_detections(*det, batch_size, cfg.model.nms.max_output)
+    with suppress_counts(model) as suppress:
+        for u8 in images:
+            t0 = time.perf_counter()
+            det = detect(preprocess_for_eval(u8, cfg.data))
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            check_detections(*det, batch_size, cfg.model.nms.max_output)
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -693,7 +759,7 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
                 "psroi_align_backward": 0}
     if cfg.model.backbone_quant is not None:
         expected.update({k: v * n for k, v in int8_calls(model).items()})
-    return {"launches": launches, "batches": n,
+    return {"launches": launches, "batches": n, "suppress": suppress,
             "routes": dict(fs.fused_separable_conv.route_launches),
             "expected": expected,
             "seconds": seconds[1:], "anchors": model.anchors.shape[0],
@@ -701,6 +767,34 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
                 "detect": lambda u8: detect(preprocess_for_eval(u8,
                                                                 cfg.data)),
                 "u8": images[-1]} if keep_path else {})}
+
+
+@contextlib.contextmanager
+def suppress_counts(model):
+    """Within: the calls of NMS's host-checked fixpoint
+    (``xdt::self_suppress``, counted in ``ops.nms.self_suppress.calls``)
+    counted, into the dict yielded, as "all" and as "forward", those made
+    inside ``model``'s forward (for Light-Head, the proposal stage's; the
+    rest are the final per-class NMS's)."""
+    from x_detector_tpu_torch.ops import nms
+    counts = {"all": 0, "forward": 0}
+    start = {}
+
+    def pre(module, args):
+        start["calls"] = nms.self_suppress.calls
+
+    def post(module, args, out):
+        counts["forward"] += nms.self_suppress.calls - start["calls"]
+
+    hooks = (model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post))
+    before = nms.self_suppress.calls
+    try:
+        yield counts
+    finally:
+        counts["all"] = nms.self_suppress.calls - before
+        for h in hooks:
+            h.remove()
 
 
 def check_slice(tag: str, res: dict, per_batch: dict) -> None:
@@ -740,16 +834,21 @@ def named_outputs(out) -> dict:
     return dict(zip(("cls_logits", "box_codes"), out))
 
 
-def slice_reference_check(model_cfg, device, keys) -> float:
+def slice_reference_check(model_cfg, device, keys,
+                          dense_stages: int = 0) -> float:
     """The same seeded weights at 128 px: bf16 with kernels on ``device``
     against fp32 plain versions on the CPU, on the outputs ``keys`` (for
     Light-Head the RPN's, before any discrete NMS choice; for SSD the raw
-    head outputs)."""
+    head outputs); ``dense_stages`` as for ``slice_model``."""
     from x_detector_tpu_torch.inference import build_model
     from x_detector_tpu_torch.models.layers import prepare_for_inference
     cfg = dataclasses.replace(model_cfg, image_size=128)
-    gpu = prepare_for_inference(slice_model(cfg, device).eval())
+    gpu = prepare_for_inference(slice_model(
+        cfg, device, dense_stages=dense_stages).eval())
     cpu = build_model(cfg, "cpu", seed=None, dtype=torch.float32)
+    if dense_stages:
+        dense_backbone(cpu, cfg, dense_stages)
+        cpu.eval()
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     prepare_for_inference(cpu)
     gen = torch.Generator().manual_seed(SEED)
@@ -812,8 +911,28 @@ def train_config(image_size: int = 800, batch_size: int = BATCH):
         cfg.train, batch_size=batch_size, warmup_steps=0))
 
 
-def run_train(cfg, device, steps: int = TRAIN_STEPS, seed: int = SEED
-              ) -> dict:
+def train_state(cfg, device, seed: int = SEED, dense_stages: int = 0):
+    """``create_model_and_state``'s state for ``cfg``; with
+    ``dense_stages``, of the model whose Xception-lite has that many dense
+    stages (``dense_backbone``), seeded the same way."""
+    from x_detector_tpu_torch.models.layers import init_flax_like
+    from x_detector_tpu_torch.train.schedule import make_optimizer
+    from x_detector_tpu_torch.train.train_state import TrainState
+    from x_detector_tpu_torch.train.trainer import create_model_and_state
+    if not dense_stages:
+        return create_model_and_state(cfg, device, seed=seed)
+    from x_detector_tpu_torch.inference import build_model
+    model = build_model(cfg.model, "cpu", seed=None)
+    dense_backbone(model, cfg.model, dense_stages)
+    init_flax_like(model, torch.Generator().manual_seed(seed))
+    model = model.to(device).train()
+    optimizer, schedule = make_optimizer(model, cfg.train)
+    return TrainState.create(model, optimizer, schedule,
+                             ema_decay=cfg.train.ema_decay)
+
+
+def run_train(cfg, device, steps: int = TRAIN_STEPS, seed: int = SEED,
+              dense_stages: int = 0) -> dict:
     """Drive the training path of either family: synthetic batches made on
     ``device`` on a 1.2x canvas -> preprocess_batch_for_train -> the train
     step, one warm-up step then ``steps`` timed ones. Returns the kernels'
@@ -823,14 +942,14 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS, seed: int = SEED
     EMA shadow, how many of its tensors moved and its largest gap to
     d * e + (1 - d) * p of the last step's inputs (with the scale). (An
     SSD step's loss reaches only the anchors it mines, so a level without
-    one gives its head a zero gradient.)
+    one gives its head a zero gradient.) With ``backbone_quant`` the int8
+    kernels are counted too; ``dense_stages`` as for ``train_state``.
     Expected launches: ``step_readings``."""
     from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
     from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
-    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
-                                                    make_train_step)
+    from x_detector_tpu_torch.train.trainer import make_train_step
     device = torch.device(device)
-    state = create_model_and_state(cfg, device, seed=seed)
+    state = train_state(cfg, device, seed, dense_stages)
     step = make_train_step(state.model, cfg)
     before = [p.detach().clone() for p in state.model.parameters()]
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -839,6 +958,8 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS, seed: int = SEED
     sync = (lambda: torch.cuda.synchronize(device)) if (
         device.type == "cuda") else (lambda: None)
     counters = kernel_counters()
+    if cfg.model.backbone_quant is not None:
+        counters.update(int8_counters())
     sync()
     for fn in counters.values():
         fn.launches = 0
@@ -875,17 +996,23 @@ def step_readings(cfg, state, before, steps: int, counters) -> dict:
     """After one warm-up and ``steps`` steps from parameters ``before``:
     the kernels' launches (``counters``, zeroed before the first step),
     what they should be (per microbatch, one forward, for Light-Head one
-    PSROIAlign each way, and the fused blocks the model in training mode
-    takes), how many parameter tensors moved, and those that got a
-    gradient in the last step and did not ("stuck")."""
+    PSROIAlign each way, the fused blocks the model in training mode
+    takes and, with ``backbone_quant`` "act8", K3 once a backbone conv),
+    how many parameter tensors moved, and those that got a gradient in the
+    last step and did not ("stuck")."""
+    from x_detector_tpu_torch import quant
     params = list(state.model.named_parameters())
     moved = [not torch.equal(b, p.detach()) for b, (_, p) in
              zip(before, params)]
     forwards = (steps + 1) * cfg.train.grad_accum_steps
     b1 = forwards if cfg.model.family == "lighthead" else 0
+    expected = {"fused_sepconv": forwards * fused_blocks(state.model),
+                "psroi_align": b1, "psroi_align_backward": b1}
+    if cfg.model.backbone_quant is not None:
+        expected.update(int8_conv=0, int8_dwconv=0, quantize_s8=forwards * len(
+            quant.quant_convs(state.model)))
     return {"launches": {name: fn.launches for name, fn in counters.items()},
-            "expected": {"fused_sepconv": forwards * fused_blocks(
-                state.model), "psroi_align": b1, "psroi_align_backward": b1},
+            "expected": expected,
             "moved": sum(moved), "params": len(moved),
             "stuck": [n for m, (n, p) in zip(moved, params)
                       if not m and bool(p.grad.any())]}
@@ -1418,10 +1545,20 @@ def loader_rate(shards, threads: int, canvas: int, batches: int,
         loader.close()
 
 
+def want_ids(testdata: str) -> list:
+    """The image ids of the committed mini VOC tree (its pixels' .npz)."""
+    import os
+    import numpy as np
+    return sorted(np.load(os.path.join(testdata,
+                                       "voc_mini_pixels.npz")).files)
+
+
 def run_data(device, extra=(), steps: int = DATA_STEPS,
              rate_batches: int = DATA_RATE_BATCHES,
              canvas: int = DATA_CANVAS, photos: int = DATA_PHOTOS) -> dict:
-    """The committed mini VOCdevkit -> ``cli.convert_voc`` -> shards; each
+    """The committed mini VOCdevkit -> ``cli.convert_voc`` -> shards;
+    ``cli.inspect_data`` over them through the loader (a PNG an image, named
+    by its id); each
     JPEG decoded by the loader against the pixels libjpeg decodes (the
     committed ``.npz``); a resumed stream against the uninterrupted one,
     bitwise. Then ``photos`` photo-sized JPEGs made here (PIL,
@@ -1434,7 +1571,8 @@ def run_data(device, extra=(), steps: int = DATA_STEPS,
     import os
     import shutil
     import numpy as np
-    from x_detector_tpu_torch.cli import convert_voc, evaluate, train
+    from x_detector_tpu_torch.cli import (convert_voc, evaluate,
+                                          inspect_data, train)
     from x_detector_tpu_torch.data import native_loader
     from x_detector_tpu_torch.data.native_loader import NativeLoader
     from x_detector_tpu_torch.data.testdata import make_voc_mini
@@ -1450,6 +1588,15 @@ def run_data(device, extra=(), steps: int = DATA_STEPS,
             shards = convert_voc.main(["--voc-root", f"{tmp}/voc",
                                        "--output-dir", f"{tmp}/shards",
                                        "--shard-size", "4"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            out["inspected"] = inspect_data.main([
+                "--data-dir", f"{tmp}/shards", "--num-images",
+                str(len(make_voc_mini.IMAGES)), "--output-dir",
+                f"{tmp}/inspect", "--device", str(device)])
+        pngs = sorted(os.listdir(f"{tmp}/inspect"))
+        if out["inspected"] != len(make_voc_mini.IMAGES) or pngs != sorted(
+                f"{i}.png" for i in want_ids(testdata)):
+            raise AssertionError(f"data: cli.inspect_data wrote {pngs}")
         want = np.load(os.path.join(testdata, "voc_mini_pixels.npz"))
         out["pixels"] = {}
         for image_id, (_, _, mode, _, subsampling) in zip(
@@ -2138,6 +2285,330 @@ def run_predict_artifact(directory: str, device, work: str) -> dict:
     return {"png_bytes": os.path.getsize(png), "valid": int(valid.sum())}
 
 
+# ---------------------------------------------------------------------------
+# The last modules: MaxpoolNMS, act8, remat, dense stages, the rest of the
+# CLIs
+# ---------------------------------------------------------------------------
+
+def maxpool_nms(cfg):
+    """``cfg`` with MaxpoolNMS on: the proposal stage's (``fast_nms``, read
+    by Light-Head) and the SSD tail's (``fast_mode``, read by SSD)."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, proposals=dataclasses.replace(m.proposals, fast_nms=True),
+        nms=dataclasses.replace(m.nms, fast_mode=True)))
+
+
+def trace_kernels(logdir: str) -> list:
+    """The names of the device kernels in ``utils.profiling.trace``'s
+    Chrome trace in ``logdir``."""
+    import os
+    from x_detector_tpu_torch.utils import profiling
+    with open(os.path.join(logdir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+
+def run_fast(cfg, device, batches: int = SLICE_BATCHES,
+             batch_size: int = BATCH, rounds: int = ROUNDS,
+             profile: bool = False) -> dict:
+    """``cfg``'s exact path and its MaxpoolNMS path (``maxpool_nms``), each
+    through ``run_slice`` on the same seeded weights and images; the fast
+    path's readings (its ``suppress`` counts, NMS's fixpoint calls in the
+    forward and in all) with the exact path's fixpoint counts and both
+    paths' batch ms in alternating rounds. With ``profile``, one fast batch
+    under ``utils.profiling.trace`` (the device kernels it names) and the
+    fast batch timed by ``utils.profiling.DeviceTimer``."""
+    from x_detector_tpu_torch.utils import profiling
+    exact = run_slice(cfg, device, batches, batch_size, keep_path=True)
+    res = run_slice(maxpool_nms(cfg), device, batches, batch_size,
+                    keep_path=True)
+    u8 = res["u8"]
+    fast_fn, exact_fn = res.pop("detect"), exact.pop("detect")
+    res["exact_suppress"] = exact["suppress"]
+    res["ms"] = alternating_ms({"exact": lambda: exact_fn(u8),
+                                "fast": lambda: fast_fn(u8)},
+                               rounds=rounds, device=device)
+    del exact, exact_fn
+    if profile:
+        with tempfile.TemporaryDirectory() as logdir:
+            with profiling.trace(logdir):
+                fast_fn(u8)
+            res["trace_kernels"] = trace_kernels(logdir)
+        timer = profiling.DeviceTimer(fast_fn, [(u8,), (u8.roll(1, 0),)],
+                                      warmup=1)
+        res["timer_ms"] = timer.measure(batches) * 1e3
+    return res
+
+
+def check_fast(tag: str, res: dict, family: str) -> None:
+    """MaxpoolNMS took NMS's fixpoint out of the proposal stage
+    (Light-Head) or out of the whole tail (SSD), where the exact path
+    ran it."""
+    stage = "forward" if family == "lighthead" else "all"
+    if res["suppress"][stage] != 0 or res["exact_suppress"][stage] == 0:
+        raise AssertionError(
+            f"{tag}: NMS's fixpoint ran {res['suppress'][stage]} times in "
+            f"the fast path's {'proposal stage' if stage == 'forward' else 'tail'}"
+            f" (the exact path's: {res['exact_suppress'][stage]}); expected "
+            f"0 (and the exact path's > 0)")
+
+
+def act8_grad_check(device, shape=(16, 128, 200, 200),
+                    seed: int = SEED) -> dict:
+    """At one stage-1 input shape (NCHW), the act8 QuantConv against the
+    plain conv of the same module (``layers.conv2d``), for the depthwise
+    3x3 and the pointwise 1x1 of a separable block, in bf16 with cuDNN
+    deterministic: the outputs and dL/dx bitwise equal (act8's dL/dx reads
+    no activation), dL/dk's relative RMS gap (float64) in (0, 0.02), the
+    JAX package's bound (its test_act8_exact_dx_quantized_dk)."""
+    from x_detector_tpu_torch.models.layers import (QuantConv, conv2d,
+                                                    init_flax_like)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, device=device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name, kernel, groups in (("depthwise", (3, 3), c),
+                                     ("pointwise", (1, 1), 1)):
+            conv = QuantConv(c, c, kernel, groups=groups, mode="act8")
+            init_flax_like(conv, torch.Generator().manual_seed(seed))
+            conv.to(device)
+            g = torch.randn(shape, generator=gen, device=device)
+            grads = {}
+            for side, fn in (("act8", conv),
+                             ("plain", lambda t: conv2d(t, conv, "SAME",
+                                                        torch.bfloat16))):
+                conv.weight.grad = None
+                xi = x.clone().requires_grad_()
+                y = fn(xi)
+                (y.float() * g).sum().backward()
+                grads[side] = (y.detach(), xi.grad, conv.weight.grad.clone())
+            (ya, dxa, dka), (yp, dxp, dkp) = grads["act8"], grads["plain"]
+            a, b = dka.double(), dkp.double()
+            rms = ((a - b).pow(2).mean().sqrt()
+                   / b.pow(2).mean().sqrt().clamp_min(1e-12)).item()
+            out[name] = {"y_equal": torch.equal(ya, yp),
+                         "dx_equal": torch.equal(dxa, dxp), "dk_rms": rms}
+            if not (out[name]["y_equal"] and out[name]["dx_equal"]
+                    and 0.0 < rms < 0.02):
+                raise AssertionError(f"act8 {name} conv at {shape}: "
+                                     f"{out[name]}; expected the output and "
+                                     f"dL/dx bitwise, 0 < dL/dk rms < 0.02")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return out
+
+
+def with_remat(cfg, stages: int):
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_remat_stages=stages))
+
+
+def run_remat_pair(cfg, device, stages: int = 2, steps: int = 3,
+                   seed: int = SEED) -> dict:
+    """``steps`` train steps of ``cfg`` without remat and with
+    ``backbone_remat_stages = stages``, from the same seed on the same
+    batches and draws, with ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` and cuDNN deterministic: the two train states
+    (``train_snapshot``: parameters, BatchNorm running stats, momentum,
+    EMA shadow, step) must be bitwise equal. Returns each side's peak
+    memory and mean step ms after the first (host clock to a sync, both
+    under the deterministic settings), the remat run's launches and what
+    they should be (B1 once a step each way for Light-Head: it is in the
+    head, never in a recomputed stage), and the warnings of ops with no
+    deterministic version."""
+    import warnings
+    from x_detector_tpu_torch.data.augment import preprocess_batch_for_train
+    from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
+    from x_detector_tpu_torch.train.trainer import (create_model_and_state,
+                                                    make_train_step)
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    counters = kernel_counters()
+    snaps, peaks, step_ms = {}, {}, {}
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (
+        lambda: None)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for n in (0, stages):
+                c = with_remat(cfg, n)
+                if cuda:
+                    torch.cuda.synchronize(device)
+                    torch.cuda.reset_peak_memory_stats(device)
+                for fn in counters.values():
+                    fn.launches = 0
+                state = create_model_and_state(c, device, seed=seed)
+                step = make_train_step(state.model, c)
+                gen = torch.Generator(device=device).manual_seed(seed)
+                canvas = int(c.data.image_size * CANVAS_SCALE)
+                seconds = []
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    raw = synthetic_batch_device(gen, c.train.batch_size,
+                                                 canvas, c.data.max_gt_boxes)
+                    batch = preprocess_batch_for_train(gen, raw, c.data)
+                    state, metrics = step(state, batch, gen)
+                    sync()
+                    seconds.append(time.perf_counter() - t0)
+                timed = seconds[1:] or seconds
+                step_ms[n] = sum(timed) / len(timed) * 1e3
+                if cuda:
+                    torch.cuda.synchronize(device)
+                    peaks[n] = torch.cuda.max_memory_allocated(device)
+                launches = {k: fn.launches for k, fn in counters.items()}
+                snaps[n] = train_snapshot(state)
+                del state, step
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+    differ = snapshot_differs(snaps[0], snaps[stages])
+    if differ:
+        raise AssertionError(f"remat {stages}: the train state after "
+                             f"{steps} steps differs from the one without "
+                             f"remat in {len(differ)} tensors: {differ[:5]}")
+    b1 = steps if cfg.model.family == "lighthead" else 0
+    return {"peak": peaks, "step_ms": step_ms, "tensors": len(snaps[0]),
+            "launches": launches,
+            "expected": {"fused_sepconv": 0, "psroi_align": b1,
+                         "psroi_align_backward": b1},
+            "nondeterministic": sorted({str(w.message).split(".")[0]
+                                        for w in caught
+                                        if "deterministic" in str(
+                                            w.message)})}
+
+
+def torchvision_resnet50_state(seed: int = SEED,
+                               stage_sizes=(3, 4, 6, 3),
+                               widths=(64, 128, 256, 512)) -> dict:
+    """A state dict under torchvision's ``resnet50()`` names and shapes (the
+    public ResNet-50's by default; the stem 64 wide, each block's output 4x
+    its width, a downsample on each stage's first block, the 1000-way fc)
+    with seeded random values: no weights are on disk or fetched."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.weight"] = torch.randn(cout, cin, k, k, generator=gen) * (
+            (k * k * cin) ** -0.5)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, (n, w) in enumerate(zip(stage_sizes, widths)):
+        for b in range(n):
+            t = f"layer{s + 1}.{b}"
+            conv(f"{t}.conv1", w, cin, 1)
+            bn(f"{t}.bn1", w)
+            conv(f"{t}.conv2", w, w, 3)
+            bn(f"{t}.bn2", w)
+            conv(f"{t}.conv3", 4 * w, w, 1)
+            bn(f"{t}.bn3", 4 * w)
+            if b == 0:
+                conv(f"{t}.downsample.0", 4 * w, cin, 1)
+                bn(f"{t}.downsample.1", 4 * w)
+            cin = 4 * w
+    sd["fc.weight"] = torch.randn(1000, cin, generator=gen) * cin ** -0.5
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def run_cli_rest(device, extra=(), steps: int = 2, batch_size: int = 4,
+                 stage_sizes=(3, 4, 6, 3), widths=(64, 128, 256, 512)
+                 ) -> dict:
+    """``cli.train --pretrained --tensorboard`` on lighthead_resnet50, in
+    this process, from a ``.pth`` written here
+    (``torchvision_resnet50_state``), ``steps`` steps of ``batch_size``
+    with ``--device device`` and ``extra``, the kernels' counters reset
+    just before: the backbone right after the graft bitwise equal to the
+    file's tensors (``utils.pretrained.torch_resnet50_to_port``), the steps
+    taken and the backbone moved; the event file in ``<model-dir>/tb``
+    read back by ``utils.logging.read_events`` (CRCs checked) holding every
+    scalar of ``metrics.jsonl`` (float32). Returns the readings and the
+    run's launches."""
+    import glob
+    from x_detector_tpu_torch.cli import train
+    from x_detector_tpu_torch.utils.logging import read_events
+    from x_detector_tpu_torch.utils.pretrained import torch_resnet50_to_port
+    device = torch.device(device)
+    sd = torchvision_resnet50_state(SEED, stage_sizes, widths)
+    want = torch_resnet50_to_port(sd, stage_sizes)
+    grafted = {}
+    graft = train.graft_pretrained
+
+    def spy(state, path, sizes):
+        graft(state, path, sizes)
+        grafted.update({k: v.detach().cpu().clone() for k, v in
+                        state.model.backbone.state_dict().items()})
+
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(sd, f"{tmp}/resnet50.pth")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for fn in counters.values():
+            fn.launches = 0
+        train.graft_pretrained = spy
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                state = train.main([
+                    "--preset", "lighthead_resnet50", "--pretrained",
+                    f"{tmp}/resnet50.pth", "--tensorboard", "--steps",
+                    str(steps), "--log-every", "1", "--batch-size",
+                    str(batch_size), "--model-dir", f"{tmp}/model",
+                    "--device", str(device), *extra])
+        finally:
+            train.graft_pretrained = graft
+        launches = {name: fn.launches for name, fn in counters.items()}
+        differ = [k for k in want if not torch.equal(grafted[k], want[k])]
+        if differ or "grafted pretrained backbone" not in out.getvalue():
+            raise AssertionError(f"cli_rest: the grafted backbone differs "
+                                 f"from the file in {differ[:5]}")
+        after = state.model.backbone.state_dict()
+        if state.step != steps or all(torch.equal(after[k].cpu(), want[k])
+                                      for k in want):
+            raise AssertionError(f"cli_rest: {state.step} steps, backbone "
+                                 f"moved: no")
+        with open(f"{tmp}/model/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        files = glob.glob(f"{tmp}/model/tb/events.out.tfevents.*")
+        if len(files) != 1:
+            raise AssertionError(f"cli_rest: event files {files}")
+        events = list(read_events(files[0]))
+        got = {(e["step"], tag, value) for e in events
+               for tag, plugin, value in e.get("values", ())}
+        logged = {(r["step"], k, float(torch.tensor(v, dtype=torch.float32)))
+                  for r in recs for k, v in r.items()
+                  if k != "step" and isinstance(v, float)}
+        if events[0].get("file_version") != "brain.Event:2" or (
+                logged - got) or len(recs) != steps:
+            raise AssertionError(f"cli_rest: event file lacks "
+                                 f"{sorted(logged - got)[:5]} of "
+                                 f"metrics.jsonl's {len(logged)} scalars")
+    return {"launches": launches, "tensors": len(want), "scalars": len(got),
+            "events": len(events),
+            "losses": [r["total_loss"] for r in recs],
+            "expected": {"fused_sepconv": 0, "psroi_align": steps,
+                         "psroi_align_backward": steps}}
+
+
 def fused(cfg):
     """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
     as config 3 runs it."""
@@ -2199,6 +2670,65 @@ def main() -> int:
                      res, SSD_BATCH)
         slice_reference_check(cfg.model, "cuda", ("cls_logits", "box_codes"))
         torch.cuda.synchronize()
+
+    # fast: MaxpoolNMS on config 3's proposal stage (B2 14 and B1 1 a
+    # batch, NMS's fixpoint never in the forward) and on config 2's tail
+    # (the fixpoint never), beside each exact path in alternating rounds
+    no_kernels = {"fused_sepconv": 0, "psroi_align": 0,
+                  "psroi_align_backward": 0}
+    for path, cfg, batch, family, per_batch in (
+            ("fast", fused(lighthead_xception(800)), BATCH, "lighthead",
+             {"fused_sepconv": 14, "psroi_align": 1,
+              "psroi_align_backward": 0}),
+            ("fast_config2", ssd_resnet50(512), SSD_BATCH, "ssd",
+             no_kernels)):
+        torch.cuda.reset_peak_memory_stats()
+        paths[path] = res = run_fast(cfg, "cuda", batch_size=batch,
+                                     profile=family == "lighthead")
+        check_slice(path, res, per_batch)
+        check_fast(path, res, family)
+        report_slice(f"{path}: {cfg.model.name} with MaxpoolNMS", res, batch)
+        log(f"{path}: NMS fixpoint calls over {res['batches']} batches, in "
+            f"the forward / in all: exact path {res['exact_suppress']}, "
+            f"MaxpoolNMS {res['suppress']}; ms a batch "
+            f"{rounds_text(res['ms'])}: fast / exact "
+            f"{res['ms']['fast']['median'] / res['ms']['exact']['median']:.3f}")
+        if family == "lighthead":
+            named = res["trace_kernels"]
+            for want in ("sepconv_tma_kernel", "psroi_align_fwd_kernel"):
+                if not any(want in k for k in named):
+                    raise AssertionError(f"fast: the profiler's trace names "
+                                         f"no {want}: {named[:20]}")
+            log(f"fast: utils.profiling.trace of one batch names "
+                f"{len(named)} device kernels, B2's and B1's among them; "
+                f"utils.profiling.DeviceTimer: {res['timer_ms']:.3f} ms a "
+                f"batch")
+            slice_reference_check(maxpool_nms(cfg).model, "cuda",
+                                  ("rpn_cls", "rpn_loc"))
+        torch.cuda.synchronize()
+
+    # dense: config 3's fused model with Xception-lite's stage 1 dense
+    # (dense_stages=1): B2 10 times a batch (stage 1's four blocks dense)
+    cfg = fused(lighthead_xception(800))
+    torch.cuda.reset_peak_memory_stats()
+    paths["dense"] = res = run_slice(
+        cfg, "cuda", model=slice_model(cfg.model, "cuda", dense_stages=1),
+        keep_path=True)
+    check_slice("dense", res, {"fused_sepconv": 10, "psroi_align": 1,
+                               "psroi_align_backward": 0})
+    report_slice("dense: config 3 at 800 px, fused, dense_stages=1", res,
+                 BATCH)
+    separable = run_slice(cfg, "cuda", batches=0, keep_path=True)
+    dense_fn, sep_fn, u8 = res.pop("detect"), separable.pop("detect"), res[
+        "u8"]
+    ms = alternating_ms({"separable": lambda: sep_fn(u8),
+                         "dense": lambda: dense_fn(u8)})
+    log(f"dense: ms a batch {rounds_text(ms)}: dense / separable "
+        f"{ms['dense']['median'] / ms['separable']['median']:.3f}")
+    del dense_fn, sep_fn, separable
+    slice_reference_check(cfg.model, "cuda", ("rpn_cls", "rpn_loc"),
+                          dense_stages=1)
+    torch.cuda.synchronize()
 
     # int8: config 2, then config 3, at full width: calibrated on the card,
     # served through build_eval_fn, beside the float paths above (the same
@@ -2325,6 +2855,67 @@ def main() -> int:
         ssd_train_reference_check(ssd_train_config(preset, 128, 2), "cuda")
         torch.cuda.synchronize()
 
+    # train_act8: config 4's step with backbone_quant="act8": K3 once a
+    # backbone conv (36) a step; then act8 against the plain conv at a
+    # stage-1 shape
+    cfg = train_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_quant="act8"))
+    torch.cuda.reset_peak_memory_stats()
+    paths["train_act8"] = res = run_train(cfg, "cuda")
+    check_train("config 4 act8", res, {
+        "fused_sepconv": 0, "psroi_align": 1, "psroi_align_backward": 1,
+        "int8_conv": 0, "int8_dwconv": 0, "quantize_s8": 36})
+    if res["moved"] != res["params"]:
+        raise AssertionError(f"config 4 act8: only {res['moved']} of "
+                             f"{res['params']} parameter tensors changed")
+    report_train(f"train_act8: config 4 with backbone_quant=act8, batch "
+                 f"{BATCH} at 800 px", res, BATCH,
+                 torch.cuda.max_memory_allocated())
+    act8_ms, bf16_ms = (sum(r["seconds"]) / len(r["seconds"]) * 1e3
+                        for r in (res, paths["train"]))
+    log(f"train_act8: mean step {act8_ms:.2f} ms against the bf16 step's "
+        f"{bf16_ms:.2f} (phase train): {act8_ms / bf16_ms:.3f}x")
+    grads = act8_grad_check("cuda")
+    log(f"train_act8: at [16, 128, 200, 200] (cuDNN deterministic), the act8"
+        f" conv against the plain one: " + "; ".join(
+            f"{name}: output and dL/dx bitwise {g['y_equal'] and g['dx_equal']}"
+            f", dL/dk rel RMS {g['dk_rms']:.4g}" for name, g in grads.items()))
+    torch.cuda.synchronize()
+
+    # train_remat: 2 steps with backbone_remat_stages=2 against 2 without,
+    # config 4 and config 2 (ResNet, EMA): the train states bitwise equal
+    for path, cfg in (("train_remat", train_config()),
+                      ("train_remat_config2",
+                       ssd_train_config("ssd_resnet50"))):
+        paths[path] = res = run_remat_pair(cfg, "cuda")
+        if res["launches"] != res["expected"]:
+            raise AssertionError(f"{path}: launches {res['launches']}, "
+                                 f"expected {res['expected']}")
+        peak = {n: round(v / 2**30, 3) for n, v in res["peak"].items()}
+        ms = {n: round(v, 2) for n, v in res["step_ms"].items()}
+        log(f"{path}: {cfg.model.name}, batch {cfg.train.batch_size} at "
+            f"{cfg.model.image_size} px, 3 steps with "
+            f"backbone_remat_stages=2 bitwise equal to 3 without "
+            f"({res['tensors']} tensors: parameters, BatchNorm stats, "
+            f"momentum, EMA, step); peak memory GiB by remat stages {peak}; "
+            f"mean step ms after the first (deterministic algorithms) "
+            f"{ms}: {ms[2] / ms[0]:.3f}x; launches {res['launches']}; ops "
+            f"warned as having no deterministic version: "
+            f"{res['nondeterministic']}")
+        torch.cuda.synchronize()
+
+    # dense_train: config 4's step with dense_stages=1
+    torch.cuda.reset_peak_memory_stats()
+    paths["dense_train"] = res = run_train(train_config(), "cuda",
+                                           dense_stages=1)
+    check_train("config 4 dense", res, {"fused_sepconv": 0,
+                                        "psroi_align": 1,
+                                        "psroi_align_backward": 1})
+    report_train(f"dense_train: config 4 with dense_stages=1, batch {BATCH} "
+                 f"at 800 px", res, BATCH, torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+
     # the CLIs: config 2 trained, checkpointed, resumed and evaluated; a
     # Light-Head run through B1's forward and backward
     torch.cuda.reset_peak_memory_stats()
@@ -2340,6 +2931,21 @@ def main() -> int:
         f"{res['evaluate']['mAP']:.4f}; Light-Head 2 steps: launches "
         f"{res['launches']}; {time.perf_counter() - t0:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # cli_rest: cli.train --pretrained --tensorboard on lighthead_resnet50
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paths["cli_rest"] = res = run_cli_rest("cuda")
+    if res["launches"] != res["expected"]:
+        raise AssertionError(f"cli_rest: launches {res['launches']}, "
+                             f"expected {res['expected']}")
+    log(f"cli_rest: cli.train --pretrained (a torchvision-named ResNet-50 "
+        f".pth of seeded values, {res['tensors']} tensors grafted bit for "
+        f"bit) --tensorboard on lighthead_resnet50, 2 steps of 4 at 800 "
+        f"px: losses {[round(v, 4) for v in res['losses']]}, launches "
+        f"{res['launches']}; the event file read back with CRCs ({res['events']}"
+        f" events) holds all {res['scalars']} scalars of metrics.jsonl; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # dp: config 5, data-parallel Light-Head training at a global batch of
     # 128 (world 1 over NCCL, 16 microbatches of 8); B1's forward and
@@ -2386,6 +2992,8 @@ def main() -> int:
     pixels = {k: (c, m, round(a, 4)) for k, (c, m, a) in
               res["pixels"].items()}
     rates = {t: round(r, 1) for t, r in res["images_per_s"].items()}
+    log(f"data: cli.inspect_data over the converted shards wrote "
+        f"{res['inspected']} PNGs, one an image id")
     log(f"data: decoder {res['decoder']}; pixels against libjpeg's (image: "
         f"chroma, max abs diff, mean; limits {PIXEL_TOL[res['decoder']]}): "
         f"{pixels}; resumed stream bitwise; {DATA_PHOTOS} photo-sized "

@@ -16,12 +16,14 @@ torch.set_num_threads(1)
 from test_torch_checkpoint import assert_bitwise, snapshot  # noqa: E402
 from test_voc_io import make_fake_voc  # noqa: E402
 from x_detector_tpu.utils import metrics_voc as jax_voc  # noqa: E402
+from x_detector_tpu.cli import inspect_data as jax_inspect  # noqa: E402
 from x_detector_tpu_torch.cli import (common, convert_voc,  # noqa: E402
-                                      evaluate, train)
+                                      evaluate, inspect_data, train)
 from x_detector_tpu_torch.train.trainer import (  # noqa: E402
     create_model_and_state)
 from x_detector_tpu_torch.utils import metrics_voc as voc  # noqa: E402
-from x_detector_tpu_torch.utils.logging import MetricsLogger  # noqa: E402
+from x_detector_tpu_torch.utils.logging import (  # noqa: E402
+    MetricsLogger, read_events)
 
 THIN = ["--image-size", "64", "--batch-size", "2", "--backbone-stages",
         "1,1,1,1", "--device", "cpu", "--dtype", "float32"]
@@ -107,20 +109,24 @@ def test_periodic_eval_logs_the_map(tmp_path):
 
 
 @pytest.mark.parametrize("cli,extra,error,match", [
-    (train, ["--pretrained", "r50.pth"], NotImplementedError, "item 8"),
-    (train, ["--tensorboard"], NotImplementedError, "metrics.jsonl only"),
+    (train, ["--preset", "lighthead_xception", "--pretrained", "r50.pth"],
+     SystemExit, "ResNet-50"),
+    (train, ["--pretrained", "missing.pth"], FileNotFoundError,
+     "missing.pth"),
     (train, ["--device", "cuda"], RuntimeError, "no CUDA device"),
     (train, ["--device", "cuda", "--num-devices", "2"], RuntimeError,
      "needs 2 CUDA devices, one a rank; 0 visible"),
     (evaluate, ["--device", "cuda"], RuntimeError, "no CUDA device"),
     (evaluate, ["--device", "cuda", "--num-devices", "2"], RuntimeError,
      "needs 2 CUDA devices, one a rank; 0 visible"),
-], ids=["train-pretrained", "train-tensorboard", "train-cuda",
+], ids=["train-pretrained", "train-pretrained-missing", "train-cuda",
         "train-num-devices-cuda", "eval-cuda", "eval-num-devices-cuda"])
 def test_refusals_name_what_is_missing(tmp_path, monkeypatch, cli, extra,
                                        error, match):
-    """Each refusal raises with its message, and ``--device cuda`` with no
-    card present (one rank or two) never falls back to the CPU."""
+    """Each refusal raises with its message (``--pretrained`` on a preset
+    that is not ResNet-50, or a file that is not there), and ``--device
+    cuda`` with no card present (one rank or two) never falls back to the
+    CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = (train_args("ssd_resnet50", tmp_path, "--steps", "1", *extra)
             if cli is train else cli_args("ssd_resnet50", tmp_path, *extra))
@@ -178,6 +184,57 @@ def _assert_checkpoints_equal(a, b):
     assert fa.keys() == fb.keys()
     for k in fa:
         assert torch.equal(fa[k], fb[k]), k
+
+
+def test_train_tensorboard_writes_every_logged_scalar(tmp_path):
+    """``--tensorboard`` writes ``<model-dir>/tb``: one event file, read
+    back with CRCs checked, holding every float of ``metrics.jsonl`` at
+    its step (as float32)."""
+    train.main(train_args("ssd_resnet50", tmp_path, "--steps", "2",
+                          "--tensorboard"))
+    (event_file,) = (tmp_path / "tb").glob("events.out.tfevents.*")
+    got = {(e["step"], tag, value)
+           for e in read_events(str(event_file))
+           for tag, _, value in e.get("values", ())}
+    want = {(r["step"], k, float(np.float32(v))) for r in records(tmp_path)
+            for k, v in r.items() if k != "step" and isinstance(v, float)}
+    assert len(want) > 2 * 4 and want <= got
+
+
+def _inspect(module, argv, capsys):
+    module.main(argv)
+    return capsys.readouterr().out.splitlines()
+
+
+def test_inspect_data_matches_jax_on_the_synthetic_stream(tmp_path, capsys):
+    """``cli.inspect_data`` on the synthetic stream against the JAX
+    package's: the same file names, the same printed gt counts and classes,
+    and the same pixels (the same drawing of the same batches)."""
+    from PIL import Image
+    argv = ["--num-images", "3", "--canvas", "64", "--batch-size", "2"]
+    want = _inspect(jax_inspect, argv + ["--output-dir", str(tmp_path / "j")],
+                    capsys)
+    got = _inspect(inspect_data, argv + ["--device", "cpu", "--output-dir",
+                                         str(tmp_path / "p")], capsys)
+    strip = lambda lines, d: [line.replace(str(tmp_path / d), "DIR")
+                              for line in lines]
+    assert strip(got, "p") == strip(want, "j")
+    assert got[-1].startswith("wrote 3 annotated images")
+    names = sorted(p.name for p in (tmp_path / "p").iterdir())
+    assert names == [f"synthetic_{i}.png" for i in range(3)]
+    for name in names:
+        assert np.array_equal(np.asarray(Image.open(tmp_path / "p" / name)),
+                              np.asarray(Image.open(tmp_path / "j" / name)))
+
+
+def test_inspect_data_reads_the_shards(shards, tmp_path, capsys):
+    """Through the native loader: a PNG named by each image id."""
+    lines = _inspect(inspect_data, [
+        "--data-dir", str(shards), "--num-images", "5", "--output-dir",
+        str(tmp_path), "--device", "cpu", "--batch-size", "2"], capsys)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        f"{i:06d}.png" for i in range(5)]
+    assert len(lines) == 6 and "gt boxes" in lines[0]
 
 
 def test_two_ranks_resume_bitwise(tmp_path, short_spawn_timeout, capfd):
@@ -240,8 +297,8 @@ def test_eval_variables_prefers_the_shadow_and_keeps_the_stats():
 
 def test_metrics_logger_writes_floats_at_log_time(tmp_path, capsys):
     """Tensors become floats in the record; the file is appended to (a
-    resumed run); stderr echoes every ``echo_every`` steps; TensorBoard
-    raises."""
+    resumed run); stderr echoes every ``echo_every`` steps; with
+    ``tensorboard_dir`` every float of a record is also a scalar event."""
     path = tmp_path / "m.jsonl"
     lg = MetricsLogger(str(path), echo_every=2)
     lg.log(1, {"loss": torch.tensor(2.5), "lr": 1e-3})
@@ -256,8 +313,14 @@ def test_metrics_logger_writes_floats_at_log_time(tmp_path, capsys):
     assert recs[1]["n"] == 3.0 and "wall_time_s" in recs[0]
     err = capsys.readouterr().err
     assert "[step 2]" in err and "[step 1]" not in err
-    with pytest.raises(NotImplementedError, match="TensorBoard"):
-        MetricsLogger(str(path), tensorboard_dir=str(tmp_path / "tb"))
+    lg = MetricsLogger(None, echo=False, tensorboard_dir=str(tmp_path / "tb"))
+    lg.log(4, {"loss": torch.tensor(1.25), "n": 2})
+    lg.close()
+    (event_file,) = (tmp_path / "tb").glob("events.out.tfevents.*")
+    triples = {(e["step"], tag) + ((value,) if tag != "wall_time_s" else ())
+               for e in read_events(str(event_file))
+               for tag, _, value in e.get("values", ())}
+    assert triples == {(4, "loss", 1.25), (4, "n", 2.0), (4, "wall_time_s")}
 
 
 def _seeded_eval(rng, module, use_07):

@@ -106,6 +106,26 @@ def test_config_classes_have_the_jax_fields_and_defaults(cls):
             == dataclasses.asdict(getattr(jax_config, cls)()))
 
 
+# the Pallas kernels' modules, ported into the modules that launch them
+KERNEL_MODULES = {"ops/pallas/__init__.py": None,
+                  "ops/pallas/fused_sepconv.py": "ops/fused_sepconv.py",
+                  "ops/pallas/psroi_align_kernel.py": "ops/psroi_align.py"}
+
+
+def test_every_jax_module_has_a_counterpart_and_nothing_is_refused():
+    """Each module of the JAX package has one of the same path in the port
+    (the Pallas kernels' in the ops that launch them), and no module of
+    the port raises NotImplementedError: it does all the JAX package
+    does."""
+    jax_root, port_root = ROOT / "x_detector_tpu", ROOT / "x_detector_tpu_torch"
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = str(path.relative_to(jax_root))
+        twin = KERNEL_MODULES.get(rel, rel)
+        assert twin is None or (port_root / twin).exists(), rel
+    for path in _port_files():
+        assert "NotImplementedError" not in path.read_text(), path.name
+
+
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
@@ -504,3 +524,152 @@ def test_cpu_rehearsal_of_chip_smoke_data():
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 3,
                                "psroi_align_backward": 3}
     assert len(res["losses"]) == 3 and 0.0 <= res["mAP"] <= 1.0
+    assert res["inspected"] == 6          # cli.inspect_data: a PNG an image
+
+
+def _thin_eval_lighthead(size=64):
+    """Config 3 (fused) on the thin Xception-lite at ``size`` px, budgets cut
+    to the tiny map."""
+    cfg = _thin(port_config.lighthead_xception(size), large_sep_mid=16,
+                head_dim=32, backbone_widths=(16, 32, 48, 64),
+                backbone_fused_sepconv=True,
+                proposals=port_config.ProposalConfig(pre_nms_topk_eval=128,
+                                                     post_nms_topk_eval=32,
+                                                     min_size=2.0),
+                nms=port_config.NMSConfig(max_output=20))
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, image_size=size))
+
+
+@pytest.mark.parametrize("family", ["lighthead", "ssd"])
+def test_cpu_rehearsal_of_chip_smoke_fast(family):
+    """chip_smoke's fast phase on the CPU: MaxpoolNMS beside the exact path
+    on thin models. The counters stay 0 while the expected counts follow
+    from the model (B2 once a fused block, 6 a batch on the thin
+    Xception); NMS's fixpoint ran in the exact path's proposal stage (or
+    its SSD tail) and never in the fast one's; both paths timed in
+    alternating rounds; for Light-Head the profiler's trace is read and
+    the DeviceTimer times the fast batch; the 128 px check runs."""
+    chip_smoke = _chip_smoke()
+    cfg = (_thin_eval_lighthead() if family == "lighthead"
+           else _thin(port_config.ssd_resnet50(128)))
+    res = chip_smoke.run_fast(cfg, "cpu", batches=1, batch_size=2, rounds=2,
+                              profile=family == "lighthead")
+    per_batch = {"fused_sepconv": 6 if family == "lighthead" else 0,
+                 "psroi_align": int(family == "lighthead"),
+                 "psroi_align_backward": 0}
+    assert res["launches"] == dict.fromkeys(res["launches"], 0)
+    assert res["expected"] == {k: 2 * v for k, v in per_batch.items()}
+    chip_smoke.check_fast(family, res, family)
+    assert set(res["ms"]) == {"exact", "fast"}
+    if family == "lighthead":
+        assert res["suppress"]["all"] > 0         # the final NMS still runs
+        assert res["trace_kernels"] == [] and res["timer_ms"] > 0
+        assert chip_smoke.slice_reference_check(
+            chip_smoke.maxpool_nms(cfg).model, "cpu",
+            ("rpn_cls", "rpn_loc")) <= chip_smoke.SLICE_REL_TOL
+    else:
+        assert res["suppress"] == {"all": 0, "forward": 0}
+    with pytest.raises(AssertionError, match="fixpoint"):
+        chip_smoke.check_fast(family, dict(res, suppress=res[
+            "exact_suppress"]), family)
+    assert _build.library.cache_info().currsize == 0   # nothing was built
+
+
+def test_cpu_rehearsal_of_chip_smoke_dense():
+    """chip_smoke's dense phase on the CPU: the thin fused model with
+    dense_stages=1 expects B2 4 times a batch (stage 1's two blocks dense),
+    the 128 px check runs on the dense model, and config 4's step with
+    dense_stages=1 expects B1 once each way and moves every parameter."""
+    chip_smoke = _chip_smoke()
+    cfg = _thin_eval_lighthead()
+    model = chip_smoke.slice_model(cfg.model, "cpu", dense_stages=1)
+    assert not model.training
+    res = chip_smoke.run_slice(cfg, "cpu", batches=1, batch_size=2,
+                               model=model)
+    assert res["expected"] == {"fused_sepconv": 2 * 4, "psroi_align": 2,
+                               "psroi_align_backward": 0}
+    assert chip_smoke.slice_reference_check(
+        cfg.model, "cpu", ("rpn_cls", "rpn_loc"), dense_stages=1) <= (
+        chip_smoke.SLICE_REL_TOL)
+    train_cfg = _thin_lighthead(chip_smoke.train_config(64, batch_size=2))
+    res = chip_smoke.run_train(train_cfg, "cpu", steps=1, dense_stages=1)
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
+                               "psroi_align_backward": 2}
+    assert res["moved"] == res["params"] > 0
+    assert _build.library.cache_info().currsize == 0   # nothing was built
+
+
+def test_cpu_rehearsal_of_chip_smoke_train_act8():
+    """chip_smoke's train_act8 phase on the CPU: config 4's thin step with
+    backbone_quant="act8" expects K3 once a backbone conv and the int8
+    convs never, moves every parameter; the act8 conv against the plain
+    one at a small stage-1 shape: output and dL/dx bitwise, dL/dk within
+    the bound."""
+    chip_smoke = _chip_smoke()
+    cfg = _thin_lighthead(chip_smoke.train_config(64, batch_size=2))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_quant="act8"))
+    res = chip_smoke.run_train(cfg, "cpu", steps=1)
+    assert res["launches"] == dict.fromkeys(res["launches"], 0)
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
+                               "psroi_align_backward": 2, "int8_conv": 0,
+                               "int8_dwconv": 0, "quantize_s8": 2 * 20}
+    assert res["moved"] == res["params"] > 0
+    grads = chip_smoke.act8_grad_check("cpu", shape=(2, 8, 12, 12))
+    assert set(grads) == {"depthwise", "pointwise"}
+    assert _build.library.cache_info().currsize == 0   # nothing was built
+
+
+@pytest.mark.parametrize("family", ["lighthead", "ssd"])
+def test_cpu_rehearsal_of_chip_smoke_train_remat(family):
+    """chip_smoke's train_remat phase on the CPU: 3 steps with
+    backbone_remat_stages=2 bitwise equal to 3 without (every tensor of
+    the train state), both timed, with the deterministic settings restored
+    after."""
+    chip_smoke = _chip_smoke()
+    if family == "lighthead":
+        cfg = _thin_lighthead(chip_smoke.train_config(64, batch_size=2))
+    else:
+        cfg = _thin_ssd_train(chip_smoke, "ssd_resnet50", 128)
+    res = chip_smoke.run_remat_pair(cfg, "cpu")
+    b1 = 3 if family == "lighthead" else 0
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": b1,
+                               "psroi_align_backward": b1}
+    assert res["launches"] == dict.fromkeys(res["launches"], 0)
+    assert res["tensors"] > 50 and res["nondeterministic"] == []
+    assert set(res["step_ms"]) == {0, 2} and min(res["step_ms"].values()) > 0
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert not torch.backends.cudnn.deterministic
+
+
+def test_chip_smoke_remat_pair_catches_a_second_stat_update(monkeypatch):
+    """With the recompute's guard off, a remat step moves the running stats
+    twice and the pair fails."""
+    from x_detector_tpu_torch.models import layers
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(layers, "_recomputing",
+                        lambda: layers.contextlib.nullcontext())
+    cfg = _thin_lighthead(chip_smoke.train_config(64, batch_size=2))
+    with pytest.raises(AssertionError, match="differs"):
+        chip_smoke.run_remat_pair(cfg, "cpu", steps=1)
+
+
+def test_cpu_rehearsal_of_chip_smoke_cli_rest():
+    """chip_smoke's cli_rest phase on the CPU with a thin ResNet: a
+    torchvision-named .pth of seeded values grafted bit for bit by
+    cli.train --pretrained, 2 steps, the TensorBoard file holding every
+    scalar of metrics.jsonl; B1 expected twice each way."""
+    chip_smoke = _chip_smoke()
+    res = chip_smoke.run_cli_rest("cpu", extra=[
+        "--image-size", "64", "--backbone-stages", "1,1,1,1",
+        "--backbone-widths", "8,16,24,32", "--dtype", "float32"],
+        batch_size=2, stage_sizes=(1, 1, 1, 1), widths=(8, 16, 24, 32))
+    assert res["launches"] == dict.fromkeys(res["launches"], 0)
+    assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
+                               "psroi_align_backward": 2}
+    assert res["tensors"] == 5 + 4 * (3 * 5 + 5)
+    assert res["scalars"] >= 2 * 8 and len(res["losses"]) == 2
+    sd = chip_smoke.torchvision_resnet50_state()
+    assert sd["layer4.2.conv3.weight"].shape == (2048, 512, 1, 1)
+    assert sd["fc.weight"].shape == (1000, 2048)

@@ -88,20 +88,22 @@ def test_quantconv_state_dict_keys_are_nn_conv2ds(name):
 
 
 def test_backbone_quant_values():
-    """'calibrate', 'calibrate:p<pct>' and 'int8' build; 'act8' raises,
-    naming Queue A item 9; anything else raises."""
-    for mode in ("calibrate", "calibrate:p99.9", "int8"):
+    """'calibrate', 'calibrate:p<pct>', 'int8' and 'act8' build (a whole
+    model too, act8's QuantConvs without act_amax); anything else
+    raises."""
+    for mode in ("calibrate", "calibrate:p99.9", "int8", "act8"):
         assert config.check_backbone_quant(mode) == mode
         layers.SeparableConvBN(8, 8, quant=mode)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        layers.ConvBN(8, 8, quant="act8")
+    assert "Conv_0.act_amax" not in layers.ConvBN(8, 8, quant="act8"
+                                                  ).state_dict()
     for bad in ("int4", "calibrate:p0", "calibrate:p100"):
         with pytest.raises(ValueError, match="backbone_quant"):
             config.check_backbone_quant(bad)
     cfg = small_ssd_cfg().model
-    with pytest.raises(NotImplementedError, match="item 9"):
-        inference.build_model(dataclasses.replace(cfg, backbone_quant="act8"),
-                              "cpu")
+    model = inference.build_model(
+        dataclasses.replace(cfg, backbone_quant="act8"), "cpu")
+    convs = quant.quant_convs(model)
+    assert convs and all(m.mode == "act8" for m in convs.values())
 
 
 def _conv_bn_pair(x, percentile_mode="calibrate", seed=0):

@@ -215,9 +215,16 @@ def test_postprocess_detections_matches_jax(per_class_boxes,
 
 
 def test_postprocess_detections_fast_mode_raises():
-    with pytest.raises(NotImplementedError, match="MaxpoolNMS"):
+    """fast_mode (MaxpoolNMS) without ``ssd_anchor_cfg`` raises ValueError,
+    as the JAX package's does: the grid drives the windows, and a silent
+    exact fallback would report exact-path timings as the fast path's."""
+    with pytest.raises(ValueError, match="ssd_anchor_cfg"):
         postprocess_detections(torch.zeros(1, 4, 4), torch.zeros(1, 4, 3),
                                torch.zeros(4, 4), fast_mode=True)
+    with pytest.raises(ValueError, match="ssd_anchor_cfg"):
+        jax_detector.postprocess_detections(
+            jnp.zeros((1, 4, 4)), jnp.zeros((1, 4, 3)), jnp.zeros((4, 4)),
+            fast_mode=True)
 
 
 def test_training_the_ssd_family_is_refused():

@@ -8,6 +8,8 @@ The port of ``x_detector_tpu/cli/train.py``. Examples (on the card)::
       --steps 1000 --model-dir DIR [--resume] [--data-dir SHARDS]
   python -m x_detector_tpu_torch.cli.train --preset lighthead_xception \\
       --num-devices 8 --batch-size 128 --grad-accum 2 --model-dir DIR
+  python -m x_detector_tpu_torch.cli.train --preset lighthead_resnet50 \\
+      --pretrained resnet50.pth --tensorboard --model-dir DIR
 
 ``--num-devices N`` (N > 1) runs the data-parallel step on N ranks, one a
 card (``--device cpu``: N gloo ranks on the CPU): this process starts them
@@ -46,6 +48,7 @@ from x_detector_tpu_torch.train.train_state import TrainState
 from x_detector_tpu_torch.train.trainer import (create_model_and_state,
                                                 make_train_step)
 from x_detector_tpu_torch.utils.logging import MetricsLogger
+from x_detector_tpu_torch.utils.pretrained import load_pretrained_backbone
 
 CANVAS_SCALE = 1.2      # host canvases are larger, so crops have context
 AUGMENT_STREAM, STEP_STREAM = 1, 2
@@ -80,23 +83,17 @@ def parse_args(argv: Optional[List[str]]) -> argparse.Namespace:
         common.DTYPES))
     p.add_argument("--resume", action="store_true")
     p.add_argument("--tensorboard", action="store_true",
-                   help="TensorBoard event files: not written by the port")
+                   help="also write TensorBoard event files (scalar "
+                        "summaries) to <model-dir>/tb")
     p.add_argument("--eval-every", type=int, default=0,
                    help="run VOC mAP eval every N steps (0 = off)")
     p.add_argument("--eval-batches", type=int, default=20)
     p.add_argument("--pretrained", default=None,
-                   help="ImageNet backbone init: not ported")
-    args = p.parse_args(argv)
-    if args.pretrained:
-        raise NotImplementedError(
-            "--pretrained: loading ImageNet backbone weights "
-            "(utils/pretrained.py) is not ported yet (ROADMAP.md, Queue A "
-            "item 8)")
-    if args.tensorboard:
-        raise NotImplementedError(
-            "--tensorboard: the port writes metrics.jsonl only (no "
-            "TensorFlow to write event files with)")
-    return args
+                   help="ImageNet backbone init (reference T5 semantics): a "
+                        "torchvision .pth/.pt state dict or a TF-slim "
+                        "resnet_v1_50 checkpoint prefix; heads keep their "
+                        "fresh init")
+    return p.parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[TrainState]:
@@ -132,16 +129,27 @@ def train(args, rank: int, world: int) -> TrainState:
     else:
         device = common.resolve_device(args)
     cfg = common.resolve_config(args)
+    if args.pretrained and cfg.model.backbone != "resnet50":
+        raise SystemExit("--pretrained provides ResNet-50 ImageNet weights; "
+                         f"preset backbone is {cfg.model.backbone!r}")
     state = create_model_and_state(cfg, device, seed=args.seed,
                                    dtype=common.DTYPES[args.dtype])
+    if args.pretrained:
+        graft_pretrained(state, args.pretrained,
+                         cfg.model.backbone_stages or (3, 4, 6, 3))
+        if rank == 0:
+            print(f"grafted pretrained backbone from {args.pretrained}")
     step_fn = (make_dp_train_step(state.model, cfg) if world > 1
                else make_train_step(state.model, cfg))
 
     lead = rank == 0
     ckpt = CheckpointManager(os.path.join(args.model_dir, "ckpt"),
                              keep=cfg.train.keep_checkpoints)
-    logger = MetricsLogger(os.path.join(args.model_dir, "metrics.jsonl"),
-                           echo_every=args.log_every) if lead else None
+    logger = MetricsLogger(
+        os.path.join(args.model_dir, "metrics.jsonl"),
+        echo_every=args.log_every,
+        tensorboard_dir=(os.path.join(args.model_dir, "tb")
+                         if args.tensorboard else None)) if lead else None
 
     position = 0
     if args.resume and ckpt.latest_step() is not None:
@@ -205,6 +213,16 @@ def train(args, rank: int, world: int) -> TrainState:
     if lead:
         print(f"done: {state.step} steps -> {args.model_dir}")
     return state
+
+
+def graft_pretrained(state: TrainState, path: str, stage_sizes) -> None:
+    """Graft a pretrained ResNet-50 (``utils.pretrained``) into the state's
+    backbone in place, and re-seed the EMA shadow from the grafted weights
+    so that it tracks them, not the discarded init."""
+    load_pretrained_backbone(state.model, path, stage_sizes=stage_sizes)
+    if state.ema_params is not None:
+        state.ema_params = {n: p.detach().clone()
+                            for n, p in state.model.named_parameters()}
 
 
 def periodic_eval(args, cfg, state: TrainState, eval_model, eval_fn,

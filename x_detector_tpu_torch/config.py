@@ -109,21 +109,18 @@ class ModelConfig:
 def check_backbone_quant(mode: Optional[str]) -> Optional[str]:
     """``ModelConfig.backbone_quant``, checked: None (the float backbone),
     "calibrate" (record each backbone conv input's abs-max), "calibrate:p<pct>"
-    (its pct-th percentile instead, 0 < pct < 100) or "int8" (the int8
-    backbone). "act8", the JAX package's training probe, raises: it is
-    ported with ``remat_stages`` (ROADMAP.md Queue A item 9)."""
-    if mode is None or mode in ("calibrate", "int8"):
+    (its pct-th percentile instead, 0 < pct < 100), "int8" (the int8
+    backbone) or "act8" (the training probe: float convs whose backward
+    reads an int8 copy of the activation)."""
+    if mode is None or mode in ("calibrate", "int8", "act8"):
         return mode
-    if mode == "act8":
-        raise NotImplementedError(
-            "backbone_quant='act8' (QuantConv's training probe) is not "
-            "ported yet: ROADMAP.md Queue A item 9, with remat_stages")
     if isinstance(mode, str) and mode.startswith("calibrate:p"):
         pct = float(mode.split(":p", 1)[1])
         if 0.0 < pct < 100.0:
             return mode
     raise ValueError(f"backbone_quant {mode!r}: expected None, 'calibrate',"
-                     f" 'calibrate:p<pct>' (0 < pct < 100) or 'int8'")
+                     f" 'calibrate:p<pct>' (0 < pct < 100), 'int8' or "
+                     f"'act8'")
 
 
 def calibration_percentile(mode: str) -> Optional[float]:

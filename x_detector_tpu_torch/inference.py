@@ -85,7 +85,9 @@ def build_eval_fn(model: Model, cfg, device
 
 
 def postprocess(model: Model, out, model_cfg) -> MulticlassNMSResult:
-    """The family's decode and per-class NMS of ``model``'s outputs."""
+    """The family's decode and per-class NMS of ``model``'s outputs (for
+    SSD, MaxpoolNMS with ``nms.fast_mode``, as the JAX package's
+    ``build_eval_fn`` passes it)."""
     if not isinstance(model, SSDModel):
         return lighthead_postprocess(out, model_cfg)
     cls_logits, box_codes = out
@@ -94,6 +96,8 @@ def postprocess(model: Model, out, model_cfg) -> MulticlassNMSResult:
         box_codes, cls_logits, model.anchors, max_output=ncfg.max_output,
         iou_threshold=ncfg.iou_threshold,
         score_threshold=ncfg.score_threshold, fast_mode=ncfg.fast_mode,
+        ssd_anchor_cfg=model_cfg.ssd_anchors,
+        image_size=model_cfg.image_size,
         approx_prefilter=ncfg.approx_prefilter)
 
 

@@ -15,8 +15,12 @@ by name.
 Post-training int8 quantization (the JAX package's ``QuantConv``): with
 ``quant`` set, ``ConvBN`` and ``SeparableConvBN`` hold :class:`QuantConv`
 in place of their ``nn.Conv2d``; its mode is that of
-``ModelConfig.backbone_quant`` ("calibrate", "calibrate:p<pct>" or "int8",
-``config.check_backbone_quant``).
+``ModelConfig.backbone_quant`` ("calibrate", "calibrate:p<pct>", "int8" or
+the training probe "act8", ``config.check_backbone_quant``).
+
+Backbone remat (``remat``): a stage run under ``torch.utils.checkpoint``
+recomputes its forward in the backward, with BatchNorm's running-stat
+update off during the recompute.
 
 Inference operands: :func:`prepare_for_inference` (a model in ``eval()``
 mode) computes the fused route's and the int8 convs' kernel operands once
@@ -31,12 +35,15 @@ int8 conv in training mode makes its operands in each forward.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from x_detector_tpu_torch.config import (calibration_percentile,
@@ -64,19 +71,25 @@ def same_pads(size: Sequence[int], kernel: Sequence[int],
     return tuple(pads)
 
 
-def conv2d(x: torch.Tensor, conv: nn.Conv2d, pads: Union[str, Pads],
-           dtype: torch.dtype) -> torch.Tensor:
-    """``conv``'s parameters applied in ``dtype`` with explicit padding:
-    ``pads`` is "SAME" or ((top, bottom), (left, right))."""
+def _conv_padding(x: torch.Tensor, conv: nn.Conv2d,
+                  pads: Union[str, Pads]):
+    """(input, ``F.conv2d`` padding) for ``pads`` ("SAME" or ((top, bottom),
+    (left, right))): symmetric pads go to the conv, asymmetric ones are
+    applied to the input here."""
     if pads == "SAME":
         pads = same_pads(x.shape[2:], conv.kernel_size, conv.stride,
                          conv.dilation)
     (top, bottom), (left, right) = pads
     if top == bottom and left == right:
-        padding = (top, left)
-    else:
-        x = F.pad(x, (left, right, top, bottom))
-        padding = 0
+        return x, (top, left)
+    return F.pad(x, (left, right, top, bottom)), 0
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, pads: Union[str, Pads],
+           dtype: torch.dtype) -> torch.Tensor:
+    """``conv``'s parameters applied in ``dtype`` with explicit padding:
+    ``pads`` is "SAME" or ((top, bottom), (left, right))."""
+    x, padding = _conv_padding(x, conv, pads)
     bias = None if conv.bias is None else conv.bias.to(dtype)
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
                  padding, conv.dilation, conv.groups)
@@ -103,6 +116,32 @@ def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
     return y.contiguous(memory_format=torch.channels_last)
 
 
+# set while a checkpointed forward is recomputed in the backward
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = prev
+
+
+def remat(fn, *args):
+    """``fn(*args)`` whose activations are not saved but recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant): the JAX package's
+    ``nn.remat``. The recompute runs with the running-stat update of every
+    :class:`BatchNorm2D` off, so the statistics move once a forward, as
+    without the recompute; it sees the same input, so it uses the same
+    batch statistics."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+
+
 class BatchNorm2D(nn.Module):
     """BatchNorm with eps 1e-5 as one ``x * inv + bias`` in the input's
     dtype. At inference ``inv`` and ``bias`` fold the running stats. In
@@ -110,7 +149,8 @@ class BatchNorm2D(nn.Module):
     E[x], E[x^2] and the biased variance max(E[x^2] - E[x]^2, 0), with the
     gradient flowing through both; the running stats move to
     ``m * running + (1 - m) * batch`` with m = ``_BN_MOMENTUM``.
-    (``F.batch_norm`` would update with the unbiased variance.)"""
+    (``F.batch_norm`` would update with the unbiased variance.) A forward
+    recomputed by :func:`remat` leaves the running stats alone."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
@@ -130,11 +170,13 @@ class BatchNorm2D(nn.Module):
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                m = _BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not getattr(_RECOMPUTE, "active", False):
+                with torch.no_grad():
+                    m = _BN_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
             inv = self.weight * torch.rsqrt(var + self.epsilon)
             bias = self.bias - mean * inv
         else:
@@ -203,6 +245,50 @@ def observe(x: torch.Tensor, percentile: Optional[float]) -> torch.Tensor:
             + values[high] * float(f))
 
 
+# act8's activation scale: s = max|x| / 127 + ACT8_EPS
+# (x_detector_tpu/models/layers.py:60)
+ACT8_EPS = 1e-12
+
+
+def act8_scale(x: torch.Tensor) -> torch.Tensor:
+    """act8's fp32 scale of ``x``, ``max|x| / 127 + 1e-12``, on ``x``'s
+    device, the division rounded as IEEE division (``int8_conv.ieee_div``:
+    the card would otherwise multiply by the reciprocal)."""
+    amax = x.detach().abs().amax().float()    # a max is exact in any dtype
+    return int8_conv.ieee_div(amax, float(int8_conv.QMAX)) + ACT8_EPS
+
+
+class _Act8Conv(torch.autograd.Function):
+    """``F.conv2d(x, w)`` (no bias) whose backward reads an int8 copy of
+    ``x``: the forward saves ``xq = clip(round(x / s), -127, 127)`` (K3,
+    ``int8_conv.quantize_activation``, NHWC) with ``s`` = :func:`act8_scale`,
+    and the weight. The conv is bilinear, so dL/dx needs only the gradient
+    and the weight and is exact; dL/dw reads ``xa = dtype(float(xq) * s)``,
+    the only approximation. Both come from one ``convolution_backward``, the
+    call the plain conv's backward makes (dL/dx reads ``x``'s shape only)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        y = F.conv2d(x, w, None, stride, padding, dilation, groups)
+        s = act8_scale(x)
+        xq = int8_conv.quantize_activation(
+            x.detach().permute(0, 2, 3, 1).contiguous(), s)
+        ctx.save_for_backward(xq, s, w)
+        ctx.geometry = (stride, padding, dilation, groups, x.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, s, w = ctx.saved_tensors
+        stride, padding, dilation, groups, dtype = ctx.geometry
+        xa = (xq.float() * s).to(dtype).permute(0, 3, 1, 2)
+        pad = (padding, padding) if isinstance(padding, int) else padding
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g, xa, w, None, stride, pad, dilation, False, [0, 0], groups,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None, None
+
+
 class QuantConv(nn.Conv2d):
     """The JAX package's ``QuantConv``: an ``nn.Conv2d`` (its parameters and
     state-dict keys, so a float checkpoint loads unchanged) with the buffer
@@ -222,7 +308,13 @@ class QuantConv(nn.Conv2d):
     training mode each forward makes its own. The launch geometry and the
     operands' shape checks run once an input shape. A prequantized module
     (``quant.prequantize``) holds an int8 ``weight`` (no gradient) and a
-    buffer ``w_scale`` [Cout], and skips the weight quantization."""
+    buffer ``w_scale`` [Cout], and skips the weight quantization.
+
+    "act8" (a training probe): the float conv in ``dtype`` whose backward
+    reads an int8 copy of its input (:class:`_Act8Conv`, K3 once a forward
+    that records a gradient), then the bias in ``dtype``. As in the JAX
+    package it has no ``act_amax`` (no range to calibrate), and any
+    ``groups``, stride and dilation take it."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
@@ -244,7 +336,8 @@ class QuantConv(nn.Conv2d):
         # the int8 operators' checked geometry (int8_conv.conv_geometry) by
         # input shape (C, H, W)
         self._geometry = {}
-        self.register_buffer("act_amax", torch.zeros(()))
+        if mode != "act8":
+            self.register_buffer("act_amax", torch.zeros(()))
         for name in INT8_OPERANDS:
             self.register_buffer(name, None, persistent=False)
 
@@ -255,10 +348,26 @@ class QuantConv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "int8":
             return self._forward_int8(x)
+        if self.mode == "act8":
+            return self._forward_act8(x)
         with torch.no_grad():
             obs = observe(x, calibration_percentile(self.mode))
             self.act_amax.copy_(torch.maximum(self.act_amax, obs))
         return conv2d(x, self, self.pads, self.dtype)
+
+    def _forward_act8(self, x: torch.Tensor) -> torch.Tensor:
+        x, padding = _conv_padding(x.to(self.dtype), self, self.pads)
+        w = self.weight.to(self.dtype)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _Act8Conv.apply(x, w, self.stride, padding, self.dilation,
+                                self.groups)
+        else:             # nothing saved for a backward: the plain conv
+            y = F.conv2d(x, w, None, self.stride, padding, self.dilation,
+                         self.groups)
+        y = y.contiguous(memory_format=torch.channels_last)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[None, :, None, None]
+        return y
 
     def int8_operands(self):
         """(sx, sx * sw [Cout], ``Int8Weight``) from the weight (or the int8
@@ -401,6 +510,11 @@ class ConvBN(nn.Module):
 class SeparableConvBN(nn.Module):
     """Depthwise 3x3 -> pointwise 1x1 -> one BatchNorm -> ReLU.
 
+    ``dense=True`` swaps the pair for one dense 3x3 ``Conv_0`` (a
+    :class:`QuantConv` with ``quant``) with the same interface, the JAX
+    package's choice for early high-resolution stages; a dense block never
+    takes the fused kernel.
+
     ``fused=True`` routes stride-1 calls at inference through the fused
     kernel (``ops/fused_sepconv.py``); training, stride-2 and quantized
     calls keep the two convs (with ``quant``, two :class:`QuantConv`). The
@@ -419,15 +533,20 @@ class SeparableConvBN(nn.Module):
                  dense: bool = False, fused: bool = False, quant=None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if dense:
-            raise NotImplementedError("dense separable stages are ported in "
-                                      "a later PR")
         if dilation[0] != dilation[1]:
             raise ValueError(f"square dilation only, got {dilation}")
         self.strides, self.dilation = tuple(strides), tuple(dilation)
         self.relu, self.fused, self.dtype = relu, fused, dtype
+        self.dense = dense
         self.quant = check_backbone_quant(quant)
-        if self.quant is None:
+        if dense:                  # one dense 3x3 in place of the pair
+            self.Conv_0 = (nn.Conv2d(in_features, features, 3, strides,
+                                     dilation=dilation, bias=False)
+                           if self.quant is None else
+                           QuantConv(in_features, features, (3, 3), strides,
+                                     dilation, mode=quant, dtype=dtype))
+            self.Conv_1 = None
+        elif self.quant is None:
             self.Conv_0 = nn.Conv2d(in_features, in_features, 3, strides,
                                     dilation=dilation, groups=in_features,
                                     bias=False)
@@ -483,7 +602,7 @@ class SeparableConvBN(nn.Module):
     def takes_fused_route(self) -> bool:
         """Whether ``forward`` now launches the fused kernel."""
         return (self.fused and not self.training and self.quant is None
-                and self.strides == (1, 1))
+                and not self.dense and self.strides == (1, 1))
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -498,11 +617,14 @@ class SeparableConvBN(nn.Module):
                 residual=None if residual is None else
                 residual.to(self.dtype).permute(0, 2, 3, 1).contiguous())
             return out.permute(0, 3, 1, 2)          # channels_last NCHW view
-        if self.quant is None:
-            x = conv2d(x, self.Conv_0, "SAME", self.dtype)
-            x = conv2d(x, self.Conv_1, "SAME", self.dtype)
+        if self.quant is not None:
+            x = self.Conv_0(x)
+            if self.Conv_1 is not None:
+                x = self.Conv_1(x)
         else:
-            x = self.Conv_1(self.Conv_0(x))
+            x = conv2d(x, self.Conv_0, "SAME", self.dtype)
+            if self.Conv_1 is not None:
+                x = conv2d(x, self.Conv_1, "SAME", self.dtype)
         x = self.bn(x)
         if residual is not None:
             return F.relu(x + residual)

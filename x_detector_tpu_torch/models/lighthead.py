@@ -3,8 +3,8 @@
 The port of ``x_detector_tpu/models/lighthead.py``:
   backbone C4 -> RPN head (objectness 2A + box codes 4A per cell)
   backbone C5 -> large-separable "thin feature map" (k=15, 490 channels)
-  RPN -> static proposal stage: decode, clip, min-size, top-K, exact NMS,
-         padded to a fixed proposal count
+  RPN -> static proposal stage: decode, clip, min-size, top-K, exact NMS
+         (or MaxpoolNMS with ``fast_nms``), padded to a fixed proposal count
   PSROIAlign(thin map, proposals, 7x7x10) -> flatten 490 -> FC 2048
       -> sibling FCs: class logits + box codes.
 Public tensors keep the JAX layouts: NHWC images, [B, R, 4] normalized
@@ -27,6 +27,7 @@ from x_detector_tpu_torch.models.ssd import make_backbone
 from x_detector_tpu_torch.ops import anchors as anchor_lib
 from x_detector_tpu_torch.ops import boxes as box_ops
 from x_detector_tpu_torch.ops import nms as nms_lib
+from x_detector_tpu_torch.ops.maxpool_nms import rpn_maxpool_scores
 from x_detector_tpu_torch.ops.psroi_align import batched_psroi_align
 
 
@@ -73,15 +74,17 @@ class RPNHead(nn.Module):
 
 def generate_proposals(rpn_cls: torch.Tensor, rpn_loc: torch.Tensor,
                        anchors: torch.Tensor, cfg, image_size: int,
-                       training: bool = False
+                       training: bool = False, anchor_cfg=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Static proposal stage: (boxes [B,R,4], scores [B,R], valid [B,R])
     with R = ``cfg.post_nms_topk`` (training) or ``cfg.post_nms_topk_eval``
     from the top ``pre_nms_topk`` (or ``pre_nms_topk_eval``) scores, by
-    exact greedy NMS."""
-    if cfg.fast_nms:
-        raise NotImplementedError("ProposalConfig.fast_nms (MaxpoolNMS) is "
-                                  "ported in a later PR")
+    exact greedy NMS.
+
+    With ``cfg.fast_nms`` the NMS is MaxpoolNMS (``ops/maxpool_nms.py``,
+    which needs ``anchor_cfg``, the grid's ``AnchorConfig``): per-scale
+    local-max selection on the objectness maps, then one top-R of what
+    survives; a slot whose score is 0 is invalid and its box zero."""
     scores = torch.softmax(rpn_cls, dim=-1)[..., 1]             # [B, A]
     boxes = box_ops.clip_boxes(box_ops.decode(rpn_loc, anchors[None]))
     min_sz = cfg.min_size / float(image_size)
@@ -91,6 +94,19 @@ def generate_proposals(rpn_cls: torch.Tensor, rpn_loc: torch.Tensor,
     k_pre = min(cfg.pre_nms_topk if training else cfg.pre_nms_topk_eval,
                 scores.shape[1])
     k_post = cfg.post_nms_topk if training else cfg.post_nms_topk_eval
+    if cfg.fast_nms:
+        if anchor_cfg is None:
+            # a silent exact-NMS fallback would report exact-path timings
+            # to a caller who asked for the fast path
+            raise ValueError("ProposalConfig.fast_nms=True requires "
+                             "anchor_cfg (grid geometry drives MaxpoolNMS "
+                             "windows); got None")
+        masked = rpn_maxpool_scores(scores, anchor_cfg, image_size,
+                                    cfg.nms_threshold)
+        top_s, top_i = nms_lib.topk_stable(masked, k_post)
+        valid = top_s > 0.0
+        top_b = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
+        return torch.where(valid[..., None], top_b, 0.0), top_s, valid
     top_s, top_i = nms_lib.topk_stable(scores, k_pre)
     top_b = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
     res = nms_lib.nms_padded(top_b, top_s, k_post,
@@ -160,7 +176,7 @@ class LightHeadRCNN(nn.Module):
                              f"{self.anchors.shape[0]}")
         props, prop_scores, prop_valid = generate_proposals(
             rpn_cls.detach(), rpn_loc.detach(), self.anchors, cfg.proposals,
-            cfg.image_size, training=self.training)
+            cfg.image_size, training=self.training, anchor_cfg=cfg.anchors)
         thin = self.thin_map(feats["c5"])                  # [B, 490, h, w]
         # The kernel reads the bf16 map and widens it to fp32 on load: the
         # same values as casting the map to fp32 first, without the copy.

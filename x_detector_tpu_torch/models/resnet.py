@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from x_detector_tpu_torch.models.layers import ConvBN, max_pool
+from x_detector_tpu_torch.models.layers import ConvBN, max_pool, remat
 
 STEM_WIDTH = 64
 
@@ -57,14 +57,16 @@ class Bottleneck(nn.Module):
 class ResNetV1(nn.Module):
     """ResNet v1 feature extractor; ``stage_sizes`` and ``widths`` default
     to ResNet-50 (``ModelConfig.backbone_stages`` / ``backbone_widths``
-    shrink them for tests)."""
+    shrink them for tests). ``remat_stages=N``: the blocks of stages 0..N-1
+    recompute their forward in the backward of a training forward, one
+    block at a time (``layers.remat``); inference ignores it."""
 
     def __init__(self, stage_sizes: Tuple[int, ...] = (3, 4, 6, 3),
                  widths: Tuple[int, ...] = (64, 128, 256, 512),
-                 dilate_c5: bool = True, quant=None,
+                 dilate_c5: bool = True, remat_stages: int = 0, quant=None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat_stages = dtype, remat_stages
         self.stage_sizes = tuple(stage_sizes)
         # what c3, c4 and c5 carry: each block outputs 4 x its width
         self.feature_widths = {"c3": 4 * widths[1], "c4": 4 * widths[2],
@@ -92,9 +94,12 @@ class ResNetV1(nn.Module):
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         x = max_pool(self.stem(x), 3, 2, explicit_pad=True)       # s4
         feats = {}
+        recompute = self.training and torch.is_grad_enabled()
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):
-                x = getattr(self, f"stage{stage + 1}_block{block}")(x)
+                module = getattr(self, f"stage{stage + 1}_block{block}")
+                x = (remat(module, x)
+                     if recompute and stage < self.remat_stages else module(x))
             if stage >= 1:
                 feats[f"c{stage + 2}"] = x      # stage 2 -> c3, ... 4 -> c5
         return feats

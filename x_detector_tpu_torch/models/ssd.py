@@ -34,11 +34,13 @@ def make_backbone(cfg, dilate_c5: bool, dtype: torch.dtype = torch.bfloat16
     """Backbone module for a ModelConfig, honoring ``backbone_stages``
     (ResNet's ``stage_sizes``, Xception's ``units_per_stage``),
     ``backbone_widths`` and ``backbone_fused_sepconv`` (None = the family
-    defaults). ``backbone_remat_stages`` asks for a recompute in the
-    backward: inference ignores it, as the JAX package does, and the train
-    step refuses it (``train.trainer.check_no_remat``). Both backbones
-    expose ``feature_widths``, the channels of c3, c4 and c5."""
+    defaults) and ``backbone_remat_stages`` (the first N stages recompute
+    their forward in a training backward; inference ignores it, as the JAX
+    package's does). Both backbones expose ``feature_widths``, the channels
+    of c3, c4 and c5."""
     kw = {}
+    if cfg.backbone_remat_stages:
+        kw["remat_stages"] = cfg.backbone_remat_stages
     if cfg.backbone_stages is not None:
         kw["stage_sizes" if cfg.backbone == "resnet50"
            else "units_per_stage"] = tuple(cfg.backbone_stages)

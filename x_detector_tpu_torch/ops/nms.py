@@ -63,7 +63,9 @@ def self_suppress(mask: torch.Tensor) -> torch.Tensor:
     Jacobi steps run in groups of ``CHECK_EVERY`` between host checks for a
     fixpoint: steps past the fixpoint leave it unchanged, and T steps always
     reach it (flag t is final after t steps), so only the number of host
-    syncs changes."""
+    syncs changes. Each call adds one to ``self_suppress.calls`` (on every
+    device: it is no kernel, but a host-synced stage worth counting)."""
+    self_suppress.calls += 1
     s = mask.any(dim=1)
     for _ in range(0, mask.shape[-1], CHECK_EVERY):
         for _ in range(CHECK_EVERY):
@@ -71,6 +73,9 @@ def self_suppress(mask: torch.Tensor) -> torch.Tensor:
         if torch.equal(s, prev):
             break
     return s
+
+
+self_suppress.calls = 0
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, max_output: int,

@@ -189,28 +189,13 @@ def make_grad_fn(model: torch.nn.Module, loss_fn, accum: int = 1):
     return grad_fn
 
 
-def check_no_remat(cfg) -> None:
-    """Refuse ``backbone_remat_stages``: the JAX package recomputes the
-    first N backbone stages in the backward (``nn.remat``); the port does
-    not yet, and a config that asks for the recompute must not train
-    without it unnoticed. Inference ignores the field, as the JAX package's
-    does."""
-    if cfg.model.backbone_remat_stages > 0:
-        raise NotImplementedError(
-            f"backbone_remat_stages={cfg.model.backbone_remat_stages}: the "
-            f"backbone's recompute in the backward is not ported yet "
-            f"(ROADMAP.md Queue A item 9); train with 0")
-
-
 def create_model_and_state(cfg, device, seed: Optional[int] = 0,
                            dtype: torch.dtype = torch.bfloat16) -> TrainState:
     """The family's model (Light-Head or SSD) on ``device`` in training
     mode, its optimizer and schedule, and the EMA shadow if
     ``cfg.train.ema_decay`` > 0. ``seed`` as for ``inference.build_model``
     (None: load the weights, then make the state with ``TrainState.create``
-    so that a shadow copies them). Raises on ``backbone_remat_stages``
-    (:func:`check_no_remat`)."""
-    check_no_remat(cfg)
+    so that a shadow copies them)."""
     model = build_model(cfg.model, device, seed=seed, dtype=dtype).train()
     optimizer, schedule = make_optimizer(model, cfg.train)
     return TrainState.create(model, optimizer, schedule,
@@ -227,9 +212,7 @@ def make_train_step(model: torch.nn.Module, cfg,
     (``cfg.train.grad_accum_steps`` microbatches), passes the metrics
     through ``sync`` (the data-parallel average, which also averages the
     gradients and BatchNorm stats in place) and applies the gradients.
-    ``model`` is ``state.model``. Raises on ``backbone_remat_stages``
-    (:func:`check_no_remat`)."""
-    check_no_remat(cfg)
+    ``model`` is ``state.model``."""
     grad_fn = make_grad_fn(model, make_loss_fn(model, cfg),
                            cfg.train.grad_accum_steps)
     draws_rpn = cfg.model.family == "lighthead"
