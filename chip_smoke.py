@@ -28,7 +28,15 @@ Phases; each raises on failure and the script then exits non-zero:
                 pass): K3 then K1 or K2, each bitwise equal to its plain
                 version, timed beside its bound, the plain version and, as
                 yardsticks the port never calls, cuDNN's bf16 conv of the
-                shape and torch._int_mm on the 1x1 stride-1 shapes.
+                shape and torch._int_mm on the 1x1 stride-1 shapes. K1 runs
+                on the route its shape's plan takes ("tma",
+                csrc/int8_conv_tma.cu, or the first design, "mma", for the
+                stems) and, in the same call, on the first design through
+                the same wrapper and operator (first_design_planned), both
+                held bitwise; the bounds count the input pixels some tap
+                reads. K1 and its yardsticks are also timed by the
+                profiler's device time, which the small calls of config 2
+                need (CUDA events around wrapper calls read the host).
   4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
                 the fused separable conv) from seeded uint8 images through
                 build_eval_fn, batches of 16: launch counts, detection
@@ -74,8 +82,12 @@ Phases; each raises on failure and the script then exits non-zero:
                 range positive), then build_eval_fn on the float paths'
                 images: launches (config 2: K1 53 and K3 53 a batch;
                 config 3: K1 20, K2 16, K3 36 and B1's forward 1; B2
-                never), the detection invariants, batch time, images/s
-                and peak memory beside the bf16 path's (phases 6 and 4);
+                never), K1's by route (the stem on "mma", the other 52 /
+                19 on "tma"), the detection invariants, batch time,
+                images/s and peak memory beside the bf16 path's (phases 6
+                and 4), and batch ms in alternating rounds of the bf16
+                path, the int8 path and the int8 path with the first
+                design's K1 on every call (its detections held bitwise);
                 the prequantized model's outputs and detections against
                 the in-graph model's, bit for bit; at 128 px, the card
                 (bf16, kernels) against the CPU (bf16, plain versions)
@@ -276,6 +288,9 @@ SERVE_RAW_HW = (375, 500)
 # and a round of each side sees the same state. Each side's median and
 # best round are reported.
 ROUNDS, ROUND_BATCHES = 10, 3
+# int8 against int8 with the first design's K1: config 2's batch is
+# host-bound, so the difference is near the rounds' spread
+INT8_ROUNDS = 30
 # the operator boundary's host cost: alternating rounds of calls of K3 and
 # K1 on tiny tensors, through the operator and its CUDA implementation
 DISPATCH_ROUNDS, DISPATCH_CALLS = 10, 200
@@ -357,8 +372,8 @@ def phase_build() -> float:
 def phase_kernels() -> list:
     from x_detector_tpu_torch.ops import psroi_align as pa
     from x_detector_tpu_torch.psroi_bwd_variants import ohem_shaped
-    from x_detector_tpu_torch.psroi_fwd_variants import (
-        device_ms as fwd_device_ms)
+    from x_detector_tpu_torch.utils.profiling import device_ms
+    fwd_device_ms = lambda fn: device_ms(fn, 50, keep="psroi")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -713,9 +728,10 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     one warm-up batch then ``batches`` timed ones, on ``model`` (by default
     ``slice_model``'s). Returns every kernel's launch count over all of
     them (and B2's by route; with ``backbone_quant`` also the int8
-    kernels'; and ``suppress``, NMS's fixpoint calls, ``suppress_counts``),
-    what the model should give (B2 a fused block a batch, B1's
-    forward one a batch for Light-Head, B1's backward none; K1 a dense
+    kernels', and K1's by route, ``int8_routes``; and ``suppress``, NMS's
+    fixpoint calls, ``suppress_counts``), what the model should give (B2
+    a fused block a batch, B1's forward one a batch for Light-Head, B1's
+    backward none; K1 a dense
     QuantConv, K2 a depthwise one, K3 each), the timed seconds per batch,
     the anchor count and the detections of the last batch; with
     ``keep_path`` also the path (``detect``, uint8 images to detections)
@@ -742,6 +758,9 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     fs.reset_launches()
     for fn in counters.values():
         fn.launches = 0
+    if cfg.model.backbone_quant is not None:
+        from x_detector_tpu_torch.ops import int8_conv as q8
+        q8.reset_launches()
     seconds = []
     with suppress_counts(model) as suppress:
         for u8 in images:
@@ -761,6 +780,8 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
         expected.update({k: v * n for k, v in int8_calls(model).items()})
     return {"launches": launches, "batches": n, "suppress": suppress,
             "routes": dict(fs.fused_separable_conv.route_launches),
+            **({"int8_routes": dict(q8.int8_conv2d.route_launches)}
+               if cfg.model.backbone_quant is not None else {}),
             "expected": expected,
             "seconds": seconds[1:], "anchors": model.anchors.shape[0],
             "detections": det, "peak": peak, **({
@@ -1707,12 +1728,14 @@ def int8_model(cfg, device, batch_size: int = BATCH, seed: int = SEED):
 
 
 def run_int8(cfg, device, batches: int = SLICE_BATCHES,
-             batch_size: int = BATCH, seed: int = SEED):
+             batch_size: int = BATCH, seed: int = SEED,
+             keep_path: bool = False):
     """The int8 serving path of ``cfg``: ``int8_model``, then ``run_slice``
     on it (the same images as the float path's). Returns run_slice's
     readings with the ranges, and the model."""
     qcfg, model, ranges = int8_model(cfg, device, batch_size, seed)
-    res = run_slice(qcfg, device, batches, batch_size, seed, model=model)
+    res = run_slice(qcfg, device, batches, batch_size, seed, model=model,
+                    keep_path=keep_path)
     res["ranges"] = ranges
     return res, model
 
@@ -1828,14 +1851,30 @@ def time_int8(calls, randn) -> dict:
     batch): each held to its plain version bit for bit, then timed beside
     its bound, the plain version and, as yardsticks the port never calls,
     cuDNN's bf16 conv of the same shape and, on the 1x1 stride-1 shapes,
-    torch._int_mm (the int32 product alone). Returns per-batch sums,
-    weighted by the calls, by kernel."""
+    torch._int_mm (the int32 product alone). K1 runs on the route its
+    shape's plan takes and, in the same call, on the first design (the
+    "mma" route, through the same wrapper and operator with every plan
+    the first design's: ``first_design_planned``), also held bitwise; K1
+    and its yardsticks are timed both by CUDA events around wrapper calls
+    ("ms") and by the profiler's device time ("device_ms"). Returns
+    per-batch sums, weighted by the calls, by kernel; K1's also by
+    route."""
     import torch.nn.functional as F
     from x_detector_tpu_torch.ops import int8_conv as q8
+    from x_detector_tpu_torch.utils.profiling import device_ms
     tot = {name: dict.fromkeys(("ms", "plain_ms", "bound_ms", "cudnn_ms",
                                 "bytes_bound_ms", "err", "calls"), 0.0)
            for name in ("int8_conv", "int8_dwconv", "quantize_s8")}
-    tot["int_mm"] = {"ms": 0.0, "kernel_ms": 0.0, "calls": 0}
+    k1 = tot["int8_conv"]
+    k1.update(dict.fromkeys(("device_ms", "mma_ms", "mma_device_ms",
+                             "cudnn_device_ms"), 0.0),
+              routes={r: dict.fromkeys(("calls", "ms", "device_ms",
+                                        "mma_ms", "mma_device_ms",
+                                        "bound_ms"), 0.0)
+                      for r in ("tma", "mma")})
+    tot["int_mm"] = dict.fromkeys(("ms", "device_ms", "kernel_ms",
+                                   "kernel_device_ms", "mma_ms",
+                                   "mma_device_ms", "calls"), 0.0)
     for (b, h, w, cin, cout, k, s, d, pads, dw), n in sorted(calls.items()):
         x = (randn(b, h, w, cin) * 2.0).to(torch.bfloat16)
         sx = q8.activation_scale(x.abs().amax().float() * 0.9)
@@ -1845,6 +1884,7 @@ def time_int8(calls, randn) -> dict:
                            generator=gen, dtype=torch.int8, device=x.device)
         scale = torch.rand(cout, generator=gen, device=x.device) * 1e-3
         weight = q8.prepare_weight(wq, dw)
+        geometry = q8.conv_geometry(k, s, d, pads)
         if dw:
             name, kw = "int8_dwconv", dict(stride=s[0], dilation=d[0],
                                            pads=pads)
@@ -1856,18 +1896,28 @@ def time_int8(calls, randn) -> dict:
             kern = lambda: q8.int8_conv2d(xq, weight, scale, **kw)
             plain = lambda: q8.int8_conv2d_reference(
                 xq, wq, scale, out_dtype=torch.bfloat16, **kw)
+            plan = q8.plan_conv(xq.shape, cout, geometry, xq.data_ptr(),
+                                q8.sm_count(xq.get_device()))
         tag = (f"[{b},{h},{w},{cin}] -> {cout} {k[0]}x{k[1]} s{s} d{d} "
                f"pads {pads}")
         got_q = xq
         ref_q = q8.quantize_activation_reference(x, sx)
         got, ref = kern(), plain()
+        held = [("quantize_s8", got_q, ref_q), (name, got, ref)]
+        if not dw:
+            with first_design_planned():
+                before = q8.int8_conv2d.route_launches["mma"]
+                held.append(("int8_conv (first design, mma route)", kern(),
+                             ref))
+                if q8.int8_conv2d.route_launches["mma"] != before + 1:
+                    raise AssertionError(f"int8_conv {tag}: the first "
+                                         f"design was not launched")
         torch.cuda.synchronize()
-        for what, g, r in (("quantize_s8", got_q, ref_q), (name, got, ref)):
+        for what, g, r in held:
             if not torch.equal(g, r):
                 raise AssertionError(
                     f"{what} {tag}: differs from its plain version by up to "
                     f"{(g.float() - r.float()).abs().max():.3g}")
-        ho, wo = got.shape[1:3]
         (top, bottom), (left, right) = pads
         xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom)
                    ).contiguous(memory_format=torch.channels_last)
@@ -1875,10 +1925,9 @@ def time_int8(calls, randn) -> dict:
             memory_format=torch.channels_last)
         cudnn = lambda: F.conv2d(xc, wc, None, s, 0, d, cin if dw else 1)
         if dw:
-            bound = q8.depthwise_bound_ms(b, h, w, cin, ho, wo, 2)
+            bound = q8.depthwise_bound_ms(b, h, w, cin, geometry, 2)
         else:
-            bound = q8.conv_bound_ms(b, h, w, cin, ho, wo, cout,
-                                     k[0] * k[1] * cin, 2)
+            bound = q8.conv_bound_ms(b, h, w, cin, cout, geometry, 2)
         t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 1, 2),
              "cudnn_ms": cuda_ms(cudnn)}
         tq = {"ms": cuda_ms(lambda: q8.quantize_activation(x, sx)),
@@ -1886,18 +1935,43 @@ def time_int8(calls, randn) -> dict:
                   x, sx), 1, 5)}
         bound_q = q8.quantize_bound_ms(x.numel(), 2)
         extra = ""
+        if not dw:
+            t.update(device_ms=device_ms(kern),
+                     cudnn_device_ms=device_ms(cudnn))
+            with first_design_planned():
+                t.update(mma_ms=cuda_ms(kern), mma_device_ms=device_ms(kern))
+            r = k1["routes"][plan.route]
+            for field in ("ms", "device_ms", "mma_ms", "mma_device_ms"):
+                r[field] += n * t[field]
+            r["bound_ms"] += n * bound[0]
+            r["calls"] += n
+            how = (f"{plan.form} form, {plan.th} x {plan.tw} tiles, "
+                   if plan.form == "conv" else f"{plan.form} form, ") + (
+                f"bn {plan.bn}, {plan.tiles} tiles x {plan.splits} "
+                f"slices of {plan.chunks} K chunks, {plan.stages} stages"
+                if plan.route == "tma" else f"bn {plan.bn}, vec {plan.vec}")
+            share = bound[0] / t["device_ms"]
+            extra = (f"; route {plan.route} ({how}): device "
+                     f"{t['device_ms']:.4f} ms ({share:.1%} of the "
+                     f"bound); first design (mma route) "
+                     f"{t['mma_ms']:.4f} ms, device "
+                     f"{t['mma_device_ms']:.4f} ms; cuDNN device "
+                     f"{t['cudnn_device_ms']:.4f} ms")
         if not dw and k == (1, 1) and s == (1, 1) and b * h * w > 16:
             a2, b2 = xq.reshape(-1, cin), wq.reshape(cout, cin).t()
+            int_mm = lambda: torch._int_mm(a2, b2)
             try:
-                int_mm = cuda_ms(lambda: torch._int_mm(a2, b2))
+                mm = {"ms": cuda_ms(int_mm), "device_ms": device_ms(int_mm)}
             except RuntimeError as err:      # a yardstick only
-                extra = f"; torch._int_mm refused the shape: {err}"
+                extra += f"; torch._int_mm refused the shape: {err}"
             else:
-                tot["int_mm"]["ms"] += n * int_mm
-                tot["int_mm"]["kernel_ms"] += n * t["ms"]
-                tot["int_mm"]["calls"] += n
-                extra = (f"; torch._int_mm (the int32 product alone) "
-                         f"{int_mm:.4f} ms")
+                mm.update(kernel_ms=t["ms"], kernel_device_ms=t["device_ms"],
+                          mma_ms=t["mma_ms"],
+                          mma_device_ms=t["mma_device_ms"], calls=1)
+                for field, v in mm.items():
+                    tot["int_mm"][field] += n * v
+                extra += (f"; torch._int_mm (the int32 product alone) "
+                          f"{mm['ms']:.4f} ms, device {mm['device_ms']:.4f}")
         log(f"{name} {tag}: bitwise equal to the plain version; kernel "
             f"{t['ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
             f"{bound[0] / t['ms']:.1%} of it; plain {t['plain_ms']:.4f} ms; "
@@ -1911,7 +1985,7 @@ def time_int8(calls, randn) -> dict:
             agg["bound_ms"] += n * tb[0]
             agg["bytes_bound_ms"] += n * tb[0] * (tb[1] == "bytes")
             agg["calls"] += n
-        del x, xq, got, ref, got_q, ref_q, xc
+        del x, xq, got, ref, got_q, ref_q, xc, held
     for name in ("int8_conv", "int8_dwconv", "quantize_s8"):
         agg = tot[name]
         agg["by"] = ("bytes" if agg["bytes_bound_ms"] * 2 >= agg["bound_ms"]
@@ -1942,17 +2016,34 @@ def phase_int8_kernels() -> dict:
                 f"{t['plain_ms']:.4f} ms" + (
                     f"; cuDNN bf16 convs (yardstick) {t['cudnn_ms']:.4f} ms"
                     if name != "quantize_s8" else ""))
+        k1 = tot["int8_conv"]
+        log(f"int8_conv per batch of {tag}, device time: kernel "
+            f"{k1['device_ms']:.4f} ms ({k1['bound_ms'] / k1['device_ms']:.1%}"
+            f" of the bound), first design (mma route) {k1['mma_ms']:.4f} ms"
+            f" by events, {k1['mma_device_ms']:.4f} ms device; cuDNN bf16 "
+            f"convs {k1['cudnn_device_ms']:.4f} ms device")
+        for route, r in k1["routes"].items():
+            if r["calls"]:
+                log(f"int8_conv per batch of {tag}, the {int(r['calls'])} "
+                    f"calls planned on route {route}: {r['ms']:.4f} ms "
+                    f"({r['device_ms']:.4f} device), first design "
+                    f"{r['mma_ms']:.4f} ms ({r['mma_device_ms']:.4f} "
+                    f"device), bound {r['bound_ms']:.4f} ms")
         mm = tot["int_mm"]
         if mm["calls"]:
-            log(f"{tag}: the {mm['calls']} 1x1 stride-1 calls: K1 "
-                f"{mm['kernel_ms']:.4f} ms, torch._int_mm (the int32 product "
-                f"alone, yardstick) {mm['ms']:.4f} ms")
+            log(f"{tag}: the {int(mm['calls'])} 1x1 stride-1 calls: K1 "
+                f"{mm['kernel_ms']:.4f} ms ({mm['kernel_device_ms']:.4f} "
+                f"device), first design {mm['mma_ms']:.4f} ms "
+                f"({mm['mma_device_ms']:.4f} device), torch._int_mm (the "
+                f"int32 product alone, yardstick) {mm['ms']:.4f} ms "
+                f"({mm['device_ms']:.4f} device)")
     return out
 
 
 def int8_kernel_lines(int8: dict) -> list:
     """The kernels line's entries of K1 (config 2's batch), K2 (config 3's)
-    and K3 (config 2's), each with the other config's sums."""
+    and K3 (config 2's), each with the other config's sums; K1's with its
+    route split, the first design's times and the device times."""
     site = "x_detector_tpu/models/layers.py:180"
     rows = []
     for name, main, other in (("int8_conv", "config2", "config3"),
@@ -1976,10 +2067,23 @@ def int8_kernel_lines(int8: dict) -> list:
             if name == "int8_conv":
                 row[f"{other}_cudnn_bf16_yardstick_ms"] = o["cudnn_ms"]
         if name == "int8_conv":
+            row["source"] = "x_detector_tpu_torch/csrc/int8_conv_tma.cu"
+            row["mma_route_source"] = "x_detector_tpu_torch/csrc/int8_conv.cu"
+            for tag in int8:
+                k1 = int8[tag][name]
+                pre = "" if tag == main else f"{tag}_"
+                row.update({
+                    f"{pre}device_ms": k1["device_ms"],
+                    f"{pre}previous_design_ms": k1["mma_ms"],
+                    f"{pre}previous_design_device_ms": k1["mma_device_ms"],
+                    f"{pre}cudnn_bf16_yardstick_device_ms":
+                        k1["cudnn_device_ms"],
+                    f"{pre}routes": {r: {f: (int(v) if f == "calls" else v)
+                                         for f, v in d.items()}
+                                     for r, d in k1["routes"].items()}})
             row["int_mm_yardstick"] = {
-                tag: {"calls": int8[tag]["int_mm"]["calls"],
-                      "int_mm_ms": int8[tag]["int_mm"]["ms"],
-                      "kernel_ms": int8[tag]["int_mm"]["kernel_ms"]}
+                tag: {f: (int(v) if f == "calls" else v)
+                      for f, v in int8[tag]["int_mm"].items()}
                 for tag in int8}
         rows.append(row)
     return rows
@@ -2158,7 +2262,7 @@ def alternating_ms(sides: dict, rounds: int = ROUNDS,
                    batches: int = ROUND_BATCHES, device="cuda") -> dict:
     """Each of ``sides`` (name -> a call of one batch) ``batches`` times a
     round, the sides in turn for ``rounds`` rounds, host clock to a sync:
-    each side's median and best round in ms a batch."""
+    each side's median and best round in ms a batch, and its rounds."""
     sync = (lambda: torch.cuda.synchronize(device)) if (
         torch.device(device).type == "cuda") else (lambda: None)
     ms = {name: [] for name in sides}
@@ -2170,8 +2274,31 @@ def alternating_ms(sides: dict, rounds: int = ROUNDS,
                 fn()
             sync()
             ms[name].append((time.perf_counter() - t0) / batches * 1e3)
-    return {name: {"median": sorted(v)[len(v) // 2], "best": min(v)}
-            for name, v in ms.items()}
+    return {name: {"median": sorted(v)[len(v) // 2], "best": min(v),
+                   "rounds": v} for name, v in ms.items()}
+
+
+# K1's plan for a shape were it the first design's: every call on the "mma"
+# route, cached as the rule's plans are
+@functools.lru_cache(maxsize=None)
+def _first_design_plan(x_shape, cout, geometry, x_align, sms):
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    return q8.plan_mma(x_shape[3], cout, x_align)
+
+
+@contextlib.contextmanager
+def first_design_planned():
+    """Within: K1's plan (``ops/int8_conv._plan``) is the first design's
+    (the "mma" route) for every shape, so that a wrapper
+    call or a model runs that kernel on the same host path, wrapper and
+    operator as the rule's route."""
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    rule = q8._plan
+    q8._plan = _first_design_plan
+    try:
+        yield
+    finally:
+        q8._plan = rule
 
 
 @contextlib.contextmanager
@@ -2207,9 +2334,10 @@ def boundary_in_model(detect, *inputs) -> dict:
 
 def rounds_text(ms: dict) -> str:
     """alternating_ms's readings as one phrase."""
+    rounds = len(next(iter(ms.values()))["rounds"])
     return "; ".join(f"{side} {v['median']:.3f} (best {v['best']:.3f})"
                      for side, v in ms.items()) + (
-        f" (median of {ROUNDS} alternating rounds of {ROUND_BATCHES})")
+        f" (median of {rounds} alternating rounds of {ROUND_BATCHES})")
 
 
 def report_boundary(tag: str, res: dict, *inputs) -> None:
@@ -2621,6 +2749,7 @@ def main() -> int:
     from x_detector_tpu_torch.config import (config5, lighthead_resnet50,
                                              lighthead_xception,
                                              ssd_resnet50, xdet_xception)
+    from x_detector_tpu_torch.ops import int8_conv as q8
     phase_build()
     kernels = phase_kernels()
     kernels += int8_kernel_lines(phase_int8_kernels())
@@ -2734,18 +2863,27 @@ def main() -> int:
     # served through build_eval_fn, beside the float paths above (the same
     # weights and images); the prequantized model against the in-graph
     # one; the 128 px check against the CPU
-    for path, cfg, float_path, batch, per_batch, keys in (
+    # K1's routes a batch: the stem (Cin 3 or 12) on the first design,
+    # every other dense conv on the "tma" route
+    for path, cfg, float_path, batch, per_batch, k1_routes, keys in (
             ("int8_config2", ssd_resnet50(512), "ssd", SSD_BATCH,
              {"int8_conv": 53, "int8_dwconv": 0, "quantize_s8": 53,
-              "psroi_align": 0}, ("cls_logits", "box_codes")),
+              "psroi_align": 0}, {"tma": 52, "mma": 1},
+             ("cls_logits", "box_codes")),
             ("int8_config3", fused(lighthead_xception(800)), "slice", BATCH,
              {"int8_conv": 20, "int8_dwconv": 16, "quantize_s8": 36,
-              "psroi_align": 1}, ("rpn_cls", "rpn_loc"))):
+              "psroi_align": 1}, {"tma": 19, "mma": 1},
+             ("rpn_cls", "rpn_loc"))):
         torch.cuda.reset_peak_memory_stats()
-        res, model = run_int8(cfg, "cuda", batch_size=batch)
+        res, model = run_int8(cfg, "cuda", batch_size=batch, keep_path=True)
         paths[path] = res
         check_slice(path, res, {"fused_sepconv": 0,
                                 "psroi_align_backward": 0, **per_batch})
+        if res["int8_routes"] != {r: v * res["batches"]
+                                  for r, v in k1_routes.items()}:
+            raise AssertionError(f"{path}: K1's routes {res['int8_routes']} "
+                                 f"over {res['batches']} batches, expected "
+                                 f"{k1_routes} a batch")
         low = min(map(float, res["ranges"].values()))
         report_slice(f"{path}: {cfg.model.name} int8 (calibrated over "
                      f"{INT8_CALIB_BATCHES} batches, {len(res['ranges'])} "
@@ -2759,6 +2897,51 @@ def main() -> int:
             f"{float_ms:.2f} ms ({batch / float_ms * 1e3:.1f} images/s, peak "
             f"{ref['peak'] / 2**30:.2f} GiB; phase {float_path}): "
             f"{float_ms / int8_ms:.3f}x")
+        # the two paths on the same weights and images in alternating
+        # rounds (the host drifts between states within one process), and
+        # the int8 path with the first design's K1 on every call (the
+        # same wrapper, operator and model: before and after the redesign
+        # by one method)
+        flt = run_slice(cfg, "cuda", batches=0, batch_size=batch,
+                        keep_path=True)
+        detect, flt_detect, u8 = (res.pop("detect"), flt.pop("detect"),
+                                  res.pop("u8"))
+
+        def first_design_detect():
+            with first_design_planned():
+                return detect(u8)
+
+        q8.reset_launches()
+        pairs = list(zip(detect(u8), first_design_detect()))
+        if q8.int8_conv2d.route_launches != {
+                "tma": k1_routes["tma"],
+                "mma": k1_routes["mma"] + per_batch["int8_conv"]}:
+            raise AssertionError(f"{path}: K1 {q8.int8_conv2d.route_launches}"
+                                 f" on the rule's routes then the first "
+                                 f"design's, expected {k1_routes} then "
+                                 f"{per_batch['int8_conv']} on mma")
+        for i, (a, b) in enumerate(pairs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{path}: detections[{i}] with the "
+                                     f"first design differ")
+        ms = alternating_ms({"bf16": lambda: flt_detect(u8),
+                             "int8": lambda: detect(u8),
+                             "int8_first_design": first_design_detect},
+                            rounds=INT8_ROUNDS)
+        paired = sorted(a / b for a, b in zip(
+            ms["int8_first_design"]["rounds"], ms["int8"]["rounds"]))
+        log(f"{path}: K1 routes a batch {k1_routes}; ms a batch "
+            f"{rounds_text(ms)}: bf16 / int8 "
+            f"{ms['bf16']['median'] / ms['int8']['median']:.3f}x; int8 "
+            f"with the first design's K1 / with the new route "
+            f"{ms['int8_first_design']['median'] / ms['int8']['median']:.3f}"
+            f"x (round by round: median {paired[len(paired) // 2]:.3f}x, "
+            f"{paired[0]:.3f}-{paired[-1]:.3f}x); bf16 / int8 with the "
+            f"first design "
+            f"{ms['bf16']['median'] / ms['int8_first_design']['median']:.3f}"
+            f"x")
+        res["alternating_ms"] = ms
+        del detect, flt_detect, flt, u8
         held = check_prequantized(model, cfg, "cuda")
         log(f"{path}: prequantized model's outputs and detections equal the "
             f"in-graph model's bit for bit ({held} tensors)")

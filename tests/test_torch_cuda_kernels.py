@@ -451,53 +451,178 @@ def _int8(gen, *shape):
                          dtype=torch.int8)
 
 
-# (B, H, W, Cin, Cout, kernel, stride, dilation, pads)
+# (B, H, W, Cin, Cout, kernel, stride, dilation, pads, route): the route
+# that ops/int8_conv.plan_conv gives the shape ("tma" where Cin is a
+# multiple of 16, else "mma")
 INT8_CONV_CASES = {
     # ResNet's stem: Cin 3 (byte copies), K 147 (a K tail)
     "stem_7x7_cin3": (2, 17, 13, 3, 64, (7, 7), (2, 2), (1, 1),
-                      ((3, 3), (3, 3))),
+                      ((3, 3), (3, 3)), "mma"),
     # Xception's folded stem: Cin 12 (4-byte copies), K 432
     "stem_12x3_cin12": (2, 24, 9, 12, 128, (12, 3), (4, 1), (1, 1),
-                        ((4, 4), (1, 1))),
-    # Cout 100 (not a multiple of 64), dilation 2, K 576
+                        ((4, 4), (1, 1)), "mma"),
+    # Cout 100 (not a multiple of 64), dilation 2, K 576; Cin 64: half a
+    # 128-byte chunk a tap
     "3x3_d2_cout100": (1, 9, 11, 64, 100, (3, 3), (1, 1), (2, 2),
-                       ((2, 2), (2, 2))),
+                       ((2, 2), (2, 2)), "tma"),
     # Cin 40 (8-byte copies), 105 pixels (an M tail), K 360 (a K tail)
     "3x3_cin40_mtail": (3, 7, 5, 40, 24, (3, 3), (1, 1), (1, 1),
-                        ((1, 1), (1, 1))),
+                        ((1, 1), (1, 1)), "mma"),
     # the strided 1x1 shortcut, 16-byte copies
     "1x1_s2": (1, 10, 10, 256, 512, (1, 1), (2, 2), (1, 1),
-               ((0, 0), (0, 0))),
+               ((0, 0), (0, 0)), "tma"),
     # SAME at stride 2 (pads (0, 1)), Cout 130: a third 128-wide block
     "3x3_s2_same_cout130": (2, 15, 15, 128, 130, (3, 3), (2, 2), (1, 1),
-                            ((0, 1), (0, 1))),
+                            ((0, 1), (0, 1)), "tma"),
     # Cout 33 (odd: unpaired stores), K 9000
     "3x3_cout33_k9000": (1, 5, 6, 1000, 33, (3, 3), (1, 1), (1, 1),
-                         ((1, 1), (1, 1))),
-    # config 2's widest: 3x3 x 512 at 16 x 16, K 4608
+                         ((1, 1), (1, 1)), "mma"),
+    # config 2's widest: 3x3 x 512 at 16 x 16, K 4608 (batch 1: 8 tiles,
+    # clusters of 8 slices)
     "config2_stage4": (1, 16, 16, 512, 512, (3, 3), (1, 1), (1, 1),
-                       ((1, 1), (1, 1))),
+                       ((1, 1), (1, 1)), "tma"),
+    # the gemm form with an M tail (189 rows), an N tail (Cout 96) and
+    # half a K chunk (Cin 64)
+    "gemm_mtail_cin64": (3, 7, 9, 64, 96, (1, 1), (1, 1), (1, 1),
+                         ((0, 0), (0, 0)), "tma"),
+    # the gemm form at Cin 48 and Cout 33: rows of 66 / 132 bytes, stored
+    # an element at a time
+    "gemm_cin48_cout33": (2, 5, 7, 48, 33, (1, 1), (1, 1), (1, 1),
+                          ((0, 0), (0, 0)), "tma"),
+    # Xception's strided 1x1 (100 -> 50): 5 x 25 tiles of a 50 x 50 map
+    "1x1_s2_50x50": (1, 100, 100, 128, 256, (1, 1), (2, 2), (1, 1),
+                     ((0, 0), (0, 0)), "tma"),
+    # Cout 33 on the conv form
+    "3x3_cin32_cout33": (1, 9, 9, 32, 33, (3, 3), (1, 1), (1, 1),
+                         ((1, 1), (1, 1)), "tma"),
+    # ResNet's strided 3x3 (pads (1, 1))
+    "3x3_s2_resnet": (2, 32, 32, 256, 512, (3, 3), (2, 2), (1, 1),
+                      ((1, 1), (1, 1)), "tma"),
+    # config 3's strided 1x1 (200 -> 100) at batch 2: 160 tiles of 256
+    # channels, each 5 x 25 pixels read at element stride 2
+    "1x1_s2_config3_bn256": (2, 200, 200, 128, 256, (1, 1), (2, 2), (1, 1),
+                             ((0, 0), (0, 0)), "tma"),
+    # split-K at config 2's 16 x 16 shapes, batch 8: 64 tiles of 128
+    # channels, 2 slices
+    "split_config2_3x3_512": (8, 16, 16, 512, 512, (3, 3), (1, 1), (1, 1),
+                              ((1, 1), (1, 1)), "tma"),
+    "split_config2_1x1_2048": (8, 16, 16, 2048, 512, (1, 1), (1, 1),
+                               (1, 1), ((0, 0), (0, 0)), "tma"),
+    # config 2's stage 1 1x1 (64 -> 256 at 128 x 128, batch 8): 1024 tiles
+    # of 256 channels, no split, 4 stages
+    "gemm_config2_stage1": (8, 128, 128, 64, 256, (1, 1), (1, 1), (1, 1),
+                            ((0, 0), (0, 0)), "tma"),
 }
+# cases whose plan must split K (the smaller "tma" cases split too) and
+# cases whose plan must not
+INT8_SPLIT_CASES = ("config2_stage4", "split_config2_3x3_512",
+                    "split_config2_1x1_2048")
+INT8_WHOLE_K_CASES = ("gemm_config2_stage1",)
+
+
+def _int8_conv_operands(dev, case):
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    b, h, w, cin, cout, k, s, d, pads, _ = INT8_CONV_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    xq = _int8(gen, b, h, w, cin)
+    wq = _int8(gen, cout, *k, cin)
+    scale = torch.rand(cout, generator=gen, device=dev) * 1e-3 + 1e-5
+    return xq, wq, scale, dict(stride=s, dilation=d, pads=pads)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", list(INT8_CONV_CASES))
 def test_int8_conv_kernel_matches_plain_bitwise(dev, case, out_dtype):
+    """K1 on the route its shape takes, bit for bit the plain version; the
+    route's counter and the total count one launch."""
     from x_detector_tpu_torch.ops import int8_conv as Q
-    b, h, w, cin, cout, k, s, d, pads = INT8_CONV_CASES[case]
-    gen = torch.Generator(device=dev).manual_seed(len(case))
-    xq = _int8(gen, b, h, w, cin)
-    wq = _int8(gen, cout, *k, cin)
-    scale = torch.rand(cout, generator=gen, device=dev) * 1e-3 + 1e-5
+    xq, wq, scale, kw = _int8_conv_operands(dev, case)
+    route = INT8_CONV_CASES[case][-1]
+    weight = Q.prepare_weight(wq, False)
+    geometry = Q.conv_geometry(weight.ksize, kw["stride"], kw["dilation"],
+                               kw["pads"])
+    plan = Q.plan_conv(xq.shape, wq.shape[0], geometry, xq.data_ptr(),
+                       Q.sm_count(xq.get_device()))
+    assert plan.route == route
+    if case in INT8_SPLIT_CASES + INT8_WHOLE_K_CASES:
+        assert (plan.splits > 1) == (case in INT8_SPLIT_CASES)
     before = Q.int8_conv2d.launches
-    got = Q.int8_conv2d(xq, Q.prepare_weight(wq, False), scale, stride=s,
-                        dilation=d, pads=pads, out_dtype=out_dtype)
-    ref = Q.int8_conv2d_reference(xq, wq, scale, stride=s, dilation=d,
-                                  pads=pads, out_dtype=out_dtype)
+    by_route = dict(Q.int8_conv2d.route_launches)
+    got = Q.int8_conv2d(xq, weight, scale, out_dtype=out_dtype, **kw)
+    ref = Q.int8_conv2d_reference(xq, wq, scale, out_dtype=out_dtype, **kw)
     torch.cuda.synchronize()
     assert Q.int8_conv2d.launches == before + 1
+    assert Q.int8_conv2d.route_launches == {
+        r: n + (r == route) for r, n in by_route.items()}
     assert got.shape == ref.shape and got.dtype == out_dtype
     assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+@pytest.mark.parametrize("bn,splits", [(256, 4), (128, 2), (256, 2),
+                                       (64, 1)])
+def test_int8_conv_tma_plans_beyond_the_rule(dev, bn, splits):
+    """The "tma" kernel at config 2's 16 x 16 x 512 3x3 under launch plans
+    the rule does not pick (256 channels a tile in clusters of 4 slices:
+    each slice's last chunk in the ring's first stage, where the partials
+    go), bit for bit the plain version."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    xq, wq, scale, kw = _int8_conv_operands(dev, "split_config2_3x3_512")
+    weight = Q.prepare_weight(wq, False)
+    g = Q.conv_geometry(weight.ksize, kw["stride"], kw["dilation"],
+                        kw["pads"])
+    plan = Q.with_width(Q.plan_conv(xq.shape, wq.shape[0], g, xq.data_ptr(),
+                                  Q.sm_count(xq.get_device())),
+                      wq.shape[0], bn, splits)
+    ref = Q.int8_conv2d_reference(xq, wq, scale, out_dtype=torch.bfloat16,
+                                  **kw)
+    for _ in range(3):
+        got = Q.run_plan(plan, xq, weight.kernel, scale, g,
+                         Q.conv_output(xq, wq.shape[0], g, torch.bfloat16))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+def test_int8_conv_misaligned_weight_raises(dev):
+    """A weight operand off 16 bytes (a view) is refused on the card with
+    a message naming the rule, and nothing is launched: both routes read
+    it in 16-byte pieces."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    xq, wq, scale, kw = _int8_conv_operands(dev, list(INT8_CONV_CASES)[0])
+    kernel = Q.prepare_weight(wq, False).kernel
+    buf = torch.empty(kernel.numel() + 1, dtype=torch.int8, device=dev)
+    view = buf[1:].view(kernel.shape)
+    view.copy_(kernel)
+    weight = Q.Int8Weight(view, tuple(wq.shape[1:3]), False)
+    before = Q.int8_conv2d.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        Q.int8_conv2d(xq, weight, scale, **kw)
+    assert Q.int8_conv2d.launches == before
+
+
+def test_int8_conv_split_plan_on_two_streams(dev):
+    """One split plan run on two streams at once, each on its own inputs,
+    a few times over: a tile's slices meet in its cluster's shared memory,
+    so the launches share nothing and both results stay bit for bit the
+    plain version's."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    runs = []
+    for seed in (0, 1):
+        xq, wq, scale, kw = _int8_conv_operands(dev, "split_config2_3x3_512")
+        xq = xq.roll(seed, dims=-1).contiguous()
+        runs.append((xq, Q.prepare_weight(wq, False), scale, wq, kw))
+    streams = [torch.cuda.Stream(dev) for _ in runs]
+    torch.cuda.synchronize()
+    outs = [[] for _ in runs]
+    for _ in range(4):
+        for (xq, weight, scale, _, kw), st, out in zip(runs, streams, outs):
+            with torch.cuda.stream(st):
+                out.append(Q.int8_conv2d(xq, weight, scale, **kw))
+    torch.cuda.synchronize()
+    for (xq, _, scale, wq, kw), out in zip(runs, outs):
+        ref = Q.int8_conv2d_reference(xq, wq, scale,
+                                      out_dtype=torch.bfloat16, **kw)
+        for got in out:
+            assert torch.equal(got, ref)
 
 
 # (B, H, W, C, stride, dilation): SAME pads
@@ -574,7 +699,8 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
 def test_int8_model_on_the_card_goes_through_the_kernels(dev):
     """chip_smoke's int8 phase at 128 px on thin backbones, on the card:
     calibrated, then K3 before every backbone conv, K1 for the dense ones
-    and K2 for the depthwise ones, B2 never."""
+    (the stem, Cin 3 or 12, on the first design's route, every other one
+    on the "tma" route) and K2 for the depthwise ones, B2 never."""
     chip_smoke = _chip_smoke()
     from x_detector_tpu_torch.config import ssd_resnet50
     for cfg in (ssd_resnet50(128), lighthead_xception(128)):
@@ -585,3 +711,6 @@ def test_int8_model_on_the_card_goes_through_the_kernels(dev):
         assert res["launches"] == res["expected"]
         assert res["launches"]["quantize_s8"] == (
             res["launches"]["int8_conv"] + res["launches"]["int8_dwconv"])
+        assert res["int8_routes"] == {
+            "tma": res["launches"]["int8_conv"] - res["batches"],
+            "mma": res["batches"]}

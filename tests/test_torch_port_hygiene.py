@@ -245,6 +245,30 @@ def test_cpu_rehearsal_of_chip_smoke_int8(path):
     assert _build.library.cache_info().currsize == 0   # nothing was built
 
 
+def test_cpu_rehearsal_of_chip_smoke_first_design_planned():
+    """chip_smoke.first_design_planned: within it K1's plan is the first
+    design's for every shape, cached; after it the rule's plan is back.
+    alternating_ms hands back each side's rounds, which the int8 phase
+    pairs round by round."""
+    from x_detector_tpu_torch.ops import int8_conv
+    chip_smoke = _chip_smoke()
+    g = int8_conv.conv_geometry((1, 1), (1, 1), (1, 1), ((0, 0), (0, 0)))
+    assert int8_conv.plan_conv((8, 32, 32, 256), 256, g).route == "tma"
+    with chip_smoke.first_design_planned():
+        for ptr in (0, 4):
+            plan = int8_conv.plan_conv((8, 32, 32, 256), 256, g, x_ptr=ptr)
+            assert plan == int8_conv.plan_mma(256, 256, ptr)
+    assert int8_conv.plan_conv((8, 32, 32, 256), 256, g).route == "tma"
+    calls = []
+    ms = chip_smoke.alternating_ms({"a": lambda: calls.append("a"),
+                                    "b": lambda: calls.append("b")},
+                                   rounds=4, batches=2, device="cpu")
+    assert calls == (["a"] * 2 + ["b"] * 2) * 4
+    assert [len(v["rounds"]) for v in ms.values()] == [4, 4]
+    assert ms["a"]["median"] == sorted(ms["a"]["rounds"])[2]
+    assert "median of 4 alternating rounds of" in chip_smoke.rounds_text(ms)
+
+
 def test_cpu_rehearsal_of_chip_smoke_serve(tmp_path):
     """chip_smoke's serve phase on the CPU at tiny shapes: the fused thin
     Light-Head at 64 px as a raw-RGB letterbox container of buckets 1

@@ -309,17 +309,318 @@ def test_quantize_weight_and_activation_match_jax():
 
 
 def test_int8_conv_plan():
-    """K1's plan: 64 channels a block up to Cout 64, else 128; the A copy
-    the largest of 16, 8, 4, 1 bytes dividing Cin and the address."""
-    assert int8_conv.plan_conv(3, 64) == int8_conv.ConvPlan(64, 1)
-    assert int8_conv.plan_conv(12, 128) == int8_conv.ConvPlan(128, 4)
-    assert int8_conv.plan_conv(64, 256, x_ptr=8) == int8_conv.ConvPlan(128,
-                                                                        8)
-    assert int8_conv.plan_conv(1024, 21) == int8_conv.ConvPlan(64, 16)
+    """K1's plan. The first design ("mma" route): 64 channels a block up
+    to Cout 64, else 128; the A copy the largest of 16, 8, 4, 1 bytes
+    dividing Cin and the address. The rule: Cin a multiple of 16 and a
+    16-byte aligned ``xq`` take the "tma" route, the rest the "mma"
+    one."""
+    assert int8_conv.plan_mma(3, 64) == int8_conv.ConvPlan("mma", 64, 1)
+    assert int8_conv.plan_mma(12, 128) == int8_conv.ConvPlan("mma", 128, 4)
+    assert int8_conv.plan_mma(64, 256, x_ptr=8) == int8_conv.ConvPlan(
+        "mma", 128, 8)
+    assert int8_conv.plan_mma(1024, 21) == int8_conv.ConvPlan("mma", 64, 16)
     assert int8_conv.depthwise_vec(1024, 0, 16) == 16
     assert int8_conv.depthwise_vec(20, 0, 0) == 4
     assert int8_conv.output_size((800, 200), (12, 3), (4, 1), (1, 1),
                                  ((4, 4), (1, 1))) == (200, 200)
+    g3 = int8_conv.conv_geometry((3, 3), (1, 1), (1, 1), ((1, 1), (1, 1)))
+    assert int8_conv.plan_conv((1, 8, 8, 3), 64, g3) == int8_conv.plan_mma(
+        3, 64)
+    assert int8_conv.plan_conv((1, 8, 8, 40), 64, g3).route == "mma"
+    assert int8_conv.plan_conv((1, 8, 8, 48), 64, g3).route == "tma"
+    # the conv form's tile: the fewest tiles, then the widest
+    assert int8_conv.conv_tile(16, 16, 1, 1) == (8, 16)
+    assert int8_conv.conv_tile(128, 128, 1, 1) == (1, 128)
+    assert int8_conv.conv_tile(50, 50, 1, 1) == (5, 25)
+    assert int8_conv.conv_tile(100, 100, 2, 2) == (5, 25)
+    # split-K: the most slices that keep one wave of units, at most one a
+    # K chunk and 8 (a cluster); none where the tiles fill more than half
+    # the SMs
+    assert int8_conv.split_count(67, 36, 132) == 1
+    assert int8_conv.split_count(8, 1, 132) == 1
+    assert int8_conv.split_count(1, 5, 132) == 5
+    assert int8_conv.split_count(64, 36, 132) == 2
+    assert int8_conv.split_count(8, 36, 132) == 8
+    assert int8_conv.split_count(30, 36, 132) == 4
+
+
+def test_tma_plan_constants_mirror_the_kernel_source():
+    """ops/int8_conv.py restates the "tma" kernel's fixed geometry to plan
+    its launches (chunk bytes, tile rows, stages, splits, shared memory);
+    the two must agree."""
+    import re
+    from x_detector_tpu_torch import _build
+    src = (_build.CSRC / "int8_conv_tma.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+    assert const["KC"] == int8_conv.TMA_KC
+    assert const["BM"] == int8_conv.TMA_BM
+    assert const["MAX_STAGES"] == int8_conv.TMA_MAX_STAGES
+    assert const["MAX_SPLITS"] == int8_conv.TMA_MAX_SPLITS
+    assert const["SMEM_LIMIT"] == int8_conv.TMA_SMEM_LIMIT
+    assert "STAGING_BYTES = 2 * PASS_BYTES" in src
+    assert "PASS_BYTES = BM * 128" in src
+    # the Layout: ring, staging, barriers, 1024 bytes of alignment slack
+    assert int8_conv.TMA_FIXED_SMEM == (2 * const["BM"] * 128
+                                        + const["BAR_BYTES"] + 1024)
+
+
+def test_int8_conv_plan_misaligned_input_takes_the_first_design():
+    """An ``xq`` off 16-byte alignment (a view) cannot be a TMA operand:
+    the plan sends it to the "mma" route, whose copy width follows the
+    address."""
+    g = int8_conv.conv_geometry((1, 1), (1, 1), (1, 1), ((0, 0), (0, 0)))
+    for ptr, vec in ((8, 8), (4, 4), (2, 1), (1, 1)):
+        plan = int8_conv.plan_conv((8, 32, 32, 256), 256, g, x_ptr=ptr)
+        assert plan == int8_conv.plan_mma(256, 256, ptr)
+        assert plan.route == "mma" and plan.vec == vec
+    assert int8_conv.plan_conv((8, 32, 32, 256), 256, g,
+                               x_ptr=256).route == "tma"
+
+
+def test_int8_conv_weight_must_be_aligned():
+    """Both K1 routes read the weight in 16-byte pieces (a tensor map, or
+    16-byte copies), so the CUDA path refuses a weight off 16 bytes with a
+    message naming the rule, rather than sending it to a route."""
+    for ptr in (0, 16, 4096):
+        int8_conv.check_weight_aligned(ptr)
+    for ptr in (1, 4, 8, 4104):
+        with pytest.raises(ValueError, match="16-byte"):
+            int8_conv.check_weight_aligned(ptr)
+
+
+# (H, W, Cin, Cout, kernel, stride, dilation, pads): a strided 1x1 of
+# Xception's (reads a quarter of its input), ResNet's strided 3x3 and 7x7
+# stem, a dilated 3x3, and a 1x1 stride 1
+INT8_BOUND_CASES = {
+    "strided_1x1_200": (200, 200, 128, 256, (1, 1), (2, 2), (1, 1),
+                        ((0, 0), (0, 0))),
+    "strided_1x1_odd": (25, 25, 64, 64, (1, 1), (2, 2), (1, 1),
+                        ((0, 0), (0, 0))),
+    "3x3_s2_same": (64, 64, 256, 256, (3, 3), (2, 2), (1, 1),
+                    ((0, 1), (0, 1))),
+    "7x7_s2_stem": (64, 64, 3, 64, (7, 7), (2, 2), (1, 1), ((2, 3), (2, 3))),
+    "3x3_d2": (20, 20, 32, 48, (3, 3), (1, 1), (2, 2), ((2, 2), (2, 2))),
+    "1x1": (16, 16, 512, 2048, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))),
+}
+
+
+@pytest.mark.parametrize("case,depthwise", [
+    (case, dw) for case, row in INT8_BOUND_CASES.items()
+    for dw in ((False, True) if row[4] == (3, 3) else (False,))])
+def test_int8_conv_bound_counts_the_input_pixels_read(case, depthwise):
+    """K1's and K2's bounds count the input pixels some tap reads, counted
+    here by marking them one output and tap at a time: a strided 1x1 reads
+    its stride's grid only. The operations and the other operands as
+    before."""
+    from x_detector_tpu_torch.utils import roofline
+    h, w, cin, cout, k, s, d, pads = INT8_BOUND_CASES[case]
+    if depthwise:
+        cout = cin
+    b = 2
+    g = int8_conv.conv_geometry(k, s, d, pads)
+    ho, wo = int8_conv.output_size((h, w), k, s, d, pads)
+    read = np.zeros((h, w), bool)
+    for oy in range(ho):
+        for ox in range(wo):
+            for i in range(k[0]):
+                for j in range(k[1]):
+                    y = oy * s[0] - pads[0][0] + i * d[0]
+                    x = ox * s[1] - pads[1][0] + j * d[1]
+                    if 0 <= y < h and 0 <= x < w:
+                        read[y, x] = True
+    m = b * ho * wo
+    if depthwise:
+        want = roofline.bound_ms(
+            2.0 * 9 * m * cin, b * int(read.sum()) * cin + 13 * cin
+            + m * cin * 2, roofline.FP32_FLOP_PER_S)
+        got = int8_conv.depthwise_bound_ms(b, h, w, cin, g, 2)
+    else:
+        kk = k[0] * k[1] * cin
+        want = roofline.bound_ms(
+            2.0 * m * cout * kk, b * int(read.sum()) * cin + cout * kk
+            + 4 * cout + m * cout * 2, roofline.INT8_TENSOR_OPS_PER_S)
+        got = int8_conv.conv_bound_ms(b, h, w, cin, cout, g, 2)
+    assert got == want
+    if case.startswith("strided_1x1"):
+        assert int(read.sum()) == ho * wo < h * w
+
+
+def test_int8_conv_plan_is_computed_once_per_shape(monkeypatch):
+    """conv_cuda asks for the plan on every call; it is built once per
+    (shape, Cout, geometry, alignment, SM count) and then read from the
+    cache."""
+    built = []
+    plan_tma = int8_conv.plan_tma
+    monkeypatch.setattr(int8_conv, "plan_tma",
+                        lambda *a: built.append(a) or plan_tma(*a))
+    int8_conv._plan.cache_clear()
+    g = int8_conv.conv_geometry((3, 3), (1, 1), (1, 1), ((1, 1), (1, 1)))
+    plans = [int8_conv.plan_conv(torch.Size([8, 16, 16, 512]), 512, list(g),
+                                 x_ptr=4096 * i, sm_count=132)
+             for i in range(5)]
+    assert len(built) == 1 and len(set(plans)) == 1
+    int8_conv.plan_conv((8, 16, 16, 512), 512, g, x_ptr=0, sm_count=114)
+    int8_conv.plan_conv((8, 16, 16, 512), 256, g, x_ptr=0, sm_count=132)
+    assert len(built) == 3
+    info = int8_conv._plan.cache_info()
+    assert (info.hits, info.misses) == (4, 3)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _tile_rows(plan, x_shape, cout, geometry, tile):
+    """The output pixels (rows of [B*Ho*Wo, Cout]) that tile ``tile`` of a
+    "tma" plan writes, and its first output channel: the kernel's
+    ``tile_of`` and ``out_row`` (csrc/int8_conv_tma.cu) restated."""
+    b, h, w, _ = x_shape
+    ho, wo = int8_conv.output_size((h, w), geometry[:2], geometry[2:4],
+                                   geometry[4:6], (geometry[6:8],
+                                                   geometry[8:10]))
+    tiles_n = _cdiv(cout, plan.bn)
+    n0, t = (tile % tiles_n) * plan.bn, tile // tiles_n
+    bm = int8_conv.TMA_BM
+    if plan.form == "gemm":
+        return list(range(t * bm, min((t + 1) * bm, b * ho * wo))), n0
+    tiles_w, tiles_h = _cdiv(wo, plan.tw), _cdiv(ho, plan.th)
+    w0, t = (t % tiles_w) * plan.tw, t // tiles_w
+    h0, img = (t % tiles_h) * plan.th, t // tiles_h
+    pixels = ((h0 + r // plan.tw, w0 + r % plan.tw)
+              for r in range(plan.th * plan.tw))
+    return [(img * ho + oh) * wo + ow for oh, ow in pixels
+            if oh < ho and ow < wo], n0
+
+
+def _slice_chunks(plan, s):
+    """The K chunks of split slice ``s``: the kernel's ``chunk_begin``
+    restated."""
+    return range(s * plan.chunks // plan.splits,
+                 (s + 1) * plan.chunks // plan.splits)
+
+
+def _chunk_columns(plan, cin, k):
+    """The weight columns [start, stop) of ``[Cout, Kp]`` that K chunk
+    ``k`` of a "tma" plan multiplies by ``xq``'s bytes, as the kernel's
+    producer loads them: the B box starts at ``start``; its columns from
+    ``stop`` on meet A's zero fill (channels past Cin)."""
+    kc = int8_conv.TMA_KC
+    if plan.form == "gemm":
+        return k * kc, min((k + 1) * kc, cin)
+    tap, c = divmod(k, _cdiv(cin, kc))
+    return tap * cin + c * kc, tap * cin + min((c + 1) * kc, cin)
+
+
+# Every dense int8 conv call of configs 2 and 3 at full size, as
+# chip_smoke.int8_conv_calls reads them: (B, H, W, Cin, Cout, kernel,
+# stride, dilation, pads) -> calls a batch
+INT8_CALLS = {
+    "config2": {   # SSD + ResNet-50, batch 8, 512 px: 53 calls
+        (8, 16, 16, 512, 512, (3, 3), (1, 1), (1, 1), ((1, 1), (1, 1))): 2,
+        (8, 16, 16, 512, 2048, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 3,
+        (8, 16, 16, 2048, 512, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 2,
+        (8, 32, 32, 256, 256, (3, 3), (1, 1), (1, 1), ((1, 1), (1, 1))): 5,
+        (8, 32, 32, 256, 1024, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 6,
+        (8, 32, 32, 512, 512, (3, 3), (2, 2), (1, 1), ((1, 1), (1, 1))): 1,
+        (8, 32, 32, 1024, 256, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 5,
+        (8, 32, 32, 1024, 512, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 1,
+        (8, 32, 32, 1024, 2048, (1, 1), (2, 2), (1, 1), ((0, 0), (0, 0))): 1,
+        (8, 64, 64, 128, 128, (3, 3), (1, 1), (1, 1), ((1, 1), (1, 1))): 3,
+        (8, 64, 64, 128, 512, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 4,
+        (8, 64, 64, 256, 256, (3, 3), (2, 2), (1, 1), ((1, 1), (1, 1))): 1,
+        (8, 64, 64, 512, 128, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 3,
+        (8, 64, 64, 512, 256, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 1,
+        (8, 64, 64, 512, 1024, (1, 1), (2, 2), (1, 1), ((0, 0), (0, 0))): 1,
+        (8, 128, 128, 64, 64, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 1,
+        (8, 128, 128, 64, 64, (3, 3), (1, 1), (1, 1), ((1, 1), (1, 1))): 3,
+        (8, 128, 128, 64, 256, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 4,
+        (8, 128, 128, 128, 128, (3, 3), (2, 2), (1, 1),
+         ((1, 1), (1, 1))): 1,
+        (8, 128, 128, 256, 64, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 2,
+        (8, 128, 128, 256, 128, (1, 1), (1, 1), (1, 1),
+         ((0, 0), (0, 0))): 1,
+        (8, 128, 128, 256, 512, (1, 1), (2, 2), (1, 1),
+         ((0, 0), (0, 0))): 1,
+        (8, 512, 512, 3, 64, (7, 7), (2, 2), (1, 1), ((3, 3), (3, 3))): 1,
+    },
+    "config3": {   # Light-Head + Xception-lite, batch 16, 800 px: 20 calls
+        (16, 50, 50, 256, 512, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 1,
+        (16, 50, 50, 512, 512, (1, 1), (1, 1), (1, 1), ((0, 0), (0, 0))): 3,
+        (16, 50, 50, 512, 1024, (1, 1), (1, 1), (1, 1),
+         ((0, 0), (0, 0))): 2,
+        (16, 50, 50, 1024, 1024, (1, 1), (1, 1), (1, 1),
+         ((0, 0), (0, 0))): 3,
+        (16, 100, 100, 128, 256, (1, 1), (1, 1), (1, 1),
+         ((0, 0), (0, 0))): 1,
+        (16, 100, 100, 256, 256, (1, 1), (1, 1), (1, 1),
+         ((0, 0), (0, 0))): 3,
+        (16, 100, 100, 256, 512, (1, 1), (2, 2), (1, 1),
+         ((0, 0), (0, 0))): 1,
+        (16, 200, 200, 128, 128, (1, 1), (1, 1), (1, 1),
+         ((0, 0), (0, 0))): 4,
+        (16, 200, 200, 128, 256, (1, 1), (2, 2), (1, 1),
+         ((0, 0), (0, 0))): 1,
+        (16, 800, 200, 12, 128, (12, 3), (4, 1), (1, 1),
+         ((4, 4), (1, 1))): 1,
+    },
+}
+INT8_CALL_SHAPES = [(tag, shape) for tag, calls in INT8_CALLS.items()
+                    for shape in calls]
+
+
+def test_int8_call_table_counts_every_dense_call():
+    assert {tag: sum(c.values()) for tag, c in INT8_CALLS.items()} == {
+        "config2": 53, "config3": 20}
+
+
+@pytest.mark.parametrize("tag,shape", INT8_CALL_SHAPES,
+                         ids=[f"{t}-{s[:5]}-{s[5][0]}x{s[5][1]}s{s[6][0]}"
+                              for t, s in INT8_CALL_SHAPES])
+def test_int8_conv_plan_at_every_call_shape(tag, shape):
+    """K1's plan at a call shape of configs 2 and 3 (132 SMs): the stems
+    (Cin 3 and 12) on the first design and every other call on the "tma"
+    route; its output tiles cover every (pixel, 128-row x bn block) once;
+    its split slices take whole K chunks, each chunk once, and the chunks'
+    weight columns cover the conv's K = kh*kw*Cin once; the (tile, slice)
+    units fill one wave of the SMs as far as K's chunks (and a cluster's 8
+    blocks) allow, and no more; the shared memory fits."""
+    b, h, w, cin, cout, k, s, d, pads = shape
+    g = int8_conv.conv_geometry(k, s, d, pads)
+    plan = int8_conv.plan_conv((b, h, w, cin), cout, g, sm_count=132)
+    if cin in (3, 12):
+        assert plan == int8_conv.plan_mma(cin, cout)
+        return
+    assert plan.route == "tma"
+    assert plan.form == ("gemm" if (k, s, pads) == (
+        (1, 1), (1, 1), ((0, 0), (0, 0))) else "conv")
+    ho, wo = int8_conv.output_size((h, w), k, s, d, pads)
+    tiles_n = -(-cout // plan.bn)
+    seen = np.zeros((b * ho * wo, tiles_n), np.int64)
+    for tile in range(plan.tiles):
+        rows, n0 = _tile_rows(plan, (b, h, w, cin), cout, g, tile)
+        assert len(rows) <= int8_conv.TMA_BM and n0 % plan.bn == 0
+        np.add.at(seen[:, n0 // plan.bn], rows, 1)
+    assert (seen == 1).all()
+    chunks = [kc for sl in range(plan.splits)
+              for kc in _slice_chunks(plan, sl)]
+    assert chunks == list(range(plan.chunks))
+    assert all(len(_slice_chunks(plan, sl)) >= 1
+               for sl in range(plan.splits))
+    kp = -(-k[0] * k[1] * cin // int8_conv.KBK) * int8_conv.KBK
+    cols = np.zeros(kp, np.int64)
+    for kc in chunks:
+        start, stop = _chunk_columns(plan, cin, kc)
+        assert 0 <= start < stop <= kp
+        cols[start:stop] += 1
+    assert (cols[:k[0] * k[1] * cin] == 1).all()
+    assert (cols[k[0] * k[1] * cin:] == 0).all()   # the weight's zero pad
+    assert plan.splits == 1 or plan.tiles * plan.splits <= 132
+    assert plan.splits in (plan.chunks, int8_conv.TMA_MAX_SPLITS) or (
+        plan.tiles * (plan.splits + 1) > 132)
+    assert plan.grid == min(132, plan.tiles * plan.splits)
+    assert plan.smem_bytes <= int8_conv.TMA_SMEM_LIMIT
+    assert 2 <= plan.stages <= int8_conv.TMA_MAX_STAGES
 
 
 # ---- tiny backbones ---------------------------------------------------------

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
-together, and the objects link into one shared library with a plain C
-interface, loaded with ``ctypes``; no PyTorch header is included, so the
-build takes seconds. The build happens at first use, into
-``build/torch_kernels/<hash>/`` at the root of the checkout, keyed by a hash
-of the sources and the flags: a changed source builds anew, an unchanged one
-loads the library already there. The compiler's report (``-Xptxas -v``:
+together (``csrc/*.cuh`` holds what several of them include), and the
+objects link into one shared library with a plain C interface, loaded with
+``ctypes``; no PyTorch header is included, so the build takes seconds. The
+build happens at first use, into ``build/torch_kernels/<hash>/`` at the
+root of the checkout, keyed by a hash of the sources, the headers and the
+flags: a changed source or header builds anew, an unchanged tree loads the
+library already there. The compiler's report (``-Xptxas -v``:
 registers, shared memory and spills per kernel) is kept beside the library
 as ``nvcc.log``.
 """
@@ -52,6 +53,9 @@ SIGNATURES = {
     # x, w, scale, out, out_is_bf16, B, H, W, Cin, Ho, Wo, Cout, kh, kw,
     # sh, sw, dh, dw, pt, pl, Kp, then the plan: bn, vec; stream
     "xdt_int8_conv": [_P] * 4 + [_I] * 19 + [_P],
+    # the same, then the plan: gemm, th, tw, bn, stages, splits,
+    # smem_bytes, grid; stream
+    "xdt_int8_conv_tma": [_P] * 4 + [_I] * 25 + [_P],
     # x, w, scale, out, out_is_bf16, B, H, W, C, Ho, Wo, stride, dilation,
     # pt, pl, vec; stream
     "xdt_int8_dwconv": [_P] * 4 + [_I] * 12 + [_P],
@@ -80,8 +84,9 @@ def sources():
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

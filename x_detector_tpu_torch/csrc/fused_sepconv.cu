@@ -63,16 +63,14 @@
 // held), XDT_SKIP_PRODUCTS (one k-step of the first chunk only) and
 // XDT_ONE_TAP_ROW (one of the three tap rows read, the others derived).
 //
-// cuTensorMapEncodeTiled is a driver-API function; the library links only
-// the CUDA runtime, so it is fetched with cudaGetDriverEntryPoint. The
-// host (ops/fused_sepconv.py) chooses the tile, the stages, the channels
-// per unit, the shared memory bytes and the grid, and this file checks
-// them.
+// The mbarrier, TMA and wgmma helpers and the CUDA driver's tensor-map
+// encoder are shared with int8_conv_tma.cu (hopper.cuh). The host
+// (ops/fused_sepconv.py) chooses the tile, the stages, the channels per
+// unit, the shared memory bytes and the grid, and this file checks them.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -107,78 +105,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::
-          "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-// Generic-proxy writes to shared memory become visible to the async proxy
-// (wgmma operands, TMA stores).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// wgmma descriptor of a K-major operand tile in the 128-byte swizzle: rows
-// of 128 bytes (64 bf16 of K), 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
                                                  uint64_t desc_b,
                                                  int scale_d) {
@@ -208,17 +134,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float bf_lo(uint32_t w) {
@@ -257,10 +172,6 @@ __device__ __forceinline__ Unit decode(int u, int tiles_h, int tiles_w,
 constexpr int BAR_FULL_H = 0, BAR_EMPTY_H = MAX_STAGES,
               BAR_FULL_W = 2 * MAX_STAGES, BAR_EMPTY_W = 3 * MAX_STAGES,
               BAR_READY = 4 * MAX_STAGES, BAR_STAGED = BAR_READY + 1;
-
-__device__ __forceinline__ void named_barrier(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
 
 // NACC: 128-channel accumulators per consumer warpgroup, so a unit covers
 // 128 NACC output channels and its depthwise serves all of them.
@@ -536,32 +447,6 @@ sepconv_tma_kernel(const __grid_constant__ CUtensorMap x_map,
 }  // namespace
 
 namespace {
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime.
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // A 4D map over a bf16 [B, H, W, C] tensor (innermost first: C, W, H, B);
 // out-of-bounds elements of a box read as zero.

@@ -17,24 +17,36 @@
 // fast-math (the build passes no --use_fast_math). K3 divides with
 // __fdiv_rn: a multiply by 1/sx would round other values.
 //
-// K1, xdt_int8_conv: the dense conv as an implicit GEMM, M = B*Ho*Wo output
-// pixels by N = Cout by K = kh*kw*Cin, the activation NHWC and the weight
-// OHWI ([Cout][Kp], K padded with zeros to a multiple of 64, prepared once
-// per weight on the host). A block owns 128 pixels by BN (64 or 128)
-// channels; warps of 64 x 32 run mma.sync m16n8k32 s8 x s8 -> s32 from
-// ldmatrix'd shared-memory tiles. The A tile is gathered on the fly (no
-// im2col in device memory): each block first tables its rows (image offset
-// and the top-left input pixel) in shared memory; a thread's column of the
-// tile decodes once per K step into (tap, channel), and VEC-byte runs of a
-// pixel's channels move with cp.async (16, 8 or 4 bytes, the largest that
-// divides Cin) or byte by byte (Cin 3), zero-filled for padding, the M tail
-// and the K tail. Three stages in flight; rows padded to 80 bytes so that
-// ldmatrix reads 8 rows without bank conflicts.
-// What bounds it: operations for the 3x3 and 1x1 convs at ResNet's widths
-// (K 256-4608: 2MNK over 1,979 TOPS), bytes for the narrow ones (the 1x1s
-// at Cin 64-128, the stems). mma.sync reaches about half of what wgmma can;
-// wgmma with s8 operands and TMA are later work.
-//
+// K1, the dense conv, has two routes; ops/int8_conv.py::plan_conv picks
+// one by a rule on the call's shape, never by a failure:
+//   - "tma" (int8_conv_tma.cu, its note says how): every call whose Cin is
+//     a multiple of 16 and whose activation is 16-byte aligned, TMA's rules
+//     for a global stride and address; wgmma s8 on TMA-loaded tiles, split
+//     K in clusters, a TMA-stored epilogue. Every call of configs 2 and 3
+//     but the stems.
+//   - "mma", xdt_int8_conv here, the first design: the rest, on the main
+//     paths the two stems (ResNet's 7x7 at Cin 3, Xception's folded (12, 3)
+//     at Cin 12), whose pixel rows of 3 or 12 bytes are no stride a tensor
+//     map takes (a multiple of 16 bytes). An implicit GEMM, M = B*Ho*Wo output
+//     pixels by N = Cout by K = kh*kw*Cin, the activation NHWC and the
+//     weight OHWI ([Cout][Kp], K padded with zeros to a multiple of 64,
+//     prepared once per weight on the host). A block owns 128 pixels by BN
+//     (64 or 128) channels; warps of 64 x 32 run mma.sync m16n8k32 s8 x s8
+//     -> s32 from ldmatrix'd shared-memory tiles. The A tile is gathered on
+//     the fly (no im2col in device memory): each block first tables its rows
+//     (image offset and the top-left input pixel) in shared memory; a
+//     thread's column of the tile decodes once per K step into (tap,
+//     channel), and VEC-byte runs of a pixel's channels move with cp.async
+//     (16, 8 or 4 bytes, the largest that divides Cin) or byte by byte (Cin
+//     3), zero-filled for padding, the M tail and the K tail. Three stages
+//     in flight; rows padded to 80 bytes so that ldmatrix reads 8 rows
+//     without bank conflicts.
+//     What bounds it: the stems move bytes (the input once, the output
+//     once: 0.02-0.06 ms at configs 2 and 3), but at Cin 3 or 12 every
+//     thread gathers single bytes or 4-byte runs a K step and the products
+//     run half-empty, so the gather binds it (7-17% of the bound; cuDNN's
+//     bf16 conv of ResNet's stem takes as long). A stem route of its own is
+//     later work.
 // K2, xdt_int8_dwconv: the depthwise 3x3, any stride and dilation, explicit
 // top and left pads (the bottom and right follow from Ho and Wo). A thread
 // takes VEC channels (16, 4 or 1, the largest that divides C) of one output

@@ -9,7 +9,12 @@ accumulation there, three kernels of ``csrc/int8_conv.cu`` here:
     ``1 / sx``);
   * :func:`int8_conv2d` (K1): a dense conv of int8 NHWC activations and
     OHWI weights, any kernel, stride, dilation and explicit pads, summed
-    in int32 and dequantized as ``dtype(float(acc) * scale[cout])``;
+    in int32 and dequantized as ``dtype(float(acc) * scale[cout])``; two
+    routes, chosen by :func:`plan_conv` from the call's shape: "tma"
+    (``csrc/int8_conv_tma.cu``, wgmma on TMA-loaded tiles, split-K) for
+    every call whose Cin is a multiple of 16 and whose ``xq`` is 16-byte
+    aligned, "mma" (``csrc/int8_conv.cu``, the first design) for the rest
+    (the stems: Cin 3 and 12);
   * :func:`int8_depthwise_conv2d` (K2): the depthwise 3x3, the same
     epilogue.
 
@@ -20,7 +25,8 @@ tensors (or raises on what the kernel does not take: :func:`quantize_cuda`,
 tensors. The plain versions sum the same integers exactly in float64
 (|sum| <= 127^2 * 4608 for ResNet's 3x3 x 512, far under 2^53) and round
 as the kernels do, so a kernel equals its plain version bit for bit at
-every shape. Each wrapper counts its launches in ``<wrapper>.launches``.
+every shape. Each wrapper counts its launches in ``<wrapper>.launches``;
+``int8_conv2d.route_launches`` counts K1's by route.
 
 :func:`quantize_weight` is the per-output-channel weight quantization, run
 by ``models.layers.QuantConv`` when it prepares its operands and by
@@ -31,6 +37,7 @@ the operators take it, on every device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -47,6 +54,17 @@ WEIGHT_EPS = 1e-8        # sw = max(max|k|, WEIGHT_EPS) / 127
 # K1's bytes of K a pipeline stage (csrc/int8_conv.cu): Kp pads K to it
 KBK = 64
 _INT_MAX = 2 ** 31 - 1
+# K1's "tma" route (csrc/int8_conv_tma.cu): bytes of K a chunk, output rows
+# a tile, ring stages at most, shared memory a block may take, and the
+# shared memory besides the ring (staging tiles, mbarriers and row table,
+# alignment slack)
+TMA_KC = 128
+TMA_BM = 128
+TMA_MAX_STAGES = 8
+TMA_SMEM_LIMIT = 232448
+TMA_FIXED_SMEM = 2 * TMA_BM * 128 + 2048 + 1024
+TMA_MAX_SPLITS = 8       # a split tile's cluster: at most 8 blocks
+SM_COUNT = 132           # an H100 SXM's SMs: the plan's default
 
 
 def ieee_div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -279,16 +297,139 @@ def int8_conv2d_reference(xq: torch.Tensor, wq: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """K1's launch for one call: ``bn`` output channels a block (64 or
-    128) and ``vec``, the bytes of an A-tile copy (16, 8, 4 or 1: the
-    largest that divides Cin and the address of ``xq``)."""
+    """K1's launch for one call shape. ``route``: "tma"
+    (``csrc/int8_conv_tma.cu``) or "mma" (``csrc/int8_conv.cu``, the first
+    design); ``bn``: output channels a tile (64 or 128 on "mma"; 64, 128
+    or 256 on "tma"). "mma" only: ``vec``, the bytes of an A-tile copy (16,
+    8, 4 or 1: the largest that divides Cin and the address of ``xq``).
+    "tma" only: ``form`` "gemm" (1x1, stride 1, no pads: A is [B*H*W,
+    Cin]) or "conv" (a ``th`` x ``tw`` tile of output pixels of one image),
+    ``stages`` of the ring, ``splits`` of K, ``smem_bytes``, ``grid``
+    (persistent blocks), and as the kernel counts them ``tiles`` (output
+    tiles of 128 rows x ``bn`` channels) and ``chunks`` (128-byte K chunks
+    a tile)."""
+    route: str
     bn: int
-    vec: int
+    vec: int = 0
+    form: str = ""
+    th: int = 0
+    tw: int = 0
+    stages: int = 0
+    splits: int = 1
+    smem_bytes: int = 0
+    grid: int = 0
+    tiles: int = 0
+    chunks: int = 0
 
 
-def plan_conv(cin: int, cout: int, x_ptr: int = 0) -> ConvPlan:
+def plan_mma(cin: int, cout: int, x_ptr: int = 0) -> ConvPlan:
+    """The first design's launch: 64 channels a block up to Cout 64, else
+    128; the A copy the largest of 16, 8, 4, 1 bytes dividing Cin and the
+    address."""
     vec = next(v for v in (16, 8, 4, 1) if cin % v == 0 and x_ptr % v == 0)
-    return ConvPlan(64 if cout <= 64 else 128, vec)
+    return ConvPlan("mma", 64 if cout <= 64 else 128, vec)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_tile(ho: int, wo: int, sh: int, sw: int) -> Tuple[int, int]:
+    """The conv form's output tile (th, tw): at most 128 pixels, a TMA box
+    of at most 256 rows and columns at the stride; the fewest tiles over
+    the map, then the widest (Wo 16-128 tiles exactly: 8 x 16 ... 1 x 128;
+    50 and 100 take 5 x 25)."""
+    best = None
+    for tw in range(1, min(wo, TMA_BM, 256 // sw) + 1):
+        th = min(TMA_BM // tw, ho, 256 // sh)
+        key = (_cdiv(ho, th) * _cdiv(wo, tw), -tw)
+        if best is None or key < best[0]:
+            best = (key, (th, tw))
+    return best[1]
+
+
+def split_count(tiles: int, chunks: int, sm_count: int) -> int:
+    """Slices of K for a call of ``tiles`` output tiles of ``chunks`` K
+    chunks each (a tile's slices are one thread-block cluster): the most
+    that keep the (tile, slice) units within one wave of the SMs (tiles x
+    S <= ``sm_count``), at most one a chunk and 8, so 1 where the tiles
+    alone fill more than half the SMs. A split that needs a second wave
+    costs more than it saves (``int8_conv_variants.py``)."""
+    return max(1, min(chunks, TMA_MAX_SPLITS, sm_count // tiles))
+
+
+def plan_tma(x_shape: Sequence[int], cout: int, geometry: Sequence[int],
+             sm_count: int = SM_COUNT) -> ConvPlan:
+    """The "tma" route's launch for [B, H, W, Cin] ``x_shape``, ``cout``
+    output channels and ``geometry`` (:func:`conv_geometry`)."""
+    b, h, w, cin = x_shape
+    kh, kw, sh, sw, dh, dw = geometry[:6]
+    ho, wo = output_size((h, w), (kh, kw), (sh, sw), (dh, dw),
+                         _pairs(geometry))
+    cchunks = _cdiv(cin, TMA_KC)
+    if (kh, kw, sh, sw) == (1, 1, 1, 1) and not any(geometry[6:]):
+        form, (th, tw), chunks = "gemm", (0, 0), cchunks
+        spatial = _cdiv(b * ho * wo, TMA_BM)
+    else:
+        form, (th, tw) = "conv", conv_tile(ho, wo, sh, sw)
+        chunks = kh * kw * cchunks
+        spatial = b * _cdiv(ho, th) * _cdiv(wo, tw)
+    # 256 channels a tile where Cout is a multiple of 256 and the tiles
+    # still fill the SMs; where they would not, 128: twice the tiles, so
+    # half the slices of K, whose partials are half as large
+    if cout <= 64:
+        bn = 64
+    elif cout <= 128 or cout % 256 or spatial * cout // 256 < sm_count:
+        bn = 128
+    else:
+        bn = 256
+    tiles = spatial * _cdiv(cout, bn)
+    splits = split_count(tiles, chunks, sm_count)
+    stages, smem_bytes = tma_ring(bn)
+    return ConvPlan("tma", bn, form=form, th=th, tw=tw, stages=stages,
+                    splits=splits, smem_bytes=smem_bytes,
+                    grid=min(tiles * splits, sm_count), tiles=tiles,
+                    chunks=chunks)
+
+
+def with_width(plan: ConvPlan, cout: int, bn: int,
+               splits: int) -> ConvPlan:
+    """"tma" ``plan`` with ``bn`` channels a tile and ``splits`` slices of
+    K, a plan the rule does not pick (``int8_conv_variants.py`` times
+    them; a split's units must fit one wave of the SMs)."""
+    tiles = plan.tiles // _cdiv(cout, plan.bn) * _cdiv(cout, bn)
+    stages, smem_bytes = tma_ring(bn)
+    return dataclasses.replace(
+        plan, bn=bn, tiles=tiles, splits=splits, stages=stages,
+        smem_bytes=smem_bytes, grid=min(tiles * splits, sm_count(0)))
+
+
+def tma_ring(bn: int) -> Tuple[int, int]:
+    """(stages, shared-memory bytes) of the "tma" route at ``bn`` channels
+    a tile: as many stages of an A and a B tile as fit, at most 8."""
+    stage = TMA_BM * TMA_KC + bn * TMA_KC
+    stages = min(TMA_MAX_STAGES, (TMA_SMEM_LIMIT - TMA_FIXED_SMEM) // stage)
+    return stages, TMA_FIXED_SMEM + stages * stage
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(x_shape: Tuple[int, ...], cout: int, geometry: Tuple[int, ...],
+          x_align: int, sm_count: int) -> ConvPlan:
+    if x_shape[3] % 16 == 0 and x_align == 0:
+        return plan_tma(x_shape, cout, geometry, sm_count)
+    return plan_mma(x_shape[3], cout, x_align)
+
+
+def plan_conv(x_shape: Sequence[int], cout: int, geometry: Sequence[int],
+              x_ptr: int = 0, sm_count: int = SM_COUNT) -> ConvPlan:
+    """K1's route and launch for one call, by a rule on its shape: "tma"
+    where Cin is a multiple of 16 and ``xq`` (at ``x_ptr``) is 16-byte
+    aligned (TMA's rules for a global stride and address; the output is
+    allocated aligned, and both routes need an aligned weight, which
+    :func:`conv_cuda` checks), "mma" for the rest. Computed once
+    per (shape, Cout, geometry, alignment, SM count) and cached."""
+    return _plan(tuple(x_shape), int(cout), tuple(geometry), x_ptr % 16,
+                 sm_count)
 
 
 def int8_conv2d(xq: torch.Tensor, weight: Int8Weight, scale: torch.Tensor,
@@ -326,26 +467,61 @@ def conv_output(xq, cout, geometry, out_dtype):
                        dtype=out_dtype, device=xq.device)
 
 
+def check_weight_aligned(w_ptr: int) -> None:
+    """K1's weight operand starts on 16 bytes: the "tma" route's tensor map
+    and the "mma" route's 16-byte copies both need it, so no route takes
+    a weight that does not (:func:`prepare_weight` allocates it so)."""
+    if w_ptr % 16:
+        raise ValueError(f"int8_conv2d: the weight operand starts {w_ptr % 16}"
+                         f" bytes past a 16-byte boundary; both K1 routes "
+                         f"need it aligned (prepare_weight allocates it so)")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def conv_cuda(xq, kernel, scale, geometry, out_dtype):
-    """``xdt::int8_conv`` on CUDA tensors: K1."""
+    """``xdt::int8_conv`` on CUDA tensors: K1, on the route that
+    :func:`plan_conv` gives the call's shape."""
     _check_operands("int8_conv2d", xq, kernel, scale, out_dtype)
-    b, h, w, cin = xq.shape
-    cout, kp = kernel.shape
-    kh, kw, sh, sw, dh, dw, top, _, left, _ = geometry
-    out = conv_output(xq, cout, geometry, out_dtype)
+    check_weight_aligned(kernel.data_ptr())
+    out = conv_output(xq, kernel.shape[0], geometry, out_dtype)
     if out.numel() == 0:
         return out
-    ho, wo = out.shape[1:3]
+    b, ho, wo = out.shape[:3]
     if b * ho * wo > _INT_MAX:
         raise ValueError(f"int8_conv2d: {b * ho * wo} output pixels, the "
                          f"kernel takes < 2^31")
-    plan = plan_conv(cin, cout, xq.data_ptr())
-    _build.launch(
-        "xdt_int8_conv", "int8_conv2d", xq, xq.data_ptr(), kernel.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        b, h, w, cin, ho, wo, cout, kh, kw, sh, sw, dh, dw, top, left, kp,
-        plan.bn, plan.vec)
+    plan = plan_conv(xq.shape, kernel.shape[0], geometry, xq.data_ptr(),
+                     sm_count(xq.get_device()))
+    return run_plan(plan, xq, kernel, scale, geometry, out)
+
+
+def run_plan(plan: ConvPlan, xq, kernel, scale, geometry, out):
+    """K1 on CUDA tensors by ``plan`` into ``out`` (:func:`conv_output`),
+    counted in ``int8_conv2d.launches`` and its route's
+    ``int8_conv2d.route_launches``."""
+    b, h, w, cin = xq.shape
+    cout, kp = kernel.shape
+    ho, wo = out.shape[1:3]
+    kh, kw, sh, sw, dh, dw, top, _, left, _ = geometry
+    args = (xq.data_ptr(), kernel.data_ptr(), scale.data_ptr(),
+            out.data_ptr())
+    shape = (int(out.dtype == torch.bfloat16), b, h, w, cin, ho, wo, cout,
+             kh, kw, sh, sw, dh, dw, top, left, kp)
+    if plan.route == "tma":
+        _build.launch(
+            "xdt_int8_conv_tma", "int8_conv2d", xq, *args, *shape,
+            int(plan.form == "gemm"), plan.th, plan.tw, plan.bn, plan.stages,
+            plan.splits, plan.smem_bytes, plan.grid)
+    else:
+        _build.launch("xdt_int8_conv", "int8_conv2d", xq, *args, *shape,
+                      plan.bn, plan.vec)
     int8_conv2d.launches += 1
+    int8_conv2d.route_launches[plan.route] += 1
     return out
 
 
@@ -439,23 +615,45 @@ def dwconv_cuda(xq, kernel, scale, geometry, out_dtype):
 
 # ---- bounds on one H100 -----------------------------------------------------
 
-def conv_bound_ms(b: int, h: int, w: int, cin: int, ho: int, wo: int,
-                  cout: int, k: int, out_bytes: int):
+def input_extent(n: int, n_out: int, k: int, s: int, d: int,
+                 pad: int) -> int:
+    """Rows (or columns) of an ``n``-long input axis that some tap of some
+    of ``n_out`` outputs reads (``k`` taps, stride ``s``, dilation ``d``,
+    ``pad`` before): a strided 1x1 reads only its stride's grid."""
+    return len({o * s - pad + i * d for o in range(n_out)
+                for i in range(k)}.intersection(range(n)))
+
+
+def _input_bytes(b: int, h: int, w: int, c: int, geometry: Sequence[int]):
+    """(int8 bytes of a [B, H, W, C] input that a conv of ``geometry``
+    reads, Ho, Wo)."""
+    kh, kw, sh, sw, dh, dw, top, _, left, _ = geometry
+    ho, wo = output_size((h, w), (kh, kw), (sh, sw), (dh, dw),
+                         _pairs(geometry))
+    rows = input_extent(h, ho, kh, sh, dh, top)
+    cols = input_extent(w, wo, kw, sw, dw, left)
+    return b * rows * cols * c, ho, wo
+
+
+def conv_bound_ms(b: int, h: int, w: int, cin: int, cout: int,
+                  geometry: Sequence[int], out_bytes: int):
     """(least ms, what binds) of one K1 call: 2 M N K int8 operations at the
-    tensor cores' int8 rate; xq, the weight, the fp32 scale and the output
-    each moved once."""
-    m = b * ho * wo
-    nbytes = b * h * w * cin + cout * k + 4 * cout + m * cout * out_bytes
+    tensor cores' int8 rate (K = kh kw Cin); the input pixels that some tap
+    reads, the weight, the fp32 scale and the output each moved once."""
+    read, ho, wo = _input_bytes(b, h, w, cin, geometry)
+    m, k = b * ho * wo, geometry[0] * geometry[1] * cin
+    nbytes = read + cout * k + 4 * cout + m * cout * out_bytes
     return roofline.bound_ms(2.0 * m * cout * k, nbytes,
                              roofline.INT8_TENSOR_OPS_PER_S)
 
 
-def depthwise_bound_ms(b: int, h: int, w: int, c: int, ho: int, wo: int,
-                       out_bytes: int):
+def depthwise_bound_ms(b: int, h: int, w: int, c: int,
+                       geometry: Sequence[int], out_bytes: int):
     """K2: 9 multiply-adds an output on the CUDA cores (at the fp32 rate,
-    the table's rate outside the tensor cores); xq, the 9 x C taps, the
-    scale and the output each moved once."""
-    nbytes = b * h * w * c + 9 * c + 4 * c + b * ho * wo * c * out_bytes
+    the table's rate outside the tensor cores); the input pixels that some
+    tap reads, the 9 x C taps, the scale and the output each moved once."""
+    read, ho, wo = _input_bytes(b, h, w, c, geometry)
+    nbytes = read + 9 * c + 4 * c + b * ho * wo * c * out_bytes
     return roofline.bound_ms(2.0 * 9 * b * ho * wo * c, nbytes,
                              roofline.FP32_FLOP_PER_S)
 
@@ -470,6 +668,7 @@ def quantize_bound_ms(n: int, in_bytes: int):
 def reset_launches() -> None:
     for fn in (quantize_activation, int8_conv2d, int8_depthwise_conv2d):
         fn.launches = 0
+    int8_conv2d.route_launches = {"tma": 0, "mma": 0}
 
 
 reset_launches()

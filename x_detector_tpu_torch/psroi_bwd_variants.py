@@ -32,6 +32,7 @@ import torch
 
 from x_detector_tpu_torch import _build
 from x_detector_tpu_torch.ops import psroi_align as pa
+from x_detector_tpu_torch.utils.profiling import kernel_device_ms
 
 B, R, SIZE, GRID, C, SAMPLES, OHEM_KEEP = 16, 1000, 50, 7, 10, 2, 256
 WARMUP, REPS = 3, 20
@@ -60,24 +61,14 @@ def cuda_ms(fn) -> float:
 
 
 def device_ms(fn, reps: int = 10) -> dict:
-    """{kernel name: mean device ms per call of ``fn``} from
-    ``torch.profiler``: what the card spends, without the host's launch
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    """{"prepare" or "tiles": mean device ms per call of ``fn``}
+    (:func:`utils.profiling.kernel_device_ms`): what the card spends on the
+    backward's kernels, without the host's launch time."""
     out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        if us and "psroi" in ev.key:
-            name = "prepare" if "prepare" in ev.key else "tiles"
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    for key, ms in kernel_device_ms(fn, reps).items():
+        if "psroi" in key:
+            name = "prepare" if "prepare" in key else "tiles"
+            out[name] = out.get(name, 0.0) + ms
     return out
 
 

@@ -41,6 +41,7 @@ import torch
 from x_detector_tpu_torch import _build
 from x_detector_tpu_torch import psroi_bwd_variants as bwd
 from x_detector_tpu_torch.ops import psroi_align as pa
+from x_detector_tpu_torch.utils import profiling
 
 B, SIZE, GRID, C, SAMPLES = 16, 50, 7, 10, 2
 ROIS = {"config3": 512, "config4": 1000}
@@ -60,7 +61,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def device_ms(fn) -> float:
     """The forward kernel's mean device ms per call of ``fn``
     (``torch.profiler``)."""
-    return sum(bwd.device_ms(fn, REPS).values())
+    return profiling.device_ms(fn, REPS, keep="psroi")
 
 
 def build_switched():

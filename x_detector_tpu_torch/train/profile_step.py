@@ -46,7 +46,8 @@ STAGE = "stage:"
 FAMILIES = (
     ("psroi", ("psroi",)),
     ("fused sepconv", ("sepconv",)),
-    ("int8", ("int8_conv_kernel", "int8_dwconv_kernel", "quantize_s8")),
+    ("int8", ("int8_conv_kernel", "int8_conv_tma_kernel",
+              "int8_dwconv_kernel", "quantize_s8")),
     ("conv", ("conv", "xmma", "cudnn", "cutlass", "implicit", "sm90_",
               "nhwc", "dgrad", "wgrad")),
     ("gemm", ("gemm",)),
