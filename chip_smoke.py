@@ -34,9 +34,15 @@ Phases; each raises on failure and the script then exits non-zero:
                 stems) and, in the same call, on the first design through
                 the same wrapper and operator (first_design_planned), both
                 held bitwise; the bounds count the input pixels some tap
-                reads. K1 and its yardsticks are also timed by the
-                profiler's device time, which the small calls of config 2
-                need (CUDA events around wrapper calls read the host).
+                reads. K2 runs on its route ("tma", csrc/int8_dwconv_tma.cu,
+                at every config 3 shape) dequantizing and quantizing on its
+                store at a next conv's scale (held to the plain versions
+                composed; its bound counts 1 byte an output), against K2
+                dequantizing then K3 and against the first design ("simt",
+                first_depthwise_design), all held bitwise. Every kernel and
+                yardstick is also timed by the profiler's device time,
+                which the small calls of config 2 need (CUDA events around
+                wrapper calls read the host).
   4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
                 the fused separable conv) from seeded uint8 images through
                 build_eval_fn, batches of 16: launch counts, detection
@@ -81,13 +87,17 @@ Phases; each raises on failure and the script then exits non-zero:
                 of seeded uint8 images through preprocess_for_eval; every
                 range positive), then build_eval_fn on the float paths'
                 images: launches (config 2: K1 53 and K3 53 a batch;
-                config 3: K1 20, K2 16, K3 36 and B1's forward 1; B2
-                never), K1's by route (the stem on "mma", the other 52 /
-                19 on "tma"), the detection invariants, batch time,
+                config 3: K1 20, K2 16, K3 20 and B1's forward 1, each
+                separable block's K2 quantizing on its store for the
+                pointwise conv; B2 never), K1's by route (the stem on
+                "mma", the other 52 / 19 on "tma"), K2's by route (all
+                "tma") and mode, the detection invariants, batch time,
                 images/s and peak memory beside the bf16 path's (phases 6
                 and 4), and batch ms in alternating rounds of the bf16
-                path, the int8 path and the int8 path with the first
-                design's K1 on every call (its detections held bitwise);
+                path, the int8 path, the int8 path with the first design's
+                K1 on every call and, on config 3, the int8 path with PR
+                10's K2 and a K3 before every pointwise conv (the last two
+                sides' detections held bitwise to the int8 path's);
                 the prequantized model's outputs and detections against
                 the in-graph model's, bit for bit; at 128 px, the card
                 (bf16, kernels) against the CPU (bf16, plain versions)
@@ -780,7 +790,9 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
         expected.update({k: v * n for k, v in int8_calls(model).items()})
     return {"launches": launches, "batches": n, "suppress": suppress,
             "routes": dict(fs.fused_separable_conv.route_launches),
-            **({"int8_routes": dict(q8.int8_conv2d.route_launches)}
+            **({"int8_routes": dict(q8.int8_conv2d.route_launches),
+                "dw_routes": dict(q8.int8_depthwise_conv2d.route_launches),
+                "dw_modes": dict(q8.int8_depthwise_conv2d.mode_launches)}
                if cfg.model.backbone_quant is not None else {}),
             "expected": expected,
             "seconds": seconds[1:], "anchors": model.anchors.shape[0],
@@ -913,14 +925,24 @@ def int8_counters():
             "quantize_s8": q8.quantize_activation}
 
 
+def quantizing_blocks(model) -> int:
+    """The separable blocks of ``model`` whose depthwise conv (K2)
+    quantizes its output for the pointwise conv (``quantizes_on_store``):
+    one K3 launch fewer each a forward."""
+    from x_detector_tpu_torch.models.layers import SeparableConvBN
+    return sum(1 for m in model.modules()
+               if isinstance(m, SeparableConvBN) and m.quantizes_on_store)
+
+
 def int8_calls(model) -> dict:
     """The int8 kernels' launches per forward of an int8 ``model``: K1 a
-    dense QuantConv, K2 a depthwise one, K3 before each."""
+    dense QuantConv, K2 a depthwise one, K3 before each but the pointwise
+    convs whose input K2 quantized (``quantizing_blocks``)."""
     from x_detector_tpu_torch import quant
     convs = quant.quant_convs(model).values()
     dense = sum(1 for m in convs if not m.depthwise)
     return {"int8_conv": dense, "int8_dwconv": len(convs) - dense,
-            "quantize_s8": len(convs)}
+            "quantize_s8": len(convs) - quantizing_blocks(model)}
 
 
 def train_config(image_size: int = 800, batch_size: int = BATCH):
@@ -1816,37 +1838,84 @@ def int8_reference_check(model_cfg, device, keys, ranges) -> dict:
 
 
 def int8_conv_calls(cfg, device, batch: int):
-    """Every QuantConv call of ``cfg``'s backbone at its full size and
+    """Every QuantConv call of ``cfg``'s int8 backbone at its full size and
     ``batch``, counted by shape: (B, H, W, Cin, Cout, kernel, stride,
-    dilation, pads, depthwise) -> calls a batch. Read by forward hooks on
-    one calibrate-mode pass (the float path's convs, no int8 kernel) of a
-    zero batch."""
+    dilation, pads, depthwise) -> calls a batch; and, by the same keys, the
+    calls whose input K2 quantizes on its store (the pointwise convs of
+    ``quantizes_on_store`` blocks), which run no K3. Read by forward hooks
+    on one calibrate-mode pass (the float path's convs, no int8 kernel) of
+    a zero batch."""
     from collections import Counter
     from x_detector_tpu_torch import quant
     from x_detector_tpu_torch.inference import build_model
-    from x_detector_tpu_torch.models.layers import same_pads
+    from x_detector_tpu_torch.models.layers import SeparableConvBN, same_pads
     model = build_model(dataclasses.replace(
-        cfg.model, backbone_quant="calibrate"), device, seed=None)
-    calls = Counter()
+        cfg.model, backbone_quant="int8"), device, seed=None)
+    quantized = {id(m.Conv_1) for m in model.modules()
+                 if isinstance(m, SeparableConvBN) and m.quantizes_on_store}
+    convs = quant.quant_convs(model).values()
+    for m in convs:
+        m.mode = "calibrate"
+    calls, fused = Counter(), Counter()
 
     def record(m, args):
         b, cin, h, w = args[0].shape
         pads = m.pads if m.pads != "SAME" else same_pads(
             (h, w), m.kernel_size, m.stride, m.dilation)
-        calls[(b, h, w, cin, m.out_channels, m.kernel_size, m.stride,
-               m.dilation, tuple(map(tuple, pads)), m.depthwise)] += 1
+        key = (b, h, w, cin, m.out_channels, m.kernel_size, m.stride,
+               m.dilation, tuple(map(tuple, pads)), m.depthwise)
+        calls[key] += 1
+        fused[key] += id(m) in quantized
 
-    hooks = [m.register_forward_pre_hook(record)
-             for m in quant.quant_convs(model).values()]
+    hooks = [m.register_forward_pre_hook(record) for m in convs]
     size = cfg.model.image_size
     with torch.no_grad():
         model.backbone(torch.zeros(batch, size, size, 3, device=device))
     for h in hooks:
         h.remove()
-    return calls
+    return calls, +fused
 
 
-def time_int8(calls, randn) -> dict:
+# The int8 kernel phase's calls whose device time the profiler could not
+# give (a window that records no kernel, again and again: it happens now
+# and then on the card's machine): {"kernel", "call", "events_ms"}, the
+# time by CUDA events kept apart. Their device times are None, and so is
+# every per-batch device sum that holds one; each kernel's entry on the
+# kernels line lists its own.
+DEVICE_MISSING = []
+
+
+def int8_device_ms(fn, kernel: str, tag: str):
+    """``utils.profiling.device_ms(fn)``, or None where the profiler records
+    no kernel: then ``fn``'s CUDA-event time is kept in DEVICE_MISSING under
+    the ``kernel``'s entry name and the call's ``tag``, and logged."""
+    from x_detector_tpu_torch.utils.profiling import device_ms
+    try:
+        return device_ms(fn, tries=6)
+    except AssertionError as err:
+        ms = cuda_ms(fn)
+        DEVICE_MISSING.append({"kernel": kernel, "call": tag,
+                               "events_ms": ms})
+        log(f"{kernel} {tag}: {err}; no device time (CUDA events "
+            f"{ms:.4f} ms, kept apart)")
+        return None
+
+
+def add_ms(row: dict, field: str, v, n=1) -> None:
+    """``row[field] += n * v``; None (not measured) wins."""
+    row[field] = None if row[field] is None or v is None else (
+        row[field] + n * v)
+
+
+def ms_text(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def share_text(bound: float, v) -> str:
+    return "not measured" if v is None else f"{bound / v:.1%}"
+
+
+def time_int8(calls, randn, fused) -> dict:
     """K3, then K1 or K2, at each call shape of ``calls`` (one config's
     batch): each held to its plain version bit for bit, then timed beside
     its bound, the plain version and, as yardsticks the port never calls,
@@ -1854,24 +1923,39 @@ def time_int8(calls, randn) -> dict:
     torch._int_mm (the int32 product alone). K1 runs on the route its
     shape's plan takes and, in the same call, on the first design (the
     "mma" route, through the same wrapper and operator with every plan
-    the first design's: ``first_design_planned``), also held bitwise; K1
-    and its yardsticks are timed both by CUDA events around wrapper calls
-    ("ms") and by the profiler's device time ("device_ms"). Returns
-    per-batch sums, weighted by the calls, by kernel; K1's also by
-    route."""
+    the first design's: ``first_design_planned``), also held bitwise. K2
+    runs on its route ("tma" at every call shape of config 3) in both
+    modes, dequantizing (bf16) and quantizing on its store at a next
+    conv's scale (the separable blocks' path), the latter held to the two
+    plain versions composed and timed against K2 dequantizing then K3,
+    and on the first design ("simt", ``first_depthwise_design``). Every
+    kernel and yardstick is timed both by CUDA events around wrapper calls
+    ("ms") and by the profiler's device time ("device_ms", None where the
+    profiler gave nothing: ``int8_device_ms``). Returns per-batch sums,
+    weighted by the calls, by kernel; K1's and K2's also by route; K3's
+    over the calls that run it, those of ``calls`` less ``fused`` (the
+    calls whose input K2 quantizes on its store, as
+    ``int8_conv_calls`` gives them)."""
     import torch.nn.functional as F
     from x_detector_tpu_torch.ops import int8_conv as q8
-    from x_detector_tpu_torch.utils.profiling import device_ms
     tot = {name: dict.fromkeys(("ms", "plain_ms", "bound_ms", "cudnn_ms",
-                                "bytes_bound_ms", "err", "calls"), 0.0)
+                                "bytes_bound_ms", "err", "calls",
+                                "device_ms", "cudnn_device_ms"), 0.0)
            for name in ("int8_conv", "int8_dwconv", "quantize_s8")}
     k1 = tot["int8_conv"]
-    k1.update(dict.fromkeys(("device_ms", "mma_ms", "mma_device_ms",
-                             "cudnn_device_ms"), 0.0),
+    k1.update(dict.fromkeys(("mma_ms", "mma_device_ms"), 0.0),
               routes={r: dict.fromkeys(("calls", "ms", "device_ms",
                                         "mma_ms", "mma_device_ms",
                                         "bound_ms"), 0.0)
                       for r in ("tma", "mma")})
+    k2 = tot["int8_dwconv"]
+    k2.update(dict.fromkeys(("simt_ms", "simt_device_ms", "q_ms",
+                             "q_device_ms", "q_plain_ms", "q_bound_ms",
+                             "pair_ms", "pair_device_ms"), 0.0),
+              routes={r: dict.fromkeys(("calls", "device_ms", "q_device_ms",
+                                        "bound_ms", "q_bound_ms"), 0.0)
+                      for r in ("tma", "simt")},
+              shapes=[])
     tot["int_mm"] = dict.fromkeys(("ms", "device_ms", "kernel_ms",
                                    "kernel_device_ms", "mma_ms",
                                    "mma_device_ms", "calls"), 0.0)
@@ -1904,7 +1988,36 @@ def time_int8(calls, randn) -> dict:
         ref_q = q8.quantize_activation_reference(x, sx)
         got, ref = kern(), plain()
         held = [("quantize_s8", got_q, ref_q), (name, got, ref)]
-        if not dw:
+        if dw:
+            # the next conv's scale: the output's range, as calibration
+            # gives it
+            sx_next = q8.activation_scale(ref.abs().amax().float() * 0.9)
+            quantizing = lambda: q8.int8_depthwise_conv2d_quantized(
+                xq, weight, scale, sx_next, **kw)
+            pair = lambda: q8.quantize_activation(kern(), sx_next)
+            ref_fused = q8.quantize_activation_reference(ref, sx_next)
+            dplan = q8.plan_depthwise(
+                xq.shape, geometry, (xq.data_ptr(), weight.kernel.data_ptr(),
+                                     weight.kernel.data_ptr() + 9 * cin,
+                                     scale.data_ptr(), got.data_ptr()),
+                q8.sm_count(xq.get_device()))
+            before = dict(q8.int8_depthwise_conv2d.mode_launches)
+            held.append(("int8_dwconv quantizing on its store",
+                         quantizing(), ref_fused))
+            held.append(("K2 then K3", pair(), ref_fused))
+            if q8.int8_depthwise_conv2d.mode_launches["quantize"] != (
+                    before["quantize"] + 1):
+                raise AssertionError(f"int8_dwconv {tag}: the quantizing "
+                                     f"mode was not launched")
+            with first_depthwise_design():
+                before = q8.int8_depthwise_conv2d.route_launches["simt"]
+                held.append(("int8_dwconv (first design, simt route)",
+                             kern(), ref))
+                if q8.int8_depthwise_conv2d.route_launches["simt"] != (
+                        before + 1):
+                    raise AssertionError(f"int8_dwconv {tag}: the first "
+                                         f"design was not launched")
+        else:
             with first_design_planned():
                 before = q8.int8_conv2d.route_launches["mma"]
                 held.append(("int8_conv (first design, mma route)", kern(),
@@ -1928,21 +2041,75 @@ def time_int8(calls, randn) -> dict:
             bound = q8.depthwise_bound_ms(b, h, w, cin, geometry, 2)
         else:
             bound = q8.conv_bound_ms(b, h, w, cin, cout, geometry, 2)
+        # cuDNN's depthwise is timed by events only: once the profiler had
+        # traced it, it once recorded no kernel at all in later windows on
+        # the H100 machine; its calls are long enough for events
         t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 1, 2),
-             "cudnn_ms": cuda_ms(cudnn)}
-        tq = {"ms": cuda_ms(lambda: q8.quantize_activation(x, sx)),
+             "cudnn_ms": cuda_ms(cudnn),
+             "device_ms": int8_device_ms(kern, name, tag)}
+        if not dw:
+            t["cudnn_device_ms"] = int8_device_ms(cudnn, name,
+                                                  f"cuDNN {tag}")
+        quantize = lambda: q8.quantize_activation(x, sx)
+        tq = {"ms": cuda_ms(quantize),
               "plain_ms": cuda_ms(lambda: q8.quantize_activation_reference(
-                  x, sx), 1, 5)}
+                  x, sx), 1, 5),
+              "device_ms": int8_device_ms(quantize, "quantize_s8", tag)}
         bound_q = q8.quantize_bound_ms(x.numel(), 2)
         extra = ""
-        if not dw:
-            t.update(device_ms=device_ms(kern),
-                     cudnn_device_ms=device_ms(cudnn))
+        if dw:
+            bound_fused = q8.depthwise_bound_ms(b, h, w, cin, geometry, 1)
+            with first_depthwise_design():
+                t.update(simt_ms=cuda_ms(kern), simt_device_ms=int8_device_ms(
+                    kern, name, f"(simt) {tag}"))
+            t.update(q_ms=cuda_ms(quantizing),
+                     q_device_ms=int8_device_ms(quantizing, name,
+                                                f"(q) {tag}"),
+                     q_plain_ms=cuda_ms(lambda: q8.dwconv_q_plain(
+                         xq, weight.kernel, scale, sx_next, geometry,
+                         torch.bfloat16), 1, 2),
+                     pair_ms=cuda_ms(pair),
+                     pair_device_ms=int8_device_ms(pair, name,
+                                                   f"(K2 + K3) {tag}"))
+            r = k2["routes"][dplan.route]
+            for field in ("device_ms", "q_device_ms"):
+                add_ms(r, field, t[field], n)
+            r["bound_ms"] += n * bound[0]
+            r["q_bound_ms"] += n * bound_fused[0]
+            r["calls"] += n
+            k2["q_bound_ms"] += n * bound_fused[0]
+            k2["shapes"].append({
+                "shape": [b, h, w, cin], "stride": s[0], "dilation": d[0],
+                "calls": n, "route": dplan.route,
+                "tile": [dplan.th, dplan.tw], "warps": dplan.qw * dplan.rr,
+                "stages": dplan.stages, "device_ms": t["device_ms"],
+                "q_device_ms": t["q_device_ms"],
+                "pair_device_ms": t["pair_device_ms"],
+                "simt_device_ms": t["simt_device_ms"],
+                "cudnn_ms": t["cudnn_ms"],
+                "bound_ms": bound[0], "q_bound_ms": bound_fused[0]})
+            extra = (f"; route {dplan.route} ({dplan.th} x {dplan.tw} tiles "
+                     f"of {dplan.qw * dplan.rr} warps, {dplan.stages} "
+                     f"stages, {dplan.units} units): device "
+                     f"{ms_text(t['device_ms'])} ms "
+                     f"({share_text(bound[0], t['device_ms'])} of the "
+                     f"bound); quantizing on its store "
+                     f"{t['q_ms']:.4f} ms, device "
+                     f"{ms_text(t['q_device_ms'])} ms (bound "
+                     f"{bound_fused[0]:.4f} ms at 1 byte out, "
+                     f"{share_text(bound_fused[0], t['q_device_ms'])}), K2 "
+                     f"then K3 {t['pair_ms']:.4f} ms, device "
+                     f"{ms_text(t['pair_device_ms'])} ms; first design "
+                     f"(simt route) {t['simt_ms']:.4f} ms, device "
+                     f"{ms_text(t['simt_device_ms'])} ms; cuDNN bf16 "
+                     f"depthwise {t['cudnn_ms']:.4f} ms by events")
+        else:
             with first_design_planned():
-                t.update(mma_ms=cuda_ms(kern), mma_device_ms=device_ms(kern))
+                t.update(mma_ms=cuda_ms(kern), mma_device_ms=int8_device_ms(
+                    kern, name, f"(mma) {tag}"))
             r = k1["routes"][plan.route]
             for field in ("ms", "device_ms", "mma_ms", "mma_device_ms"):
-                r[field] += n * t[field]
+                add_ms(r, field, t[field], n)
             r["bound_ms"] += n * bound[0]
             r["calls"] += n
             how = (f"{plan.form} form, {plan.th} x {plan.tw} tiles, "
@@ -1950,18 +2117,20 @@ def time_int8(calls, randn) -> dict:
                 f"bn {plan.bn}, {plan.tiles} tiles x {plan.splits} "
                 f"slices of {plan.chunks} K chunks, {plan.stages} stages"
                 if plan.route == "tma" else f"bn {plan.bn}, vec {plan.vec}")
-            share = bound[0] / t["device_ms"]
             extra = (f"; route {plan.route} ({how}): device "
-                     f"{t['device_ms']:.4f} ms ({share:.1%} of the "
+                     f"{ms_text(t['device_ms'])} ms "
+                     f"({share_text(bound[0], t['device_ms'])} of the "
                      f"bound); first design (mma route) "
                      f"{t['mma_ms']:.4f} ms, device "
-                     f"{t['mma_device_ms']:.4f} ms; cuDNN device "
-                     f"{t['cudnn_device_ms']:.4f} ms")
+                     f"{ms_text(t['mma_device_ms'])} ms; cuDNN device "
+                     f"{ms_text(t['cudnn_device_ms'])} ms")
         if not dw and k == (1, 1) and s == (1, 1) and b * h * w > 16:
             a2, b2 = xq.reshape(-1, cin), wq.reshape(cout, cin).t()
             int_mm = lambda: torch._int_mm(a2, b2)
             try:
-                mm = {"ms": cuda_ms(int_mm), "device_ms": device_ms(int_mm)}
+                mm = {"ms": cuda_ms(int_mm),
+                      "device_ms": int8_device_ms(int_mm, name,
+                                                  f"_int_mm {tag}")}
             except RuntimeError as err:      # a yardstick only
                 extra += f"; torch._int_mm refused the shape: {err}"
             else:
@@ -1969,22 +2138,26 @@ def time_int8(calls, randn) -> dict:
                           mma_ms=t["mma_ms"],
                           mma_device_ms=t["mma_device_ms"], calls=1)
                 for field, v in mm.items():
-                    tot["int_mm"][field] += n * v
+                    add_ms(tot["int_mm"], field, v, n)
                 extra += (f"; torch._int_mm (the int32 product alone) "
-                          f"{mm['ms']:.4f} ms, device {mm['device_ms']:.4f}")
+                          f"{mm['ms']:.4f} ms, device "
+                          f"{ms_text(mm['device_ms'])}")
+        n3 = n - fused[(b, h, w, cin, cout, k, s, d, pads, dw)]
         log(f"{name} {tag}: bitwise equal to the plain version; kernel "
             f"{t['ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
             f"{bound[0] / t['ms']:.1%} of it; plain {t['plain_ms']:.4f} ms; "
-            f"cuDNN bf16 conv (yardstick) {t['cudnn_ms']:.4f} ms{extra}; "
-            f"quantize_s8 {tq['ms']:.4f} ms (bound {bound_q[0]:.4f}); "
-            f"x{n} per batch")
-        for key, (row, tb) in (("int8", (t, bound)), ("q", (tq, bound_q))):
+            f"cuDNN bf16 conv (yardstick) {t['cudnn_ms']:.4f} ms by "
+            f"events{extra}; quantize_s8 {tq['ms']:.4f} ms, device "
+            f"{ms_text(tq['device_ms'])} ms (bound {bound_q[0]:.4f}); x{n} "
+            f"per batch, K3 x{n3}")
+        for key, (row, tb, m) in (("int8", (t, bound, n)),
+                                  ("q", (tq, bound_q, n3))):
             agg = tot[name if key == "int8" else "quantize_s8"]
             for field, v in row.items():
-                agg[field] += n * v
-            agg["bound_ms"] += n * tb[0]
-            agg["bytes_bound_ms"] += n * tb[0] * (tb[1] == "bytes")
-            agg["calls"] += n
+                add_ms(agg, field, v, m)
+            agg["bound_ms"] += m * tb[0]
+            agg["bytes_bound_ms"] += m * tb[0] * (tb[1] == "bytes")
+            agg["calls"] += m
         del x, xq, got, ref, got_q, ref_q, xc, held
     for name in ("int8_conv", "int8_dwconv", "quantize_s8"):
         agg = tot[name]
@@ -2004,46 +2177,91 @@ def phase_int8_kernels() -> dict:
     out = {}
     for tag, cfg, batch in (("config2", ssd_resnet50(512), SSD_BATCH),
                             ("config3", lighthead_xception(800), BATCH)):
-        calls = int8_conv_calls(cfg, dev, batch)
-        out[tag] = tot = time_int8(calls, randn)
-        for name in ("int8_conv", "int8_dwconv", "quantize_s8"):
-            t = tot[name]
-            if not t["calls"]:
-                continue
-            log(f"{name} per batch of {tag} ({int(t['calls'])} calls): kernel"
-                f" {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                f"({t['by']}), {t['bound_ms'] / t['ms']:.1%} of it; plain "
-                f"{t['plain_ms']:.4f} ms" + (
-                    f"; cuDNN bf16 convs (yardstick) {t['cudnn_ms']:.4f} ms"
-                    if name != "quantize_s8" else ""))
-        k1 = tot["int8_conv"]
-        log(f"int8_conv per batch of {tag}, device time: kernel "
-            f"{k1['device_ms']:.4f} ms ({k1['bound_ms'] / k1['device_ms']:.1%}"
-            f" of the bound), first design (mma route) {k1['mma_ms']:.4f} ms"
-            f" by events, {k1['mma_device_ms']:.4f} ms device; cuDNN bf16 "
-            f"convs {k1['cudnn_device_ms']:.4f} ms device")
-        for route, r in k1["routes"].items():
-            if r["calls"]:
-                log(f"int8_conv per batch of {tag}, the {int(r['calls'])} "
-                    f"calls planned on route {route}: {r['ms']:.4f} ms "
-                    f"({r['device_ms']:.4f} device), first design "
-                    f"{r['mma_ms']:.4f} ms ({r['mma_device_ms']:.4f} "
-                    f"device), bound {r['bound_ms']:.4f} ms")
-        mm = tot["int_mm"]
-        if mm["calls"]:
-            log(f"{tag}: the {int(mm['calls'])} 1x1 stride-1 calls: K1 "
-                f"{mm['kernel_ms']:.4f} ms ({mm['kernel_device_ms']:.4f} "
-                f"device), first design {mm['mma_ms']:.4f} ms "
-                f"({mm['mma_device_ms']:.4f} device), torch._int_mm (the "
-                f"int32 product alone, yardstick) {mm['ms']:.4f} ms "
-                f"({mm['device_ms']:.4f} device)")
+        calls, fused = int8_conv_calls(cfg, dev, batch)
+        out[tag] = time_int8(calls, randn, fused)
+        report_int8_kernels(tag, out[tag])
     return out
+
+
+def report_int8_kernels(tag: str, tot: dict) -> None:
+    """``time_int8``'s per-batch sums of one config, logged."""
+    for name in ("int8_conv", "int8_dwconv", "quantize_s8"):
+        t = tot[name]
+        if not t["calls"]:
+            continue
+        log(f"{name} per batch of {tag} ({int(t['calls'])} calls): kernel"
+            f" {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['by']}), {t['bound_ms'] / t['ms']:.1%} of it; plain "
+            f"{t['plain_ms']:.4f} ms" + (
+                f"; cuDNN bf16 convs (yardstick) {t['cudnn_ms']:.4f} ms by "
+                f"events" if name != "quantize_s8" else ""))
+    k1 = tot["int8_conv"]
+    log(f"int8_conv per batch of {tag}, device time: kernel "
+        f"{ms_text(k1['device_ms'])} ms "
+        f"({share_text(k1['bound_ms'], k1['device_ms'])} of the bound), "
+        f"first design (mma route) {k1['mma_ms']:.4f} ms by events, "
+        f"{ms_text(k1['mma_device_ms'])} ms device; cuDNN bf16 convs "
+        f"{ms_text(k1['cudnn_device_ms'])} ms device")
+    for route, r in k1["routes"].items():
+        if r["calls"]:
+            log(f"int8_conv per batch of {tag}, the {int(r['calls'])} "
+                f"calls planned on route {route}: {r['ms']:.4f} ms "
+                f"({ms_text(r['device_ms'])} device), first design "
+                f"{r['mma_ms']:.4f} ms ({ms_text(r['mma_device_ms'])} "
+                f"device), bound {r['bound_ms']:.4f} ms")
+    k2, k3 = tot["int8_dwconv"], tot["quantize_s8"]
+    if k2["calls"]:
+        log(f"int8_dwconv per batch of {tag}, device time: dequantizing "
+            f"{ms_text(k2['device_ms'])} ms "
+            f"({share_text(k2['bound_ms'], k2['device_ms'])} of its "
+            f"{k2['bound_ms']:.4f} ms bound); quantizing on its store "
+            f"{ms_text(k2['q_device_ms'])} ms "
+            f"({share_text(k2['q_bound_ms'], k2['q_device_ms'])} of its "
+            f"{k2['q_bound_ms']:.4f} ms bound at 1 byte out; "
+            f"{k2['q_ms']:.4f} ms by events); K2 dequantizing then K3 "
+            f"{ms_text(k2['pair_device_ms'])} ms ({k2['pair_ms']:.4f} by "
+            f"events); first design (simt route) "
+            f"{ms_text(k2['simt_device_ms'])} ms ({k2['simt_ms']:.4f} by "
+            f"events); cuDNN bf16 depthwise {k2['cudnn_ms']:.4f} ms by "
+            f"events (not device time)")
+        for route, r in k2["routes"].items():
+            if r["calls"]:
+                log(f"int8_dwconv per batch of {tag}, the "
+                    f"{int(r['calls'])} calls planned on route {route}: "
+                    f"dequantizing {ms_text(r['device_ms'])} ms device "
+                    f"(bound {r['bound_ms']:.4f}), quantizing "
+                    f"{ms_text(r['q_device_ms'])} ms (bound "
+                    f"{r['q_bound_ms']:.4f})")
+    log(f"quantize_s8 per batch of {tag}, device time: "
+        f"{ms_text(k3['device_ms'])} ms "
+        f"({share_text(k3['bound_ms'], k3['device_ms'])} of its "
+        f"{k3['bound_ms']:.4f} ms bound) over the {int(k3['calls'])} calls "
+        f"that run it (a pointwise conv whose input K2 quantized runs "
+        f"none)")
+    mm = tot["int_mm"]
+    if mm["calls"]:
+        log(f"{tag}: the {int(mm['calls'])} 1x1 stride-1 calls: K1 "
+            f"{mm['kernel_ms']:.4f} ms ({ms_text(mm['kernel_device_ms'])} "
+            f"device), first design {mm['mma_ms']:.4f} ms "
+            f"({ms_text(mm['mma_device_ms'])} device), torch._int_mm (the "
+            f"int32 product alone, yardstick) {mm['ms']:.4f} ms "
+            f"({ms_text(mm['device_ms'])} device)")
 
 
 def int8_kernel_lines(int8: dict) -> list:
     """The kernels line's entries of K1 (config 2's batch), K2 (config 3's)
     and K3 (config 2's), each with the other config's sums; K1's with its
-    route split, the first design's times and the device times."""
+    route split, the first design's times and the device times. K2's
+    "ms", "plain_ms", "bound_ms" and "device_ms" are the dequantizing
+    kernel's (bf16 out), as in the entries before K2 had a second mode
+    ("function" says so); the "quantize_*" fields are the mode the main
+    path runs, quantizing on its store (its bound at 1 byte out); then K2
+    dequantizing then K3, the first design, cuDNN's bf16 depthwise by
+    events, the route split and each call shape's readings. K3's
+    config 3 sums are over the calls that run it. Each entry lists the
+    calls of its kernel whose device time the profiler did not give
+    ("device_missing", their CUDA-event times apart); a device sum that
+    holds one is null."""
     site = "x_detector_tpu/models/layers.py:180"
     rows = []
     for name, main, other in (("int8_conv", "config2", "config3"),
@@ -2085,6 +2303,34 @@ def int8_kernel_lines(int8: dict) -> list:
                 tag: {f: (int(v) if f == "calls" else v)
                       for f, v in int8[tag]["int_mm"].items()}
                 for tag in int8}
+        elif name == "int8_dwconv":
+            row.update({
+                "source": "x_detector_tpu_torch/csrc/int8_dwconv_tma.cu",
+                "simt_route_source": "x_detector_tpu_torch/csrc/int8_conv.cu",
+                "function": "K2 dequantizing to bf16 (ms, plain_ms, "
+                            "bound_ms, device_ms); the main path's mode, "
+                            "quantizing on its store: quantize_*",
+                "device_ms": t["device_ms"], "bound_out_bytes": 2,
+                "quantize_ms": t["q_ms"],
+                "quantize_device_ms": t["q_device_ms"],
+                "quantize_plain_ms": t["q_plain_ms"],
+                "quantize_bound_ms": t["q_bound_ms"],
+                "quantize_bound_out_bytes": 1,
+                "with_separate_quantize_device_ms": t["pair_device_ms"],
+                "with_separate_quantize_ms": t["pair_ms"],
+                "previous_design_ms": t["simt_ms"],
+                "previous_design_device_ms": t["simt_device_ms"],
+                "cudnn_bf16_yardstick_timed_by": "events",
+                "routes": {r: {f: (int(v) if f == "calls" else v)
+                               for f, v in d.items()}
+                           for r, d in t["routes"].items()},
+                "shapes": t["shapes"]})
+        else:
+            row.update({f"{tag}_device_ms" if tag != main else "device_ms":
+                        int8[tag][name]["device_ms"] for tag in int8})
+        row["device_missing"] = [
+            {k: v for k, v in m.items() if k != "kernel"}
+            for m in DEVICE_MISSING if m["kernel"] == name]
         rows.append(row)
     return rows
 
@@ -2299,6 +2545,114 @@ def first_design_planned():
         yield
     finally:
         q8._plan = rule
+
+
+def int8_rounds(path: str, res: dict, cfg, batch: int, per_batch: dict,
+                k1_routes: dict, k2_modes: dict, device="cuda",
+                rounds: int = INT8_ROUNDS) -> dict:
+    """The int8 path of ``res`` (``run_int8(..., keep_path=True)``) and
+    the bf16 path on the same weights and images in alternating rounds
+    (the host drifts between states within one process), with the int8
+    path with the first design's K1 on every call and, where the model has
+    depthwise convs, with the first design's K2 and a K3 before every
+    pointwise conv
+    (the same wrappers, operators and model: before and after each
+    redesign by one method). Each of those two sides launches as
+    expected, and gives the int8 path's detections bit for bit. Returns
+    ``alternating_ms``'s readings."""
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    flt = run_slice(cfg, device, batches=0, batch_size=batch,
+                    keep_path=True)
+    detect, flt_detect, u8 = (res.pop("detect"), flt.pop("detect"),
+                              res.pop("u8"))
+
+    def first_design_detect():
+        with first_design_planned():
+            return detect(u8)
+
+    def held(side, want, got_launches, run):
+        q8.reset_launches()
+        pairs = list(zip(detect(u8), run()))
+        got = got_launches()
+        if got != want:
+            raise AssertionError(f"{path}: launches on the int8 path then "
+                                 f"with {side}: {got}, expected {want}")
+        for i, (a, b) in enumerate(pairs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{path}: detections[{i}] with {side} "
+                                     f"differ")
+
+    held("the first design's K1",
+         {"tma": k1_routes["tma"],
+          "mma": k1_routes["mma"] + per_batch["int8_conv"]},
+         lambda: q8.int8_conv2d.route_launches, first_design_detect)
+    sides = {"bf16": lambda: flt_detect(u8), "int8": lambda: detect(u8),
+             "int8_first_design": first_design_detect}
+    dw = per_batch["int8_dwconv"]
+    if dw:
+        def first_dw_detect():
+            with first_depthwise_design():
+                return detect(u8)
+
+        held("the first design's K2 and a separate K3",
+             {"routes": {"tma": dw, "simt": dw},
+              "modes": {"quantize": k2_modes["quantize"],
+                        "dequant": k2_modes["dequant"] + dw},
+              "quantize_s8": 2 * per_batch["quantize_s8"]
+              + k2_modes["quantize"]},
+             lambda: {"routes": q8.int8_depthwise_conv2d.route_launches,
+                      "modes": q8.int8_depthwise_conv2d.mode_launches,
+                      "quantize_s8": q8.quantize_activation.launches},
+             first_dw_detect)
+        sides["int8_first_dw"] = first_dw_detect
+    ms = alternating_ms(sides, rounds=rounds, device=device)
+
+    def ratio(side):
+        paired = sorted(a / b for a, b in zip(ms[side]["rounds"],
+                                              ms["int8"]["rounds"]))
+        return (f"{ms[side]['median'] / ms['int8']['median']:.3f}x "
+                f"(round by round: median {paired[len(paired) // 2]:.3f}"
+                f"x, {paired[0]:.3f}-{paired[-1]:.3f}x)")
+
+    log(f"{path}: K1 routes a batch {k1_routes}, K2 modes {k2_modes}; "
+        f"ms a batch {rounds_text(ms)}: bf16 / int8 "
+        f"{ms['bf16']['median'] / ms['int8']['median']:.3f}x; int8 "
+        f"with the first design's K1 / with the new route "
+        f"{ratio('int8_first_design')}; bf16 / int8 with the first design "
+        f"{ms['bf16']['median'] / ms['int8_first_design']['median']:.3f}x"
+        + (f"; int8 with the first design's K2 and a separate K3 / with "
+           f"the new K2 "
+           f"quantizing on its store {ratio('int8_first_dw')}; bf16 / int8 "
+           f"with them "
+           f"{ms['bf16']['median'] / ms['int8_first_dw']['median']:.3f}x"
+           if dw else ""))
+    return ms
+
+
+# K2's plan for a shape were it the first design's: every call on the
+# "simt" route, cached as the rule's plans are
+@functools.lru_cache(maxsize=None)
+def _first_depthwise_plan(x_shape, geometry, aligns, sms, out_bytes):
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    return q8.DepthwisePlan("simt", vec=q8.depthwise_vec(
+        x_shape[3], aligns[0], aligns[1]))
+
+
+@contextlib.contextmanager
+def first_depthwise_design():
+    """Within: K2 as its first design ran it, through the same wrappers,
+    operators and model: its plan (``ops/int8_conv._plan_dw``) the first
+    design's (the "simt" route) for every shape, and no separable block
+    quantizing on K2's store (``ops/int8_conv.fuses_quantize`` false), so
+    K3 runs before every pointwise conv."""
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    rule, fuses = q8._plan_dw, q8.fuses_quantize
+    q8._plan_dw = _first_depthwise_plan
+    q8.fuses_quantize = lambda c, stride, dilation: False
+    try:
+        yield
+    finally:
+        q8._plan_dw, q8.fuses_quantize = rule, fuses
 
 
 @contextlib.contextmanager
@@ -2749,7 +3103,6 @@ def main() -> int:
     from x_detector_tpu_torch.config import (config5, lighthead_resnet50,
                                              lighthead_xception,
                                              ssd_resnet50, xdet_xception)
-    from x_detector_tpu_torch.ops import int8_conv as q8
     phase_build()
     kernels = phase_kernels()
     kernels += int8_kernel_lines(phase_int8_kernels())
@@ -2864,26 +3217,32 @@ def main() -> int:
     # weights and images); the prequantized model against the in-graph
     # one; the 128 px check against the CPU
     # K1's routes a batch: the stem (Cin 3 or 12) on the first design,
-    # every other dense conv on the "tma" route
-    for path, cfg, float_path, batch, per_batch, k1_routes, keys in (
+    # every other dense conv on the "tma" route; K2's: every call on the
+    # "tma" route, quantizing on its store for the pointwise conv, so K3
+    # runs before every conv but those 16
+    for path, cfg, float_path, batch, per_batch, k1_routes, k2_modes, keys in (
             ("int8_config2", ssd_resnet50(512), "ssd", SSD_BATCH,
              {"int8_conv": 53, "int8_dwconv": 0, "quantize_s8": 53,
               "psroi_align": 0}, {"tma": 52, "mma": 1},
-             ("cls_logits", "box_codes")),
+             {"dequant": 0, "quantize": 0}, ("cls_logits", "box_codes")),
             ("int8_config3", fused(lighthead_xception(800)), "slice", BATCH,
-             {"int8_conv": 20, "int8_dwconv": 16, "quantize_s8": 36,
+             {"int8_conv": 20, "int8_dwconv": 16, "quantize_s8": 20,
               "psroi_align": 1}, {"tma": 19, "mma": 1},
-             ("rpn_cls", "rpn_loc"))):
+             {"dequant": 0, "quantize": 16}, ("rpn_cls", "rpn_loc"))):
         torch.cuda.reset_peak_memory_stats()
         res, model = run_int8(cfg, "cuda", batch_size=batch, keep_path=True)
         paths[path] = res
         check_slice(path, res, {"fused_sepconv": 0,
                                 "psroi_align_backward": 0, **per_batch})
-        if res["int8_routes"] != {r: v * res["batches"]
-                                  for r, v in k1_routes.items()}:
-            raise AssertionError(f"{path}: K1's routes {res['int8_routes']} "
-                                 f"over {res['batches']} batches, expected "
-                                 f"{k1_routes} a batch")
+        k2_routes = {"tma": per_batch["int8_dwconv"], "simt": 0}
+        for what, got, want in (("K1's routes", res["int8_routes"],
+                                 k1_routes),
+                                ("K2's routes", res["dw_routes"], k2_routes),
+                                ("K2's modes", res["dw_modes"], k2_modes)):
+            if got != {r: v * res["batches"] for r, v in want.items()}:
+                raise AssertionError(f"{path}: {what} {got} over "
+                                     f"{res['batches']} batches, expected "
+                                     f"{want} a batch")
         low = min(map(float, res["ranges"].values()))
         report_slice(f"{path}: {cfg.model.name} int8 (calibrated over "
                      f"{INT8_CALIB_BATCHES} batches, {len(res['ranges'])} "
@@ -2897,51 +3256,8 @@ def main() -> int:
             f"{float_ms:.2f} ms ({batch / float_ms * 1e3:.1f} images/s, peak "
             f"{ref['peak'] / 2**30:.2f} GiB; phase {float_path}): "
             f"{float_ms / int8_ms:.3f}x")
-        # the two paths on the same weights and images in alternating
-        # rounds (the host drifts between states within one process), and
-        # the int8 path with the first design's K1 on every call (the
-        # same wrapper, operator and model: before and after the redesign
-        # by one method)
-        flt = run_slice(cfg, "cuda", batches=0, batch_size=batch,
-                        keep_path=True)
-        detect, flt_detect, u8 = (res.pop("detect"), flt.pop("detect"),
-                                  res.pop("u8"))
-
-        def first_design_detect():
-            with first_design_planned():
-                return detect(u8)
-
-        q8.reset_launches()
-        pairs = list(zip(detect(u8), first_design_detect()))
-        if q8.int8_conv2d.route_launches != {
-                "tma": k1_routes["tma"],
-                "mma": k1_routes["mma"] + per_batch["int8_conv"]}:
-            raise AssertionError(f"{path}: K1 {q8.int8_conv2d.route_launches}"
-                                 f" on the rule's routes then the first "
-                                 f"design's, expected {k1_routes} then "
-                                 f"{per_batch['int8_conv']} on mma")
-        for i, (a, b) in enumerate(pairs):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{path}: detections[{i}] with the "
-                                     f"first design differ")
-        ms = alternating_ms({"bf16": lambda: flt_detect(u8),
-                             "int8": lambda: detect(u8),
-                             "int8_first_design": first_design_detect},
-                            rounds=INT8_ROUNDS)
-        paired = sorted(a / b for a, b in zip(
-            ms["int8_first_design"]["rounds"], ms["int8"]["rounds"]))
-        log(f"{path}: K1 routes a batch {k1_routes}; ms a batch "
-            f"{rounds_text(ms)}: bf16 / int8 "
-            f"{ms['bf16']['median'] / ms['int8']['median']:.3f}x; int8 "
-            f"with the first design's K1 / with the new route "
-            f"{ms['int8_first_design']['median'] / ms['int8']['median']:.3f}"
-            f"x (round by round: median {paired[len(paired) // 2]:.3f}x, "
-            f"{paired[0]:.3f}-{paired[-1]:.3f}x); bf16 / int8 with the "
-            f"first design "
-            f"{ms['bf16']['median'] / ms['int8_first_design']['median']:.3f}"
-            f"x")
-        res["alternating_ms"] = ms
-        del detect, flt_detect, flt, u8
+        res["alternating_ms"] = int8_rounds(path, res, cfg, batch,
+                                            per_batch, k1_routes, k2_modes)
         held = check_prequantized(model, cfg, "cuda")
         log(f"{path}: prequantized model's outputs and detections equal the "
             f"in-graph model's bit for bit ({held} tensors)")
@@ -3196,6 +3512,13 @@ def main() -> int:
                    if k["name"] in run["launches"]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
+        if k["name"] == "int8_dwconv":
+            for key in ("dw_routes", "dw_modes"):
+                k[f"launches_by_{key[3:-1]}"] = {
+                    r: sum(run.get(key, {}).get(r, 0)
+                           for run in paths.values())
+                    for r in next(run[key] for run in paths.values()
+                                  if key in run)}
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -599,6 +599,30 @@ def test_int8_conv_misaligned_weight_raises(dev):
     assert Q.int8_conv2d.launches == before
 
 
+@pytest.mark.parametrize("op", ["int8_dwconv", "int8_dwconv_q"])
+def test_int8_depthwise_refuses_the_nine_row_weight_on_the_card(dev, op):
+    """Each depthwise operator's CUDA implementation, called past the
+    wrapper, refuses a weight operand of the older [9, C] layout (the
+    "tma" route would read rows 9-20 past it) and launches nothing."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c = 64
+    xq = torch.randint(-127, 128, (2, 9, 11, c), generator=gen,
+                       dtype=torch.int8, device=dev)
+    wq = torch.randint(-127, 128, (c, 3, 3, 1), generator=gen,
+                       dtype=torch.int8, device=dev)
+    old = Q.prepare_weight(wq, True).kernel[:9].contiguous()
+    scale = torch.rand(c, generator=gen, device=dev) * 1e-3
+    geometry = Q.conv_geometry((3, 3), (1, 1), (1, 1), ((1, 1), (1, 1)))
+    extra = ((torch.tensor([0.05], device=dev),) if op == "int8_dwconv_q"
+             else ())
+    before = Q.int8_depthwise_conv2d.launches
+    with pytest.raises(ValueError, match="older layout"):
+        getattr(torch.ops.xdt, op).default(xq, old, scale, *extra, geometry,
+                                           torch.bfloat16)
+    assert Q.int8_depthwise_conv2d.launches == before
+
+
 def test_int8_conv_split_plan_on_two_streams(dev):
     """One split plan run on two streams at once, each on its own inputs,
     a few times over: a tile's slices meet in its cluster's shared memory,
@@ -656,6 +680,209 @@ def test_int8_depthwise_kernel_matches_plain_bitwise(dev, case, out_dtype):
     assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
 
 
+# K2's "tma" route (csrc/int8_dwconv_tma.cu) in both modes: (B, H, W, C,
+# stride, dilation, pads; None: SAME). C from 16 to 1024 (144: a partial
+# second block of 128 channels), odd H and W (tiles past the map's edge),
+# pads (0, 1) (SAME at stride 2 on an even size), (1, 1) at stride 2 and
+# none, dilation 2 with stride 1 and 2.
+INT8_DW_TMA_CASES = {
+    "c16_odd": (2, 13, 11, 16, 1, 1, None),
+    "c32_s2_same": (1, 16, 18, 32, 2, 1, None),
+    "c48_d2": (2, 9, 10, 48, 1, 2, None),
+    "c128_s2_pads11": (2, 21, 20, 128, 2, 1, ((1, 1), (1, 1))),
+    "c144_two_blocks": (1, 7, 9, 144, 1, 1, None),
+    "c256_s2_d2": (1, 19, 23, 256, 2, 2, None),
+    "c512_no_pads": (1, 10, 12, 512, 1, 1, ((0, 0), (0, 0))),
+    "c1024_d2": (2, 9, 10, 1024, 1, 2, None),
+    "config3_stage1_cut": (2, 40, 40, 128, 1, 1, None),
+}
+
+
+def _int8_dw_tma_operands(dev, case, small=False):
+    from x_detector_tpu_torch.models.layers import same_pads
+    b, h, w, c, s, d, pads = INT8_DW_TMA_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case) + 7 * c)
+    if small:      # |acc| <= 81: v = acc / 2 is exact in bf16
+        xq = torch.randint(-3, 4, (b, h, w, c), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-3, 4, (c, 3, 3, 1), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scale = torch.full((c,), 0.5, device=dev)
+    else:
+        xq, wq = _int8(gen, b, h, w, c), _int8(gen, c, 3, 3, 1)
+        scale = torch.rand(c, generator=gen, device=dev) * 1e-2 + 1e-4
+    if pads is None:
+        pads = same_pads((h, w), (3, 3), (s, s), (d, d))
+    return xq, wq, scale, dict(stride=s, dilation=d, pads=pads)
+
+
+def _counted_dw(Q, route, mode):
+    before = (Q.int8_depthwise_conv2d.launches,
+              dict(Q.int8_depthwise_conv2d.route_launches),
+              dict(Q.int8_depthwise_conv2d.mode_launches))
+
+    def check():
+        n, routes, modes = before
+        assert Q.int8_depthwise_conv2d.launches == n + 1
+        assert Q.int8_depthwise_conv2d.route_launches == {
+            r: v + (r == route) for r, v in routes.items()}
+        assert Q.int8_depthwise_conv2d.mode_launches == {
+            m: v + (m == mode) for m, v in modes.items()}
+    return check
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(INT8_DW_TMA_CASES))
+def test_int8_depthwise_tma_route_dequant_matches_plain_bitwise(
+        dev, case, out_dtype):
+    """K2 on the "tma" route (every shape here: C a multiple of 16, stride
+    and dilation 1 or 2, aligned operands), dequantizing to bf16 or fp32,
+    bit for bit the plain version; one launch, counted on its route and
+    mode."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    xq, wq, scale, kw = _int8_dw_tma_operands(dev, case)
+    weight = Q.prepare_weight(wq, True)
+    check = _counted_dw(Q, "tma", "dequant")
+    got = Q.int8_depthwise_conv2d(xq, weight, scale, out_dtype=out_dtype,
+                                  **kw)
+    ref = Q.int8_depthwise_conv2d_reference(xq, wq, scale,
+                                            out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    check()
+    assert got.shape == ref.shape and got.dtype == out_dtype
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(INT8_DW_TMA_CASES))
+def test_int8_depthwise_tma_route_quantize_matches_plain_bitwise(
+        dev, case, dtype):
+    """K2 quantizing on its store: int8 bit for bit the plain versions
+    composed (K2's in ``dtype``, then K3's), at a scale that saturates
+    some outputs at +-127 and, with small operands (v = acc / 2, exact)
+    and sx_out = 1, at one where many values lie exactly on half-integers
+    of v / sx_out (rounded half to even)."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    for small in (False, True):
+        xq, wq, scale, kw = _int8_dw_tma_operands(dev, case, small)
+        weight = Q.prepare_weight(wq, True)
+        v = Q.int8_depthwise_conv2d_reference(xq, wq, scale, out_dtype=dtype,
+                                              **kw)
+        sx = torch.tensor(1.0 if small else float(v.float().abs().amax())
+                          / 300.0, device=dev)
+        check = _counted_dw(Q, "tma", "quantize")
+        got = Q.int8_depthwise_conv2d_quantized(xq, weight, scale, sx,
+                                                dtype=dtype, **kw)
+        ref = Q.quantize_activation_reference(v, sx)
+        torch.cuda.synchronize()
+        check()
+        assert got.dtype == torch.int8 and got.shape == ref.shape
+        assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+        if small:
+            half = (v.float() / sx).frac().abs() == 0.5
+            assert half.float().mean() > 0.2
+        else:
+            assert (got.abs() == 127).any() and (got.abs() < 127).any()
+
+
+# scales of the quantize-on-store check: the tests' and chip_smoke's kind
+# (an output range / 127 or / 300, 1, 0.5), the smallest activation scale
+# (1e-6 / 127), a wide log-uniform spread, and the edges of the fast form
+QUANTIZE_SCALES = [1.0, 0.5, 2.0 / 3.0, 1e-6 / 127, 1.0 / 127, 0.0371, 3.0,
+                   7.3, 1234.5, 1e-3, 2.0 ** -40, 2.0 ** 40, 2.0 ** -41,
+                   2.0 ** 41, 1e-40, 0.0]
+
+
+def test_int8_depthwise_fast_quantize_equals_k3s_form(dev):
+    """The "tma" route quantizes on its store without a division
+    (``quantize_fast``: a reciprocal once, a product and one fma
+    correction, a clamp and a magic-number rint); held bitwise to K3's
+    ``__fdiv_rn`` / ``__float2int_rn`` form at every bf16 value (all 65536
+    bit patterns: NaN, infinities, subnormals included) for each scale of
+    QUANTIZE_SCALES and 48 log-uniform ones in [1e-9, 1e4], and at fp32
+    values within 12 ulps of every rounding boundary (k + 1/2) sx, |k| <=
+    128."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=dev)
+    every_bf16 = bits.to(torch.int16).view(torch.bfloat16).float()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scales = QUANTIZE_SCALES + (10.0 ** (torch.rand(
+        48, generator=gen, device=dev) * 13 - 9)).tolist()
+    k = torch.arange(-128, 129, device=dev, dtype=torch.float64) + 0.5
+    steps = torch.arange(-12, 13, device=dev, dtype=torch.int32)
+    for sx in scales:
+        s = torch.tensor(sx, dtype=torch.float32, device=dev)
+        edges = (k * float(s)).float()
+        near = (edges.view(torch.int32)[:, None] + steps).view(
+            torch.float32).reshape(-1)
+        for v in (every_bf16, near.contiguous()):
+            fast, exact = Q.quantize_forms(v, s)
+            torch.cuda.synchronize()
+            bad = (fast != exact).nonzero()
+            assert bad.numel() == 0, (sx, v[bad[:5, 0]].tolist(),
+                                      fast[bad[:5, 0]].tolist(),
+                                      exact[bad[:5, 0]].tolist())
+        if sx == 1.0:        # the form itself: K3's plain version's bits
+            assert torch.equal(exact, Q.quantize_activation_reference(
+                near, s))
+
+
+def test_int8_depthwise_simt_route_takes_the_other_shapes(dev):
+    """C off a multiple of 16, stride 3 and a view off 16 bytes take the
+    first design ("simt"), bit for bit; quantizing on the store there
+    raises, launching nothing."""
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shape, s, offset in (((1, 7, 9, 20), 1, 0), ((2, 11, 10, 32), 3, 0),
+                             ((1, 6, 7, 64), 1, 4)):
+        base = _int8(gen, shape[0] * shape[1] * shape[2] * shape[3] + offset)
+        xq = base[offset:].view(shape)
+        wq = _int8(gen, shape[3], 3, 3, 1)
+        scale = torch.rand(shape[3], generator=gen, device=dev) * 1e-2
+        kw = dict(stride=s, dilation=1, pads=((1, 1), (1, 1)))
+        weight = Q.prepare_weight(wq, True)
+        check = _counted_dw(Q, "simt", "dequant")
+        got = Q.int8_depthwise_conv2d(xq, weight, scale, **kw)
+        ref = Q.int8_depthwise_conv2d_reference(
+            xq, wq, scale, out_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        check()
+        assert torch.equal(got, ref)
+        n = Q.int8_depthwise_conv2d.launches
+        with pytest.raises(ValueError, match="tma route only"):
+            Q.int8_depthwise_conv2d_quantized(
+                xq, weight, scale, torch.tensor(0.1, device=dev), **kw)
+        assert Q.int8_depthwise_conv2d.launches == n
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_separable_block_quantizes_on_store_on_the_card(dev, dtype):
+    """An int8 SeparableConvBN on the card: K2 quantizing its store at the
+    pointwise conv's sx, then K1 on that map, bit for bit the two convs
+    called one after the other (K2 dequantizing, K3, K1), and one K3 launch
+    fewer."""
+    from x_detector_tpu_torch.models.layers import SeparableConvBN
+    from x_detector_tpu_torch.ops import int8_conv as Q
+    torch.manual_seed(0)
+    for s, d in ((1, 1), (2, 1), (1, 2)):
+        m = SeparableConvBN(128, 256, (s, s), (d, d), quant="int8",
+                            dtype=dtype).to(dev)
+        m.Conv_0.act_amax.fill_(3.0)
+        m.Conv_1.act_amax.fill_(0.05)
+        m.eval()
+        prepare_for_inference(m)
+        assert m.quantizes_on_store
+        x = torch.randn(2, 128, 23, 21, device=dev).to(dtype)
+        with torch.no_grad():
+            k3 = Q.quantize_activation.launches
+            got = m(x)
+            assert Q.quantize_activation.launches == k3 + 1
+            want = torch.relu(m.bn(m.Conv_1(m.Conv_0(x))))
+            assert Q.quantize_activation.launches == k3 + 3
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,offset", [(8 * 1000, 0), (1003, 0), (999, 1)])
 def test_quantize_kernel_matches_plain_bitwise(dev, dtype, n, offset):
@@ -707,10 +934,17 @@ def test_int8_model_on_the_card_goes_through_the_kernels(dev):
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, backbone_stages=(1, 1, 1, 1), large_sep_mid=16,
             head_dim=32, backbone_widths=(16, 32, 48, 64)))
-        res, _ = chip_smoke.run_int8(cfg, dev, batches=1, batch_size=2)
+        res, model = chip_smoke.run_int8(cfg, dev, batches=1, batch_size=2)
         assert res["launches"] == res["expected"]
+        fused = res["batches"] * chip_smoke.quantizing_blocks(model)
         assert res["launches"]["quantize_s8"] == (
-            res["launches"]["int8_conv"] + res["launches"]["int8_dwconv"])
+            res["launches"]["int8_conv"] + res["launches"]["int8_dwconv"]
+            - fused)
+        assert res["dw_modes"] == {
+            "quantize": fused,
+            "dequant": res["launches"]["int8_dwconv"] - fused}
+        assert res["dw_routes"] == {"tma": res["launches"]["int8_dwconv"],
+                                    "simt": 0}
         assert res["int8_routes"] == {
             "tma": res["launches"]["int8_conv"] - res["batches"],
             "mma": res["batches"]}

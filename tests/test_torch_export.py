@@ -262,8 +262,14 @@ def _op_args(name):
                           t(1, 4, 5, 16), 1, True, "tma"),
         "int8_conv": (i8(1, 5, 6, 8), kernel, t(16).abs(),
                       [3, 3, 1, 1, 1, 1, 1, 1, 1, 1], torch.bfloat16),
-        "int8_dwconv": (i8(1, 5, 6, 8), i8(9, 8), t(8).abs(),
+        "int8_dwconv": (i8(1, 5, 6, 8),
+                        Q.prepare_weight(i8(8, 3, 3, 1), True).kernel,
+                        t(8).abs(),
                         [3, 3, 2, 2, 1, 1, 0, 1, 0, 1], torch.float32),
+        "int8_dwconv_q": (i8(1, 5, 6, 16),
+                          Q.prepare_weight(i8(16, 3, 3, 1), True).kernel,
+                          t(16).abs(), torch.tensor(0.05),
+                          [3, 3, 2, 2, 1, 1, 0, 1, 0, 1], torch.bfloat16),
         "quantize_s8": (t(2, 3, 4) * 3, torch.tensor(0.05)),
         "self_suppress": (mask,),
     }[name]

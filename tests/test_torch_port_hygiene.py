@@ -208,7 +208,8 @@ def test_cpu_rehearsal_of_chip_smoke_int8(path):
     """chip_smoke's int8 phase on thin backbones at 128 px, on the CPU: the
     calibration gives every range, the counters stay 0 while the expected
     counts follow from the model (K1 a dense QuantConv, K2 a depthwise one,
-    K3 each; B2 never, though config 3 asks for the fused blocks), the
+    K3 each but the pointwise convs whose input their block's K2 quantized;
+    B2 never, though config 3 asks for the fused blocks), the
     prequantized model gives the in-graph model's bits, the 128 px check
     runs (the CPU in the card's place: no gap), and the hooks that read
     the kernel phase's call shapes see every QuantConv call."""
@@ -227,21 +228,25 @@ def test_cpu_rehearsal_of_chip_smoke_int8(path):
     }[path]
     res, model = chip_smoke.run_int8(cfg, "cpu", batches=1, batch_size=2)
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
-    per_batch = {"ssd": (17, 0, 0), "lighthead": (12, 8, 1)}[path]
+    per_batch = {"ssd": (17, 0, 0, 0), "lighthead": (12, 8, 1, 8)}[path]
+    assert chip_smoke.quantizing_blocks(model) == per_batch[3]
     assert res["expected"] == {
         "fused_sepconv": 0, "psroi_align": 2 * per_batch[2],
         "psroi_align_backward": 0, "int8_conv": 2 * per_batch[0],
         "int8_dwconv": 2 * per_batch[1],
-        "quantize_s8": 2 * (per_batch[0] + per_batch[1])}
+        "quantize_s8": 2 * (per_batch[0] + per_batch[1] - per_batch[3])}
     assert all(float(v) > 0 for v in res["ranges"].values())
     assert len(res["ranges"]) == per_batch[0] + per_batch[1]
     assert chip_smoke.check_prequantized(model, cfg, "cpu") >= 6
     gaps = chip_smoke.int8_reference_check(cfg.model, "cpu", keys,
                                            res["ranges"])
     assert set(gaps.values()) == {0.0}
-    calls = chip_smoke.int8_conv_calls(cfg, "cpu", 2)
+    calls, fused = chip_smoke.int8_conv_calls(cfg, "cpu", 2)
     assert sum(calls.values()) == per_batch[0] + per_batch[1]
     assert sum(n for shape, n in calls.items() if shape[-1]) == per_batch[1]
+    assert sum(fused.values()) == per_batch[3]
+    assert all(not shape[-1] and n <= calls[shape]
+               for shape, n in fused.items())
     assert _build.library.cache_info().currsize == 0   # nothing was built
 
 

@@ -59,6 +59,12 @@ SIGNATURES = {
     # x, w, scale, out, out_is_bf16, B, H, W, C, Ho, Wo, stride, dilation,
     # pt, pl, vec; stream
     "xdt_int8_dwconv": [_P] * 4 + [_I] * 12 + [_P],
+    # x, w (its "tma" rows), scale, sx_out (or NULL), out, mode, B, H, W,
+    # C, Ho, Wo, stride, dilation, pt, pl, then the plan: qw, rr, stages,
+    # smem_bytes, grid; stream
+    "xdt_int8_dwconv_tma": [_P] * 5 + [_I] * 16 + [_P],
+    # v, n, sx, kernel_q, k3_q; stream: the tma route's quantize beside K3's
+    "xdt_int8_quantize_forms": [_P, _I, _P, _P, _P, _P],
     # x, sx, q, x_is_bf16, n, vec; stream
     "xdt_quantize_s8": [_P] * 3 + [_I] * 3 + [_P],
 }

@@ -47,12 +47,23 @@
 //     run half-empty, so the gather binds it (7-17% of the bound; cuDNN's
 //     bf16 conv of ResNet's stem takes as long). A stem route of its own is
 //     later work.
-// K2, xdt_int8_dwconv: the depthwise 3x3, any stride and dilation, explicit
-// top and left pads (the bottom and right follow from Ho and Wo). A thread
-// takes VEC channels (16, 4 or 1, the largest that divides C) of one output
-// pixel: 9 taps of VEC int8 each, read as one load, int32 sums in
-// registers, the same epilogue. It moves the int8 map in and the output
-// out once each (the taps' reuse hits the L1 and L2): bytes bind it.
+// K2, the depthwise 3x3, has two routes; ops/int8_conv.py::plan_depthwise
+// picks one by a rule on the call's shape:
+//   - "tma" (int8_dwconv_tma.cu, its note says how): every call whose C is
+//     a multiple of 16, whose stride and dilation are 1 or 2 and whose
+//     operands are 16-byte aligned (every call of config 3); TMA-loaded
+//     halo boxes, dp4a on transposed words, TMA-stored runs. It alone
+//     also quantizes its output on the store for the next conv
+//     (xdt::int8_dwconv_q), in place of K3 on the separable blocks.
+//   - "simt", xdt_int8_dwconv here, the first design: the rest. Any
+//     stride and dilation, explicit top and left pads (the bottom and
+//     right follow from Ho and Wo). A thread takes VEC channels (16, 4 or
+//     1, the largest that divides C) of one output pixel: 9 taps of VEC
+//     int8 each, read as one load, int32 sums in registers, the same
+//     epilogue. It moves the int8 map in and the output out once each (the
+//     taps' reuse hits the L1 and L2); at config 3 it reached a third of
+//     that bound: one thread an output pixel reloads every tap and weight
+//     and spends ~20 integer instructions an output.
 //
 // K3, xdt_quantize_s8: a bf16 or fp32 tensor to int8 at the per-tensor
 // scale sx, read from device memory (no host sync on act_amax). 8 elements
@@ -514,7 +525,8 @@ extern "C" int xdt_int8_conv(const void* x, const void* w, const void* scale,
   return (int)cudaErrorInvalidValue;
 }
 
-// x [B, H, W, C] int8, w [9, C] int8 (taps row-major), scale [C] fp32 ->
+// x [B, H, W, C] int8, w [9, C] int8 (taps row-major: rows 0-8 of the
+// operand ops/int8_conv.py::prepare_weight makes), scale [C] fp32 ->
 // out [B, Ho, Wo, C] bf16 or fp32; vec (16, 4 or 1) divides C and the
 // addresses.
 extern "C" int xdt_int8_dwconv(const void* x, const void* w,

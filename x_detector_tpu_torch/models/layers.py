@@ -403,23 +403,40 @@ class QuantConv(nn.Conv2d):
             self.release_prepared()
         return super().train(mode)
 
-    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_operands(self):
+        """(sx, sx * sw, the weight operand) that an int8 forward reads:
+        the prepared buffers in eval mode (raising without them), made
+        anew in training mode."""
         if self.training:
             with torch.no_grad():
                 sx, scale, weight = self.int8_operands()
-            kernel = weight.kernel
-        elif self.int8_kernel is None:
+            return sx, scale, weight.kernel
+        if self.int8_kernel is None:
             raise _unprepared(self)
-        else:
-            sx, scale, kernel = self.int8_sx, self.int8_scale, self.int8_kernel
-        xq = int8_conv.quantize_activation(
-            x.permute(0, 2, 3, 1).contiguous(), sx)
-        geometry = self._geometry.get(x.shape[1:])
+        return self.int8_sx, self.int8_scale, self.int8_kernel
+
+    def _forward_int8(self, x: Optional[torch.Tensor], *,
+                      xq: Optional[torch.Tensor] = None, operands=None,
+                      sx_out: Optional[torch.Tensor] = None):
+        """The int8 conv of NCHW ``x``, quantized here (K3), or of ``xq``,
+        the int8 NHWC input already quantized at this conv's sx (no K3);
+        ``operands`` as :meth:`forward_operands` gives them. With
+        ``sx_out`` (a depthwise conv without a bias) the output in
+        ``dtype`` is quantized at that scale on K2's store: int8 NHWC."""
+        sx, scale, kernel = operands or self.forward_operands()
+        if xq is None:
+            xq = int8_conv.quantize_activation(
+                x.permute(0, 2, 3, 1).contiguous(), sx)
+        shape = (xq.shape[3], xq.shape[1], xq.shape[2])
+        geometry = self._geometry.get(shape)
         if geometry is None:
-            geometry = self._geometry[x.shape[1:]] = self._check_launch(
+            geometry = self._geometry[shape] = self._check_launch(
                 xq.shape, kernel, scale)
         # the operator itself: its operands' shapes were checked with the
         # geometry, once for this input shape
+        if sx_out is not None:
+            return torch.ops.xdt.int8_dwconv_q.default(
+                xq, kernel, scale, sx_out, geometry, self.dtype)
         op = torch.ops.xdt.int8_dwconv if self.depthwise else (
             torch.ops.xdt.int8_conv)
         y = op.default(xq, kernel, scale, geometry, self.dtype)
@@ -517,7 +534,10 @@ class SeparableConvBN(nn.Module):
 
     ``fused=True`` routes stride-1 calls at inference through the fused
     kernel (``ops/fused_sepconv.py``); training, stride-2 and quantized
-    calls keep the two convs (with ``quant``, two :class:`QuantConv`). The
+    calls keep the two convs (with ``quant``, two :class:`QuantConv`).
+    With both int8 (:attr:`quantizes_on_store`), the depthwise conv's
+    kernel (K2) quantizes its output at the pointwise conv's scale, which
+    then reads that int8 map without a quantize pass of its own (K3). The
     parameters are the same either way; the fused route's operands (taps,
     ``wp`` in the compute dtype and the route's layout, the folded BN) are
     held in buffers by :meth:`prepare_for_inference`, which the fused
@@ -604,6 +624,21 @@ class SeparableConvBN(nn.Module):
         return (self.fused and not self.training and self.quant is None
                 and not self.dense and self.strides == (1, 1))
 
+    @property
+    def quantizes_on_store(self) -> bool:
+        """Whether ``forward`` runs the int8 pair as K2 quantizing its
+        output at ``Conv_1``'s sx, then ``Conv_1`` on that int8 map: both
+        convs int8 (not calibrating), the depthwise one without a bias and
+        of the shapes K2's "tma" route takes
+        (``ops.int8_conv.fuses_quantize``). Nothing lies between the two
+        convs, so the bits are those of the two calls."""
+        return (self.quant is not None and self.Conv_1 is not None
+                and self.Conv_0.mode == "int8"
+                and self.Conv_1.mode == "int8" and self.Conv_0.bias is None
+                and int8_conv.fuses_quantize(self.Conv_0.in_channels,
+                                             self.strides[0],
+                                             self.dilation[0]))
+
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if residual is not None and self.relu:
@@ -617,7 +652,11 @@ class SeparableConvBN(nn.Module):
                 residual=None if residual is None else
                 residual.to(self.dtype).permute(0, 2, 3, 1).contiguous())
             return out.permute(0, 3, 1, 2)          # channels_last NCHW view
-        if self.quant is not None:
+        if self.quantizes_on_store:
+            operands = self.Conv_1.forward_operands()
+            xq = self.Conv_0._forward_int8(x, sx_out=operands[0])
+            x = self.Conv_1._forward_int8(None, xq=xq, operands=operands)
+        elif self.quant is not None:
             x = self.Conv_0(x)
             if self.Conv_1 is not None:
                 x = self.Conv_1(x)

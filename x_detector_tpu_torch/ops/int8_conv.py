@@ -16,17 +16,28 @@ accumulation there, three kernels of ``csrc/int8_conv.cu`` here:
     aligned, "mma" (``csrc/int8_conv.cu``, the first design) for the rest
     (the stems: Cin 3 and 12);
   * :func:`int8_depthwise_conv2d` (K2): the depthwise 3x3, the same
-    epilogue.
+    epilogue; two routes, chosen by :func:`plan_depthwise` from the
+    call's shape: "tma" (``csrc/int8_dwconv_tma.cu``, TMA-loaded halo
+    boxes, dp4a, TMA-stored runs) for every call whose C is a multiple of
+    16, whose stride and dilation are 1 or 2 and whose operands are
+    16-byte aligned, "simt" (``csrc/int8_conv.cu``, the first design) for
+    the rest; and :func:`int8_depthwise_conv2d_quantized`, K2 with K3's
+    quantize on its store (the separable blocks' pointwise input), on the
+    "tma" route only.
 
 Each calls its operator (``xdt::quantize_s8``, ``xdt::int8_conv``,
-``xdt::int8_dwconv``; ``ops/library.py``), which launches the kernel on CUDA
-tensors (or raises on what the kernel does not take: :func:`quantize_cuda`,
-:func:`conv_cuda`, :func:`dwconv_cuda`) and runs the plain version on CPU
-tensors. The plain versions sum the same integers exactly in float64
-(|sum| <= 127^2 * 4608 for ResNet's 3x3 x 512, far under 2^53) and round
+``xdt::int8_dwconv``, ``xdt::int8_dwconv_q``; ``ops/library.py``), which
+launches the kernel on CUDA tensors (or raises on what the kernel does not
+take: :func:`quantize_cuda`, :func:`conv_cuda`, :func:`dwconv_cuda`,
+:func:`dwconv_q_cuda`) and runs the plain version on CPU tensors. The
+plain versions sum the same integers exactly in float64 (|sum| <= 127^2 *
+4608 for ResNet's 3x3 x 512, far under 2^53) and round
 as the kernels do, so a kernel equals its plain version bit for bit at
 every shape. Each wrapper counts its launches in ``<wrapper>.launches``;
-``int8_conv2d.route_launches`` counts K1's by route.
+``int8_conv2d.route_launches`` counts K1's by route,
+``int8_depthwise_conv2d.route_launches`` and ``.mode_launches`` K2's by
+route and by mode ("dequant", "quantize"; both wrappers count into
+``int8_depthwise_conv2d``, the one kernel).
 
 :func:`quantize_weight` is the per-output-channel weight quantization, run
 by ``models.layers.QuantConv`` when it prepares its operands and by
@@ -53,6 +64,8 @@ ACT_EPS = 1e-6           # sx = max(act_amax, ACT_EPS) / 127
 WEIGHT_EPS = 1e-8        # sw = max(max|k|, WEIGHT_EPS) / 127
 # K1's bytes of K a pipeline stage (csrc/int8_conv.cu): Kp pads K to it
 KBK = 64
+# the depthwise weight operand's rows (prepare_weight): 9 + 12
+DW_KERNEL_ROWS = 21
 _INT_MAX = 2 ** 31 - 1
 # K1's "tma" route (csrc/int8_conv_tma.cu): bytes of K a chunk, output rows
 # a tile, ring stages at most, shared memory a block may take, and the
@@ -65,6 +78,16 @@ TMA_SMEM_LIMIT = 232448
 TMA_FIXED_SMEM = 2 * TMA_BM * 128 + 2048 + 1024
 TMA_MAX_SPLITS = 8       # a split tile's cluster: at most 8 blocks
 SM_COUNT = 132           # an H100 SXM's SMs: the plan's default
+# K2's "tma" route (csrc/int8_dwconv_tma.cu): channels a unit, output
+# columns a lane's run, consumer warps a block at most, ring stages at
+# most, bytes a box stage keeps past the box, mbarrier bytes; a run's
+# output rows are 8 / stride
+DW_CB = 128
+DW_QUAD = 4
+DW_MAX_WARPS = 14
+DW_MAX_STAGES = 4
+DW_BOX_SLACK = 512
+DW_BAR_BYTES = 1024
 
 
 def ieee_div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -141,8 +164,8 @@ def quantize_cuda(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
 class Int8Weight(NamedTuple):
     """One conv's int8 weight as the operators take it on every device:
     ``kernel`` [Cout, Kp] for the dense conv (OHWI flattened, K =
-    kh*kw*Cin padded with zeros to a multiple of 64) or [9, C] for the
-    depthwise 3x3; ``ksize`` (kh, kw)."""
+    kh*kw*Cin padded with zeros to a multiple of 64) or [21, C] for the
+    depthwise 3x3 (:func:`prepare_weight`); ``ksize`` (kh, kw)."""
     kernel: torch.Tensor
     ksize: Tuple[int, int]
     depthwise: bool
@@ -158,7 +181,13 @@ def prepare_weight(wq: torch.Tensor, depthwise: bool) -> Int8Weight:
         raise ValueError(f"the depthwise kernel takes a 3x3 of one channel a "
                          f"group: [C, 3, 3, 1], got {tuple(wq.shape)}")
     if depthwise:
-        kernel = wq[:, :, :, 0].permute(1, 2, 0).reshape(9, -1)
+        taps = wq[:, :, :, 0]                                # [C, 3, 3]
+        # rows 0-8: the taps by tap, channels fastest (the "simt" route);
+        # rows 9-20: channel c's tap row i as the word (w_i0, w_i1, w_i2,
+        # 0) at byte 12c + 4i (the "tma" route's registers)
+        rows = F.pad(taps, (0, 1)).reshape(-1)
+        kernel = torch.cat([taps.permute(1, 2, 0).reshape(-1), rows]
+                           ).reshape(DW_KERNEL_ROWS, -1)
     else:
         k = wq[0].numel()
         kernel = F.pad(wq.reshape(wq.shape[0], k),
@@ -171,9 +200,15 @@ def unpack_weight(kernel: torch.Tensor, ksize: Sequence[int], cin: int,
     """:func:`prepare_weight`'s ``kernel`` back to the int8 OHWI weight of
     the plain versions."""
     if depthwise:
-        return kernel.t().reshape(-1, 3, 3, 1)
+        return kernel[:9].t().reshape(-1, 3, 3, 1)
     kh, kw = ksize
     return kernel[:, :kh * kw * cin].reshape(-1, kh, kw, cin)
+
+
+def unpack_tma_taps(kernel: torch.Tensor) -> torch.Tensor:
+    """The "tma" rows (9-20) of a depthwise ``kernel`` back to the int8
+    [C, 3, 3, 1] weight, the zero fourth byte of each tap row dropped."""
+    return kernel[9:].reshape(-1, 3, 4)[:, :, :3].reshape(-1, 3, 3, 1)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -247,15 +282,35 @@ def check_operand_shapes(what: str, x_shape: Sequence[int],
     c = x_shape[-1]
     if depthwise:
         _square_3x3(what, geometry)
-        expected, cout = (9, c), c
-    else:
-        cout = kernel.shape[0]
-        expected = (cout, _round_up(geometry[0] * geometry[1] * c, KBK))
+        check_dw_operand_shapes(what, c, kernel, scale)
+        return
+    cout = kernel.shape[0]
+    expected = (cout, _round_up(geometry[0] * geometry[1] * c, KBK))
     if tuple(kernel.shape) != expected:
         raise ValueError(f"{what}: xq has {c} channels, the weight operand "
                          f"is {tuple(kernel.shape)}, not {expected}")
     if tuple(scale.shape) != (cout,):
         raise ValueError(f"{what}: scale must be [{cout}], got "
+                         f"{tuple(scale.shape)}")
+
+
+def check_dw_operand_shapes(what: str, c, kernel: torch.Tensor,
+                            scale: torch.Tensor) -> None:
+    """The depthwise weight operand and scale of a C-channel input:
+    [DW_KERNEL_ROWS, C] and [C]. Checked by every implementation of both
+    depthwise operators (fake, CPU and CUDA): the "tma" route reads rows
+    9-20, which an operand of the 9-row layout (a container exported
+    before those rows were added) does not hold."""
+    if tuple(kernel.shape) != (DW_KERNEL_ROWS, c):
+        raise ValueError(
+            f"{what}: the depthwise weight operand must be "
+            f"[{DW_KERNEL_ROWS}, {c}] (prepare_weight), got "
+            f"{tuple(kernel.shape)}" + (
+                "; a 9-row operand is the older layout without the tma "
+                "route's rows: prepare the weight again, or export the "
+                "model again" if tuple(kernel.shape) == (9, c) else ""))
+    if tuple(scale.shape) != (c,):
+        raise ValueError(f"{what}: scale must be [{c}], got "
                          f"{tuple(scale.shape)}")
 
 
@@ -549,10 +604,168 @@ def int8_depthwise_conv2d_reference(xq: torch.Tensor, wq: torch.Tensor,
 
 
 def depthwise_vec(c: int, *ptrs: int) -> int:
-    """K2's channels a thread: 16, 4 or 1, the largest that divides C and
-    the addresses."""
+    """K2's channels a thread on the "simt" route: 16, 4 or 1, the largest
+    that divides C and the addresses."""
     return next(v for v in (16, 4, 1)
                 if c % v == 0 and all(p % v == 0 for p in ptrs))
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwisePlan:
+    """K2's launch for one call shape. ``route``: "tma"
+    (``csrc/int8_dwconv_tma.cu``) or "simt" (``csrc/int8_conv.cu``, the
+    first design). "simt" only: ``vec``, channels a thread. "tma" only: a
+    tile of ``th`` x ``tw`` output pixels and 128 channels a unit, ``qw``
+    x ``rr`` runs of ``rh`` rows x 4 columns a tile (a consumer warp
+    each), the input ``box`` (rows, columns), the ring's ``stages``,
+    ``smem_bytes``, ``units`` and ``grid`` (persistent blocks)."""
+    route: str
+    vec: int = 0
+    qw: int = 0
+    rr: int = 0
+    rh: int = 0
+    th: int = 0
+    tw: int = 0
+    box: Tuple[int, int] = (0, 0)
+    stages: int = 0
+    smem_bytes: int = 0
+    units: int = 0
+    grid: int = 0
+
+
+def fuses_quantize(c: int, stride: int, dilation: int) -> bool:
+    """Whether a depthwise call of C channels, ``stride`` and ``dilation``
+    is of the shapes the "tma" route takes (C a multiple of 16, stride and
+    dilation 1 or 2), and so the shapes whose K2 may quantize on its store
+    (``models.layers.SeparableConvBN``)."""
+    return c % 16 == 0 and stride in (1, 2) and dilation in (1, 2)
+
+
+def dw_first_use(r: int, stride: int, dilation: int, rh: int) -> int:
+    """The kernel's ``first_use``: the first of a run's ``rh`` output rows
+    that reads input row ``r`` of the run, or ``rh``."""
+    return next((o for o in range(rh) for i in range(3)
+                 if o * stride + i * dilation == r), rh)
+
+
+def dw_tile_smem(qw: int, rr: int, stride: int, dilation: int,
+                 out_bytes: int, stages: int) -> Tuple[int, Tuple[int, int]]:
+    """(shared-memory bytes, input box (rows, columns)) of a "tma" block of
+    ``qw`` x ``rr`` runs: ``stages`` boxes of 128 channels, each rounded up
+    to 1024 bytes after the slack a run may read past it, a staging run a
+    warp, the mbarriers and 1024 bytes to align the base (the kernel's
+    layout)."""
+    rh = 8 // stride
+    th, tw = rr * rh, qw * DW_QUAD
+    box = ((th - 1) * stride + 2 * dilation + 1,
+           (tw - 1) * stride + 2 * dilation + 1)
+    stage = _round_up(box[0] * box[1] * DW_CB + DW_BOX_SLACK, 1024)
+    staging = qw * rr * rh * DW_QUAD * DW_CB * out_bytes
+    return stages * stage + staging + DW_BAR_BYTES + 1024, box
+
+
+# warps a block needs before the estimate counts the kernel as bound by
+# its instruction count, not latency
+DW_LATENCY_WARPS = 8
+
+
+def dw_ranked(x_shape: Sequence[int], geometry: Sequence[int],
+              sm_count: int = SM_COUNT, out_bytes: int = 2) -> list:
+    """The "tma" route's tiles of qw x rr runs (4 to DW_MAX_WARPS warps)
+    whose ring of at least 2 stages fits one block an SM, as ((estimate,
+    units, warps), qw, rr), least estimated time first: the units a block
+    takes, times the warps (at least DW_LATENCY_WARPS: fewer hide no
+    latency), times a run's instructions (3 x 4 x 4 x 2 an output row's
+    products and 64 its epilogue, 12 a column word of an input row loaded
+    and transposed); a tie to the fewer units, then warps."""
+    b, h, w, c = x_shape
+    stride, dilation = geometry[2], geometry[4]
+    ho, wo = output_size((h, w), (3, 3), (stride, stride),
+                         (dilation, dilation), _pairs(geometry))
+    rh = 8 // stride
+    words = _cdiv(3 * stride + 2 * dilation + 1, 4)
+    rows = sum(dw_first_use(r, stride, dilation, rh) < rh
+               for r in range((rh - 1) * stride + 2 * dilation + 1))
+    run_cost = rh * (96 + 64) + rows * 12 * words
+    ranked = []
+    for warps in range(4, DW_MAX_WARPS + 1):
+        for rr in range(1, warps + 1):
+            if warps % rr:
+                continue
+            qw = warps // rr
+            smem, box = dw_tile_smem(qw, rr, stride, dilation, out_bytes, 2)
+            if smem > TMA_SMEM_LIMIT or max(box) > 256:
+                continue
+            units = b * _cdiv(ho, rr * rh) * _cdiv(wo, qw * DW_QUAD) * (
+                _cdiv(c, DW_CB))
+            est = _cdiv(units, min(units, sm_count)) * max(
+                warps, DW_LATENCY_WARPS) * run_cost
+            ranked.append(((est, units, warps), qw, rr))
+    return sorted(ranked)
+
+
+def plan_dw_tma(x_shape: Sequence[int], geometry: Sequence[int],
+                sm_count: int = SM_COUNT, out_bytes: int = 2
+                ) -> DepthwisePlan:
+    """The "tma" route's launch for [B, H, W, C] ``x_shape``: the first
+    tile of :func:`dw_ranked`, with as many ring stages as fit, at most
+    4."""
+    _, qw, rr = dw_ranked(x_shape, geometry, sm_count, out_bytes)[0]
+    return dw_plan_with(x_shape, geometry, qw, rr, out_bytes, sm_count)
+
+
+def dw_plan_with(x_shape: Sequence[int], geometry: Sequence[int], qw: int,
+                 rr: int, out_bytes: int = 2,
+                 sm_count: int = SM_COUNT) -> DepthwisePlan:
+    """The "tma" plan of a tile of ``qw`` x ``rr`` runs, one persistent
+    block an SM (``int8_dwconv_variants.py`` times tiles the rule does not
+    pick): as many ring stages (2-4) as fit in a block's shared memory;
+    ValueError where 2 do not."""
+    b, h, w, c = x_shape
+    stride, dilation = geometry[2], geometry[4]
+    ho, wo = output_size((h, w), (3, 3), (stride, stride),
+                         (dilation, dilation), _pairs(geometry))
+    rh = 8 // stride
+    fits = [st for st in range(2, DW_MAX_STAGES + 1) if dw_tile_smem(
+        qw, rr, stride, dilation, out_bytes, st)[0] <= TMA_SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"a {qw} x {rr} tile at stride {stride}, dilation "
+                         f"{dilation} takes more than {TMA_SMEM_LIMIT} "
+                         f"bytes")
+    smem, box = dw_tile_smem(qw, rr, stride, dilation, out_bytes, fits[-1])
+    units = b * _cdiv(ho, rr * rh) * _cdiv(wo, qw * DW_QUAD) * (
+        _cdiv(c, DW_CB))
+    return DepthwisePlan("tma", qw=qw, rr=rr, rh=rh, th=rr * rh,
+                         tw=qw * DW_QUAD, box=box, stages=fits[-1],
+                         smem_bytes=smem, units=units,
+                         grid=min(units, sm_count))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_dw(x_shape: Tuple[int, ...], geometry: Tuple[int, ...],
+             aligns: Tuple[int, ...], sm_count: int,
+             out_bytes: int) -> DepthwisePlan:
+    c = x_shape[3]
+    if fuses_quantize(c, geometry[2], geometry[4]) and not any(aligns):
+        return plan_dw_tma(x_shape, geometry, sm_count, out_bytes)
+    return DepthwisePlan("simt", vec=depthwise_vec(c, aligns[0],
+                                                   aligns[1]))
+
+
+def plan_depthwise(x_shape: Sequence[int], geometry: Sequence[int],
+                   ptrs: Sequence[int] = (0, 0, 0, 0, 0),
+                   sm_count: int = SM_COUNT,
+                   out_bytes: int = 2) -> DepthwisePlan:
+    """K2's route and launch for one call, by a rule on its shape: "tma"
+    where C is a multiple of 16, stride and dilation are 1 or 2
+    (:func:`fuses_quantize`) and the operands' addresses ``ptrs`` (xq, the
+    weight operand's rows 0 and 9, the scale, the output) are 16-byte
+    aligned (TMA's rules for a global address and stride; the taps and
+    scale are read 16 bytes at a time); "simt" for the rest. Computed once
+    per (shape, geometry, alignments, SM count, output bytes) and
+    cached."""
+    return _plan_dw(tuple(x_shape), tuple(geometry),
+                    tuple(p % 16 for p in ptrs), sm_count, out_bytes)
 
 
 def int8_depthwise_conv2d(xq: torch.Tensor, weight: Int8Weight,
@@ -563,15 +776,38 @@ def int8_depthwise_conv2d(xq: torch.Tensor, weight: Int8Weight,
     """The depthwise 3x3 of :func:`int8_conv2d`, square ``stride`` and
     ``dilation``: [B, H, W, C] int8 -> [B, Ho, Wo, C], the operator
     ``xdt::int8_dwconv``."""
-    if not weight.depthwise:
-        raise ValueError("int8_depthwise_conv2d: a dense weight; use "
-                         "int8_conv2d")
-    s, d = int(stride), int(dilation)
-    geometry = conv_geometry((3, 3), (s, s), (d, d), pads)
-    check_operand_shapes("int8_depthwise_conv2d", xq.shape, weight.kernel,
-                         scale, geometry, True)
+    geometry = _depthwise_geometry("int8_depthwise_conv2d", xq, weight,
+                                   scale, stride, dilation, pads)
     return torch.ops.xdt.int8_dwconv.default(xq, weight.kernel, scale,
                                              geometry, out_dtype)
+
+
+def int8_depthwise_conv2d_quantized(
+        xq: torch.Tensor, weight: Int8Weight, scale: torch.Tensor,
+        sx_out: torch.Tensor, *, stride: int = 1, dilation: int = 1,
+        pads: Pads = ((1, 1), (1, 1)),
+        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`int8_depthwise_conv2d`'s output in ``dtype`` quantized at the
+    next conv's one-element ``sx_out`` as :func:`quantize_activation` does
+    it, in one kernel: int8 [B, Ho, Wo, C], the operator
+    ``xdt::int8_dwconv_q``."""
+    geometry = _depthwise_geometry("int8_depthwise_conv2d_quantized", xq,
+                                   weight, scale, stride, dilation, pads)
+    if sx_out.numel() != 1:
+        raise ValueError(f"int8_depthwise_conv2d_quantized: sx_out must be "
+                         f"one value, got {tuple(sx_out.shape)}")
+    return torch.ops.xdt.int8_dwconv_q.default(xq, weight.kernel, scale,
+                                               sx_out, geometry, dtype)
+
+
+def _depthwise_geometry(what, xq, weight, scale, stride, dilation, pads):
+    if not weight.depthwise:
+        raise ValueError(f"{what}: a dense weight; use int8_conv2d")
+    s, d = int(stride), int(dilation)
+    geometry = conv_geometry((3, 3), (s, s), (d, d), pads)
+    check_operand_shapes(what, xq.shape, weight.kernel, scale, geometry,
+                         True)
+    return geometry
 
 
 def _square_3x3(what: str, geometry: Sequence[int]) -> Tuple[int, int]:
@@ -586,31 +822,129 @@ def _square_3x3(what: str, geometry: Sequence[int]) -> Tuple[int, int]:
 def dwconv_plain(xq, kernel, scale, geometry, out_dtype):
     """``xdt::int8_dwconv`` on CPU tensors: the plain version."""
     s, d = _square_3x3("int8_depthwise_conv2d", geometry)
+    check_dw_operand_shapes("int8_depthwise_conv2d", xq.shape[-1], kernel,
+                            scale)
     return int8_depthwise_conv2d_reference(
         xq, unpack_weight(kernel, (3, 3), xq.shape[-1], True), scale,
         stride=s, dilation=d, pads=_pairs(geometry), out_dtype=out_dtype)
 
 
+def dwconv_q_plain(xq, kernel, scale, sx_out, geometry, dtype):
+    """``xdt::int8_dwconv_q`` on CPU tensors: the two plain versions
+    composed, K2's in ``dtype`` then K3's."""
+    return quantize_activation_reference(
+        dwconv_plain(xq, kernel, scale, geometry, dtype), sx_out
+    ).contiguous()
+
+
 def dwconv_cuda(xq, kernel, scale, geometry, out_dtype):
-    """``xdt::int8_dwconv`` on CUDA tensors: K2."""
-    _check_operands("int8_depthwise_conv2d", xq, kernel, scale, out_dtype)
-    stride, dilation = _square_3x3("int8_depthwise_conv2d", geometry)
-    b, h, w, c = xq.shape
-    out = conv_output(xq, c, geometry, out_dtype)
+    """``xdt::int8_dwconv`` on CUDA tensors: K2, on the route that
+    :func:`plan_depthwise` gives the call's shape."""
+    out = _dwconv_output("int8_depthwise_conv2d", xq, kernel, scale,
+                         geometry, out_dtype, out_dtype)
     if out.numel() == 0:
         return out
-    ho, wo = out.shape[1:3]
-    if b * ho * wo * c > _INT_MAX:
-        raise ValueError(f"int8_depthwise_conv2d: {b * ho * wo * c} outputs"
-                         f", the kernel takes < 2^31")
-    vec = depthwise_vec(c, xq.data_ptr(), kernel.data_ptr())
-    _build.launch(
-        "xdt_int8_dwconv", "int8_depthwise_conv2d", xq, xq.data_ptr(),
-        kernel.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), b, h, w, c, ho, wo, stride,
-        dilation, geometry[6], geometry[8], vec)
-    int8_depthwise_conv2d.launches += 1
+    plan = _dw_plan(xq, kernel, scale, geometry, out)
+    return run_dw_plan(plan, xq, kernel, scale, None, geometry, out,
+                       out_dtype)
+
+
+def dwconv_q_cuda(xq, kernel, scale, sx_out, geometry, dtype):
+    """``xdt::int8_dwconv_q`` on CUDA tensors: K2 quantizing on its store,
+    on the "tma" route; a call that :func:`plan_depthwise` gives the first
+    design ("simt", which has no such mode) raises."""
+    what = "int8_depthwise_conv2d_quantized"
+    out = _dwconv_output(what, xq, kernel, scale, geometry, dtype,
+                         torch.int8)
+    _same_cuda_device(what, xq, sx_out=sx_out)
+    if sx_out.dtype != torch.float32 or sx_out.numel() != 1:
+        raise ValueError(f"{what}: sx_out must be one fp32 value, got "
+                         f"{sx_out.dtype} {tuple(sx_out.shape)}")
+    if out.numel() == 0:
+        return out
+    plan = _dw_plan(xq, kernel, scale, geometry, out)
+    if plan.route != "tma":
+        raise ValueError(
+            f"{what}: quantizing on the store runs on the tma route only: C "
+            f"a multiple of 16, stride and dilation 1 or 2, 16-byte aligned "
+            f"operands; got C {xq.shape[3]}, geometry {list(geometry)}")
+    return run_dw_plan(plan, xq, kernel, scale, sx_out, geometry, out,
+                       dtype)
+
+
+def _dwconv_output(what, xq, kernel, scale, geometry, dtype, out_dtype):
+    _check_operands(what, xq, kernel, scale, dtype)
+    check_dw_operand_shapes(what, xq.shape[3], kernel, scale)
+    _square_3x3(what, geometry)
+    out = conv_output(xq, xq.shape[3], geometry, out_dtype)
+    if out.numel() > _INT_MAX:
+        raise ValueError(f"{what}: {out.numel()} outputs, the kernel takes "
+                         f"< 2^31")
     return out
+
+
+def _dw_plan(xq, kernel, scale, geometry, out) -> DepthwisePlan:
+    c = xq.shape[3]
+    return plan_depthwise(
+        xq.shape, geometry, (xq.data_ptr(), kernel.data_ptr(),
+                             kernel.data_ptr() + 9 * c, scale.data_ptr(),
+                             out.data_ptr()),
+        sm_count(xq.get_device()), out.element_size())
+
+
+def dw_tma_args(plan: DepthwisePlan, xq, kernel, scale, sx_out, geometry,
+                out, dtype) -> tuple:
+    """``xdt_int8_dwconv_tma``'s arguments (the stream aside) for a "tma"
+    ``plan`` (mode 0 / 1: bf16 / fp32 out; 2 / 3: int8 quantized from bf16
+    / fp32 ``dtype`` at ``sx_out``)."""
+    b, h, w, c = xq.shape
+    mode = int(dtype != torch.bfloat16) + (2 if sx_out is not None else 0)
+    return (xq.data_ptr(), kernel.data_ptr() + 9 * c, scale.data_ptr(),
+            0 if sx_out is None else sx_out.data_ptr(), out.data_ptr(), mode,
+            b, h, w, c, *out.shape[1:3], geometry[2], geometry[4],
+            geometry[6], geometry[8], plan.qw, plan.rr, plan.stages,
+            plan.smem_bytes, plan.grid)
+
+
+def run_dw_plan(plan: DepthwisePlan, xq, kernel, scale, sx_out, geometry,
+                out, dtype):
+    """K2 on CUDA tensors by ``plan`` into ``out`` (``dtype`` the output's,
+    or with ``sx_out`` the module dtype that int8 ``out`` is quantized
+    from), counted in ``int8_depthwise_conv2d.launches``, its route's
+    ``route_launches`` and its mode's ``mode_launches``."""
+    if plan.route == "tma":
+        _build.launch("xdt_int8_dwconv_tma", "int8_depthwise_conv2d", xq,
+                      *dw_tma_args(plan, xq, kernel, scale, sx_out, geometry,
+                                   out, dtype))
+    else:
+        b, h, w, c = xq.shape
+        _build.launch(
+            "xdt_int8_dwconv", "int8_depthwise_conv2d", xq, xq.data_ptr(),
+            kernel.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            int(dtype == torch.bfloat16), b, h, w, c, *out.shape[1:3],
+            geometry[2], geometry[4], geometry[6], geometry[8], plan.vec)
+    fn = int8_depthwise_conv2d
+    fn.launches += 1
+    fn.route_launches[plan.route] += 1
+    fn.mode_launches["dequant" if sx_out is None else "quantize"] += 1
+    return out
+
+
+def quantize_forms(v: torch.Tensor, sx: torch.Tensor):
+    """(K2's quantize on its store, K3's) of fp32 CUDA ``v`` at one-element
+    ``sx``, each int8 of ``v``'s shape: the "tma" route's division-free
+    form (``csrc/int8_dwconv_tma.cu``) and K3's ``__fdiv_rn`` form, which
+    the card tests hold equal."""
+    _same_cuda_device("quantize_forms", v, sx=sx)
+    if v.dtype != torch.float32 or not v.is_contiguous() or (
+            sx.dtype != torch.float32 or sx.numel() != 1):
+        raise ValueError("quantize_forms: contiguous fp32 v and one fp32 sx")
+    fast, exact = (torch.empty(v.shape, dtype=torch.int8, device=v.device)
+                   for _ in range(2))
+    _build.launch("xdt_int8_quantize_forms", "quantize_forms", v,
+                  v.data_ptr(), v.numel(), sx.data_ptr(), fast.data_ptr(),
+                  exact.data_ptr())
+    return fast, exact
 
 
 # ---- bounds on one H100 -----------------------------------------------------
@@ -669,6 +1003,8 @@ def reset_launches() -> None:
     for fn in (quantize_activation, int8_conv2d, int8_depthwise_conv2d):
         fn.launches = 0
     int8_conv2d.route_launches = {"tma": 0, "mma": 0}
+    int8_depthwise_conv2d.route_launches = {"tma": 0, "simt": 0}
+    int8_depthwise_conv2d.mode_launches = {"dequant": 0, "quantize": 0}
 
 
 reset_launches()

@@ -9,6 +9,7 @@ Every hand kernel is reached only through its operator:
   ``xdt::fused_sepconv``      B2 (``ops/fused_sepconv.py``)
   ``xdt::int8_conv``          K1 (``ops/int8_conv.py``)
   ``xdt::int8_dwconv``        K2
+  ``xdt::int8_dwconv_q``      K2 quantizing its output as K3 does
   ``xdt::quantize_s8``        K3
   ``xdt::self_suppress``      NMS's host-checked fixpoint (``ops/nms.py``;
                               plain PyTorch on both devices, no kernel)
@@ -114,7 +115,15 @@ def _conv_fake(xq, kernel, scale, geometry, out_dtype):
 
 
 def _dwconv_fake(xq, kernel, scale, geometry, out_dtype):
+    int8_conv.check_dw_operand_shapes("int8_dwconv", xq.shape[3], kernel,
+                                      scale)
     return int8_conv.conv_output(xq, xq.shape[3], geometry, out_dtype)
+
+
+def _dwconv_q_fake(xq, kernel, scale, sx_out, geometry, dtype):
+    int8_conv.check_dw_operand_shapes("int8_dwconv_q", xq.shape[3], kernel,
+                                      scale)
+    return int8_conv.conv_output(xq, xq.shape[3], geometry, torch.int8)
 
 
 def _quantize_fake(x, sx):
@@ -133,6 +142,13 @@ _define("int8_conv(Tensor xq, Tensor kernel, Tensor scale, int[10] geometry, "
 _define("int8_dwconv(Tensor xq, Tensor kernel, Tensor scale, "
         "int[10] geometry, ScalarType out_dtype) -> Tensor", _dwconv_fake,
         int8_conv.dwconv_plain, int8_conv.dwconv_cuda)
+# K2 with K3 on its store: an operator of its own, since its output is
+# int8 whatever the module dtype (``dtype``, which the value is rounded to
+# before it is quantized), and xdt::int8_dwconv's schema and graphs stay
+# as they were
+_define("int8_dwconv_q(Tensor xq, Tensor kernel, Tensor scale, "
+        "Tensor sx_out, int[10] geometry, ScalarType dtype) -> Tensor",
+        _dwconv_q_fake, int8_conv.dwconv_q_plain, int8_conv.dwconv_q_cuda)
 _define("quantize_s8(Tensor x, Tensor sx) -> Tensor", _quantize_fake,
         _quantize_plain, int8_conv.quantize_cuda)
 
@@ -147,4 +163,5 @@ _define("self_suppress(Tensor mask) -> Tensor", _self_suppress_fake,
         nms.self_suppress, nms.self_suppress)
 
 OPERATORS = ("psroi_align_fwd", "psroi_align_bwd", "fused_sepconv",
-             "int8_conv", "int8_dwconv", "quantize_s8", "self_suppress")
+             "int8_conv", "int8_dwconv", "int8_dwconv_q", "quantize_s8",
+             "self_suppress")

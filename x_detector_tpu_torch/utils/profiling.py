@@ -80,13 +80,15 @@ def kernel_device_ms(fn: Callable[[], object], reps: int = 10,
     """{kernel name: mean device ms a call of ``fn()``} over ``reps`` calls
     after one warm-up call. A window that recorded some kernel fewer than
     ``reps`` times (the profiler drops some, rarely) is profiled again,
-    ``tries`` times at most, and then the fullest window counts."""
+    ``tries`` times at most, after a pause that grows with each try, and
+    then the fullest window counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     best: dict = {}
-    for _ in range(tries):
+    for attempt in range(tries):
+        time.sleep(0.05 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
