@@ -201,6 +201,22 @@ Phases; each raises on failure and the script then exits non-zero:
                 --data-dir (config 4's model, DATA_STEPS steps: B1 once a
                 step each way) and cli.evaluate --data-dir (a finite mAP
                 in [0, 1]) over them.
+ 15. learn   -- tools/overfit.py: the JAX test's 8 fixed images (4 classes,
+                64 px, resized to the model's size) overfit at the test's
+                size (the thin SSD, 120 steps, fp32: the last loss below
+                0.2, the mAP above 0.95), then at full width in bf16,
+                config 3's Light-Head at 800 px and config 2's SSD at 512
+                px, batch 8, LEARN_OVERFIT_STEPS steps (the mAP above
+                0.95); B1 once a Light-Head step each way. Then the short
+                capstone (tools/fast_nms_ab.train_synthetic): the first
+                LEARN_STEPS steps of config 3's 3000-step recipe at batch
+                16 (train images/s; B1 once a step each way; the loss's
+                mean falls from the first LEARN_LOSS_WINDOW steps to the
+                last), then held-out mAP on LEARN_EVAL_BATCHES batches,
+                exact, approx (bitwise the exact detections), MaxpoolNMS
+                (B2 14 and B1's forward 1 a batch each) and int8
+                calibrated on the trained model (K1 20, K2 16, K3 20 a
+                batch).
 The line before the last is one JSON object with the kernels' results; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -222,6 +238,7 @@ import types
 import torch
 
 from x_detector_tpu_torch.utils import roofline
+from x_detector_tpu_torch.utils.profiling import alternating_ms
 
 SEED = 0
 BATCH = 16
@@ -296,7 +313,8 @@ SERVE_RAW_HW = (375, 500)
 # Paths compared by host clock run in alternating rounds of a few batches
 # each: the host drifts between fast and slow states within one process,
 # and a round of each side sees the same state. Each side's median and
-# best round are reported.
+# best round are reported (utils.profiling.alternating_ms, whose defaults
+# these are).
 ROUNDS, ROUND_BATCHES = 10, 3
 # int8 against int8 with the first design's K1: config 2's batch is
 # host-bound, so the difference is near the rounds' spread
@@ -313,6 +331,22 @@ DATA_STEPS, DATA_RATE_BATCHES, DATA_CANVAS = 3, 10, 960
 # photo-sized JPEGs made here with PIL (500 x 375, 4:2:0, ~79 KB, as VOC's
 # photos are sized and sampled) for the loader's rate and the CLIs
 DATA_PHOTOS = 48
+# learn: tools/overfit.py's 8 fixed images at the test's size (its 120
+# steps in fp32; JAX's gates, the last loss below 0.2 and the mAP above
+# 0.95) and at full width in bf16 (the mAP gate), config 3's Light-Head at
+# 800 px and config 2's SSD at 512 px, batch 8. Steps from the first card
+# calls (H100): the SSD reached mAP 1.0 by step 100 (loss 0.13; 0.047 by
+# 150), the Light-Head 0.98 by 150 and 1.0 by 200 (loss 0.23; 0.16 by 250)
+LEARN_OVERFIT_STEPS = {"small": 120, "lighthead": 300, "ssd": 150}
+# the short capstone: the first LEARN_STEPS steps of config 3's 3000-step
+# recipe (tools/fast_nms_ab.capstone_config; a shorter recipe puts its lr
+# boundaries inside the 200 warm-up steps, which the schedule refuses),
+# scored on LEARN_EVAL_BATCHES held-out batches, int8 calibrated on
+# LEARN_CALIB_BATCHES; the loss must fall from the mean of the first
+# LEARN_LOSS_WINDOW steps to the mean of the last
+LEARN_STEPS, LEARN_RECIPE_STEPS = 200, 3000
+LEARN_EVAL_BATCHES, LEARN_CALIB_BATCHES = 2, 2
+LEARN_LOSS_WINDOW = 20
 # The loader's decoder against the pixels libjpeg decodes, (max, mean) abs
 # difference in 8-bit levels. libjpeg must give its own bits. nvJPEG runs
 # another IDCT (the JPEG standard lets a sample round 1 level either way);
@@ -2369,14 +2403,15 @@ def timed_batches(fn, inputs, batches: int, counters, device) -> dict:
             "ms": ms}
 
 
-def hold_bitwise(tag: str, got, want) -> None:
+def hold_bitwise(tag: str, got, want,
+                 what: str = "of the loaded program differs from eager's"
+                 ) -> None:
     names = ("boxes", "scores", "classes", "valid")
     for name, a, b in zip(names, got, want):
         if a.shape != b.shape or not torch.equal(a, b):
             diff = ((a.float() - b.float()).abs().max().item()
                     if a.shape == b.shape else "shapes differ")
-            raise AssertionError(f"{tag}: {name} of the loaded program "
-                                 f"differs from eager's: {diff}")
+            raise AssertionError(f"{tag}: {name} {what}: {diff}")
 
 
 def letterboxed(batch: int, size: int, hw, seed: int, device):
@@ -2502,26 +2537,6 @@ def run_serve_int8(cfg, device, directory: str,
     return {"export_s": export_s, "eager": want, "loaded": got, "ms": ms,
             "launches": got["launches"], "stored": sorted(stored),
             "detect": detect, "x": x}
-
-
-def alternating_ms(sides: dict, rounds: int = ROUNDS,
-                   batches: int = ROUND_BATCHES, device="cuda") -> dict:
-    """Each of ``sides`` (name -> a call of one batch) ``batches`` times a
-    round, the sides in turn for ``rounds`` rounds, host clock to a sync:
-    each side's median and best round in ms a batch, and its rounds."""
-    sync = (lambda: torch.cuda.synchronize(device)) if (
-        torch.device(device).type == "cuda") else (lambda: None)
-    ms = {name: [] for name in sides}
-    for _ in range(rounds):
-        for name, fn in sides.items():
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(batches):
-                fn()
-            sync()
-            ms[name].append((time.perf_counter() - t0) / batches * 1e3)
-    return {name: {"median": sorted(v)[len(v) // 2], "best": min(v),
-                   "rounds": v} for name, v in ms.items()}
 
 
 # K1's plan for a shape were it the first design's: every call on the "mma"
@@ -3091,6 +3106,207 @@ def run_cli_rest(device, extra=(), steps: int = 2, batch_size: int = 4,
                          "psroi_align_backward": steps}}
 
 
+def learn_counters() -> dict:
+    """Every kernel's wrapper: B2, B1 both ways and K1-K3."""
+    counters = kernel_counters()
+    counters.update(int8_counters())
+    return counters
+
+
+def zero_counters(counters, device) -> None:
+    """After a sync, every count of ``counters`` (and B2's and the int8
+    kernels' counts by route and mode) back to 0."""
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    reset_counters(counters)
+    q8.reset_launches()
+
+
+def run_overfit(cfg, device, steps: int, dtype) -> dict:
+    """``tools/overfit.overfit`` of ``cfg`` for ``steps`` steps in ``dtype``,
+    the kernels' counters zeroed just before: its readings, the launches
+    and what they should be (for Light-Head B1's forward once a step and
+    once more for the scoring forward, its backward once a step; nothing
+    else: the train route takes no B2)."""
+    from x_detector_tpu_torch.tools import overfit
+    counters = learn_counters()
+    zero_counters(counters, device)
+    res = overfit.overfit(cfg, device, steps, dtype)
+    res["launches"] = {name: fn.launches for name, fn in counters.items()}
+    b1 = int(cfg.model.family == "lighthead")
+    res["expected"] = {**dict.fromkeys(counters, 0),
+                       "psroi_align": (steps + 1) * b1,
+                       "psroi_align_backward": steps * b1}
+    return res
+
+
+def check_overfit(tag: str, res: dict, loss_gate: bool = True) -> None:
+    """The launches the run should give and JAX's gates: the mAP above
+    0.95 and, with ``loss_gate``, the last loss below 0.2."""
+    from x_detector_tpu_torch.tools import overfit
+    if res["launches"] != res["expected"]:
+        raise AssertionError(f"{tag}: launches {res['launches']}, expected "
+                             f"{res['expected']}")
+    if not res["passed" if loss_gate else "map_passed"]:
+        raise AssertionError(
+            f"{tag}: did not overfit: loss {res['total_loss']:.4g} (gate < "
+            f"{overfit.MAX_LOSS}), mAP {res['mAP']:.4f} (gate > "
+            f"{overfit.MIN_MAP})")
+
+
+def run_capstone(cfg, device, steps: int = LEARN_STEPS,
+                 eval_batches: int = LEARN_EVAL_BATCHES,
+                 calib_batches: int = LEARN_CALIB_BATCHES,
+                 dtype=torch.bfloat16) -> dict:
+    """The short capstone: ``tools/fast_nms_ab.train_synthetic`` of ``cfg``
+    for ``steps`` steps, then the held-out mAP of the same weights on
+    ``eval_batches`` batches in the modes "exact", "approx" and "maxpool"
+    (bf16) and in int8 (calibrated by ``tools/quant_ab.calibrate`` over
+    ``calib_batches`` batches of the calibration stream). The counters are
+    zeroed just before the training and just before each evaluation.
+    Returns the train readings and launches, and per side its mAP,
+    launches, what they should be (B2 a fused block and B1's forward once
+    a batch; K1 a dense QuantConv, K2 a depthwise one, K3 each but the
+    pointwise convs whose input K2 quantized) and its detections of each
+    batch (read after the counts)."""
+    from x_detector_tpu_torch.tools import fast_nms_ab as ab
+    from x_detector_tpu_torch.tools import quant_ab
+    counters = learn_counters()
+    zero_counters(counters, device)
+    state, info = ab.train_synthetic(cfg, steps, device, dtype,
+                                     log_every=max(steps // 4, 1), log=log)
+    b1 = int(cfg.model.family == "lighthead")
+    res = {"train": info,
+           "train_launches": {n: fn.launches for n, fn in counters.items()},
+           "train_expected": {**dict.fromkeys(counters, 0),
+                              "psroi_align": steps * b1,
+                              "psroi_align_backward": steps * b1},
+           "eval": {}}
+    batches = [ab.held_out_batch(cfg, device, bi)
+               for bi in range(eval_batches)]
+    ranges = quant_ab.calibrate(cfg, state.model, quant_ab.calibration_images(
+        cfg, device, calib_batches), dtype)
+    detects = {mode: ab.make_detect_fn(cfg, state.model, mode, dtype)
+               for mode in ab.MODES}
+    detects["int8"] = quant_ab.make_int8_detect(cfg, state.model, ranges,
+                                                dtype)
+    for name, detect in detects.items():
+        zero_counters(counters, device)
+        m = ab.eval_map(cfg, detect, eval_batches, device, batches)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        per_batch = {**dict.fromkeys(counters, 0),
+                     "fused_sepconv": fused_blocks(detect.model),
+                     "psroi_align": b1}
+        if name == "int8":
+            per_batch.update(int8_calls(detect.model))
+        res["eval"][name] = {
+            "mAP": m, "launches": launches, "per_batch": per_batch,
+            "expected": {k: v * eval_batches for k, v in per_batch.items()},
+            "detections": [tuple(t.cpu() for t in detect(b["image"]))
+                           for b in batches]}
+    res["ranges"] = ranges
+    return res
+
+
+def check_capstone(res: dict, per_batch: dict) -> None:
+    """The short capstone's gates: the train and evaluation launches as
+    expected, each side's per batch as ``per_batch`` says (name -> counts
+    a batch); every loss finite and the mean of the last LEARN_LOSS_WINDOW
+    below the mean of the first; every range positive; "approx"'s
+    detections bitwise "exact"'s (the port's approx_prefilter is the exact
+    top-k)."""
+    if res["train_launches"] != res["train_expected"]:
+        raise AssertionError(f"learn: train launches "
+                             f"{res['train_launches']}, expected "
+                             f"{res['train_expected']}")
+    for name, side in res["eval"].items():
+        want = {**dict.fromkeys(side["per_batch"], 0), **per_batch[name]}
+        if side["per_batch"] != want:
+            raise AssertionError(f"learn: {name} should launch {want} a "
+                                 f"batch; the model gives "
+                                 f"{side['per_batch']}")
+        if side["launches"] != side["expected"]:
+            raise AssertionError(f"learn: {name} launched "
+                                 f"{side['launches']}, expected "
+                                 f"{side['expected']}")
+    losses = res["train"]["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"learn: non-finite losses {losses}")
+    w = LEARN_LOSS_WINDOW
+    first, last = (sum(v) / len(v) for v in (losses[:w], losses[-w:]))
+    if not last < first:
+        raise AssertionError(f"learn: the loss did not fall: mean of the "
+                             f"first {w} steps {first:.4f}, of the last "
+                             f"{last:.4f}")
+    low = [k for k, v in res["ranges"].items() if not float(v) > 0.0]
+    if low:
+        raise AssertionError(f"learn: uncalibrated ranges {low[:5]}")
+    for bi, (a, e) in enumerate(zip(res["eval"]["approx"]["detections"],
+                                    res["eval"]["exact"]["detections"])):
+        hold_bitwise(f"learn: batch {bi}", a, e,
+                     what="of the approx path differs from the exact's")
+
+
+def phase_learn(device="cuda") -> dict:
+    """The learn phase: ``run_overfit`` at each LEARN_OVERFIT_STEPS size,
+    then ``run_capstone`` of config 3's recipe; each checked. Returns the
+    launches of each path for the kernels' line."""
+    from x_detector_tpu_torch.tools import fast_nms_ab as ab
+    from x_detector_tpu_torch.tools import overfit
+    paths = {}
+    for size, cfg, dtype in (
+            ("small", overfit.small_config(), torch.float32),
+            ("lighthead", overfit.full_width_config("lighthead"),
+             torch.bfloat16),
+            ("ssd", overfit.full_width_config("ssd"), torch.bfloat16)):
+        steps = LEARN_OVERFIT_STEPS[size]
+        torch.cuda.reset_peak_memory_stats()
+        res = run_overfit(cfg, device, steps, dtype)
+        paths[f"learn_overfit_{size}"] = {"launches": res["launches"]}
+        marks = [i for i in (0, 9, 29, 59, 119, 199, 299) if i < steps]
+        by_step = ", ".join(f"{i + 1}: {res['losses'][i]:.4f}"
+                            for i in marks)
+        gates = (f"loss < {overfit.MAX_LOSS}, " if size == "small"
+                 else "") + f"mAP > {overfit.MIN_MAP}"
+        log(f"learn: overfit {cfg.model.name} at {cfg.model.image_size} px "
+            f"({str(dtype)[6:]}), {overfit.NUM_IMAGES} fixed images, "
+            f"{steps} steps in {res['seconds']:.1f} s after the first "
+            f"({res['seconds'] / max(steps - 1, 1) * 1e3:.2f} ms a step): "
+            f"loss by step {{{by_step}, {steps}: {res['total_loss']:.4f}}}, "
+            f"mAP {res['mAP']:.4f} "
+            f"(gates: {gates}; lr {cfg.train.learning_rate:g}); "
+            f"launches {res['launches']}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_overfit(f"learn: overfit {size}", res,
+                      loss_gate=size == "small")
+    cfg = ab.capstone_config("lighthead", LEARN_RECIPE_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    res = run_capstone(cfg, device)
+    paths["learn_train"] = {"launches": res["train_launches"]}
+    paths.update({f"learn_{name}": {"launches": side["launches"]}
+                  for name, side in res["eval"].items()})
+    losses, w = res["train"]["losses"], LEARN_LOSS_WINDOW
+    log(f"learn: capstone, config 3's recipe ({LEARN_RECIPE_STEPS} steps), "
+        f"its first {LEARN_STEPS} steps at batch {cfg.train.batch_size}, "
+        f"{cfg.model.image_size} px, bf16: "
+        f"{res['train']['train_images_per_sec']:.1f} train images/s; loss "
+        f"mean of the first {w} {sum(losses[:w]) / w:.4f}, of the last "
+        f"{sum(losses[-w:]) / w:.4f}; held-out mAP on "
+        f"{LEARN_EVAL_BATCHES} batches: " + ", ".join(
+            f"{name} {side['mAP']:.4f}" for name, side in res["eval"].items())
+        + f" (int8 calibrated on {LEARN_CALIB_BATCHES} batches, "
+        f"{len(res['ranges'])} ranges); launches a batch " + "; ".join(
+            f"{name} " + str({k: v for k, v in side["per_batch"].items()
+                              if v}) for name, side in res["eval"].items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    bf16 = {"fused_sepconv": 14, "psroi_align": 1}
+    check_capstone(res, {"exact": bf16, "approx": bf16, "maxpool": bf16,
+                         "int8": {"int8_conv": 20, "int8_dwconv": 16,
+                                  "quantize_s8": 20, "psroi_align": 1}})
+    return paths
+
+
 def fused(cfg):
     """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
     as config 3 runs it."""
@@ -3505,6 +3721,11 @@ def main() -> int:
         f", launches {res['launches']}; cli.evaluate --data-dir mAP "
         f"{res['mAP']:.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # learn: overfit 8 fixed images at the test's size and at full width,
+    # then the short capstone: config 3 trained, scored exact, approx,
+    # MaxpoolNMS and int8 on the same held-out batches
+    paths.update(phase_learn())
 
     for k in kernels:
         by_path = {path: run["launches"][k["name"]]

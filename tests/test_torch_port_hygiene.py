@@ -126,6 +126,54 @@ def test_every_jax_module_has_a_counterpart_and_nothing_is_refused():
         assert "NotImplementedError" not in path.read_text(), path.name
 
 
+# The JAX package's tools/ with no module of the same name in the port's
+# tools/, and why
+_BENCHMARK = ("a TPU measurement of the JAX package; the port's benchmark "
+              "(ROADMAP item 1) measures the card, and chip_smoke.py and "
+              "the port's *_variants.py / profile_* modules time its "
+              "kernels and paths until then")
+TOOLS_LEFT = {
+    **{name: _BENCHMARK for name in (
+        "bench_cpu_config1.py", "bench_depthwise.py", "bench_detect.py",
+        "bench_fused_sepconv.py", "bench_infer.py", "bench_int8.py",
+        "bench_nms_tail.py", "bench_preproc.py", "bench_psroi.py",
+        "bench_serving.py", "bench_train.py")},
+    "rehearse_config5.py": (
+        "a later slice: its parts are covered (data-parallel steps against "
+        "accumulation, tests/test_torch_parallel.py; resume bit for bit, "
+        "tests/test_torch_cli.py and chip_smoke.py's cli and dp phases), "
+        "not its hard-kill drill in one script"),
+    "rehearse_voc_pipeline.py": (
+        "a later slice: its stages are covered one by one (convert_voc, "
+        "train and evaluate on shards, tests/test_torch_data.py; resume, "
+        "tests/test_torch_cli.py; export, load and predict, "
+        "tests/test_torch_export.py and test_torch_serving.py; all of them "
+        "in chip_smoke.py's data, cli and serve phases), not chained in "
+        "one script"),
+    "config1_parity.py": (
+        "a later slice: config 1's detections of an image as canonical "
+        "JSON for a reference that the repo does not hold; cli.predict "
+        "runs the same path"),
+    **{name: "drives the JAX package's TPU measurement queues"
+       for name in ("tpu_queue.sh", "tpu_queue2.sh", "tpu_queue_r5.sh")},
+}
+
+
+def test_every_jax_tool_has_a_counterpart_or_a_reason():
+    """Each file of the JAX package's tools/ has a module of the same name
+    in the port's tools/ or a TOOLS_LEFT entry, never both; the port's
+    tools are among the files that must import no JAX."""
+    jax_tools = sorted(p.name for p in (ROOT / "tools").iterdir()
+                       if p.is_file())
+    port_tools = ROOT / "x_detector_tpu_torch" / "tools"
+    for name in jax_tools:
+        assert (port_tools / name).exists() != (name in TOOLS_LEFT), name
+    assert set(TOOLS_LEFT) <= set(jax_tools)
+    ported = [p for p in port_tools.glob("*.py") if p.name in jax_tools]
+    assert len(ported) == 5
+    assert set(port_tools.glob("*.py")) <= set(_port_files())
+
+
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))

@@ -14,7 +14,10 @@ The port of ``x_detector_tpu/utils/profiling.py``:
   * :func:`kernel_device_ms` and :func:`device_ms` -- what the card spends
     a call of a function, kernel by kernel, from ``torch.profiler``'s
     device time: without the host's launch time, which a CUDA-event or
-    host-clock time of short calls reads instead.
+    host-clock time of short calls reads instead;
+  * :func:`alternating_ms` -- two or more paths timed by host clock in
+    alternating rounds, so that each round of each path sees the same
+    state of a host that drifts between fast and slow.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Sequence
 
 import torch
 
@@ -112,3 +115,24 @@ def device_ms(fn: Callable[[], object], reps: int = 10, tries: int = 3,
     :func:`kernel_device_ms` over the kernels whose name holds ``keep``."""
     return sum(ms for name, ms in kernel_device_ms(fn, reps, tries).items()
                if keep in name)
+
+
+def alternating_ms(sides: Dict[str, Callable[[], object]], rounds: int = 10,
+                   batches: int = 3, device="cuda") -> dict:
+    """Each of ``sides`` (name -> a call of one batch) ``batches`` times a
+    round, the sides in turn for ``rounds`` rounds, host clock to a sync
+    (on a CUDA ``device``): each side's median and best round in ms a
+    batch, and its rounds."""
+    sync = (lambda: torch.cuda.synchronize(device)) if (
+        torch.device(device).type == "cuda") else (lambda: None)
+    ms = {name: [] for name in sides}
+    for _ in range(rounds):
+        for name, fn in sides.items():
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                fn()
+            sync()
+            ms[name].append((time.perf_counter() - t0) / batches * 1e3)
+    return {name: {"median": sorted(v)[len(v) // 2], "best": min(v),
+                   "rounds": v} for name, v in ms.items()}
