@@ -795,16 +795,10 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
               for _ in range(batches + 1)]
     sync = (lambda: torch.cuda.synchronize(device)) if (
         device.type == "cuda") else (lambda: None)
-    counters = kernel_counters()
-    if cfg.model.backbone_quant is not None:
-        counters.update(int8_counters())
-    sync()
-    fs.reset_launches()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = path_counters(cfg.model.backbone_quant is not None)
+    reset_counters(counters, device)
     if cfg.model.backbone_quant is not None:
         from x_detector_tpu_torch.ops import int8_conv as q8
-        q8.reset_launches()
     seconds = []
     with suppress_counts(model) as suppress:
         for u8 in images:
@@ -959,6 +953,24 @@ def int8_counters():
             "quantize_s8": q8.quantize_activation}
 
 
+def path_counters(int8: bool = True) -> dict:
+    """The wrappers a path reads: B2's and B1's, and with ``int8`` K1-K3's."""
+    return {**kernel_counters(), **(int8_counters() if int8 else {})}
+
+
+def reset_counters(counters, device=None) -> None:
+    """After a sync on ``device`` (a card), every count of ``counters``
+    and B2's and the int8 kernels' counts by route and mode back to 0."""
+    from x_detector_tpu_torch.ops import fused_sepconv as fs
+    from x_detector_tpu_torch.ops import int8_conv as q8
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    fs.reset_launches()
+    q8.reset_launches()
+    for fn in counters.values():
+        fn.launches = 0
+
+
 def quantizing_blocks(model) -> int:
     """The separable blocks of ``model`` whose depthwise conv (K2)
     quantizes its output for the pointwise conv (``quantizes_on_store``):
@@ -1034,12 +1046,8 @@ def run_train(cfg, device, steps: int = TRAIN_STEPS, seed: int = SEED,
     batch_size = cfg.train.batch_size
     sync = (lambda: torch.cuda.synchronize(device)) if (
         device.type == "cuda") else (lambda: None)
-    counters = kernel_counters()
-    if cfg.model.backbone_quant is not None:
-        counters.update(int8_counters())
-    sync()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = path_counters(cfg.model.backbone_quant is not None)
+    reset_counters(counters, device)
     seconds, losses, ema_in = [], [], None
     for i in range(steps + 1):
         if i == steps and state.ema_params is not None:
@@ -1410,10 +1418,7 @@ def run_cli(device, extra=()) -> dict:
             raise AssertionError(f"cli: evaluate gave step {res['step']}, "
                                  f"EMA {res['ema']}, mAP {res['mAP']}")
         counters = kernel_counters()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counters(counters, device)
         train.main(["--preset", "lighthead_xception", "--model-dir",
                     f"{tmp}/lighthead", "--steps", "2", *common_args])
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -1441,10 +1446,7 @@ def run_dp(cfg, device, steps: int = DP_STEPS) -> dict:
     mesh.init_group(mesh.backend_for(device.type))
     try:
         counters = kernel_counters()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counters(counters, device)
         run = dp_scaling.run_steps(cfg, device, steps, seed=SEED)
         state = run.pop("state")
         res = step_readings(cfg, state, run["before"], steps, counters)
@@ -1728,10 +1730,7 @@ def run_data(device, extra=(), steps: int = DATA_STEPS,
                        "--device", str(device), "--batch-size", str(BATCH),
                        *extra]
         counters = kernel_counters()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counters(counters, device)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             state = train.main(common_args + ["--steps", str(steps),
@@ -2373,21 +2372,13 @@ def int8_kernel_lines(int8: dict) -> list:
 # serve: export, reload and serve (cli/export.py, serving.py, cli.predict)
 # ---------------------------------------------------------------------------
 
-def reset_counters(counters) -> None:
-    from x_detector_tpu_torch.ops import fused_sepconv as fs
-    fs.reset_launches()
-    for fn in counters.values():
-        fn.launches = 0
-
-
 def timed_batches(fn, inputs, batches: int, counters, device) -> dict:
     """``fn(*inputs)`` once to warm up and ``batches`` times timed (host
     clock to a sync): the first run's outputs, the launches a run of each
     kernel in ``counters`` and the median ms."""
     sync = (lambda: torch.cuda.synchronize(device)) if (
         torch.device(device).type == "cuda") else (lambda: None)
-    sync()
-    reset_counters(counters)
+    reset_counters(counters, device)
     seconds, first = [], None
     for _ in range(batches + 1):
         t0 = time.perf_counter()
@@ -2526,7 +2517,7 @@ def run_serve_int8(cfg, device, directory: str,
     x = preprocess_for_eval(torch.randint(
         0, 256, (bucket, size, size, 3), generator=gen, dtype=torch.uint8,
         device=device), cfg.data)
-    counters = {**kernel_counters(), **int8_counters()}
+    counters = path_counters()
     want = timed_batches(detect, (x,), batches, counters, device)
     got = timed_batches(cont.detect, (x,), batches, counters, device)
     hold_bitwise("serve int8", got["out"], want["out"])
@@ -3058,10 +3049,7 @@ def run_cli_rest(device, extra=(), steps: int = 2, batch_size: int = 4,
     counters = kernel_counters()
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(sd, f"{tmp}/resnet50.pth")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counters(counters, device)
         train.graft_pretrained = spy
         try:
             with contextlib.redirect_stdout(io.StringIO()) as out:
@@ -3106,23 +3094,6 @@ def run_cli_rest(device, extra=(), steps: int = 2, batch_size: int = 4,
                          "psroi_align_backward": steps}}
 
 
-def learn_counters() -> dict:
-    """Every kernel's wrapper: B2, B1 both ways and K1-K3."""
-    counters = kernel_counters()
-    counters.update(int8_counters())
-    return counters
-
-
-def zero_counters(counters, device) -> None:
-    """After a sync, every count of ``counters`` (and B2's and the int8
-    kernels' counts by route and mode) back to 0."""
-    from x_detector_tpu_torch.ops import int8_conv as q8
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    reset_counters(counters)
-    q8.reset_launches()
-
-
 def run_overfit(cfg, device, steps: int, dtype) -> dict:
     """``tools/overfit.overfit`` of ``cfg`` for ``steps`` steps in ``dtype``,
     the kernels' counters zeroed just before: its readings, the launches
@@ -3130,8 +3101,8 @@ def run_overfit(cfg, device, steps: int, dtype) -> dict:
     once more for the scoring forward, its backward once a step; nothing
     else: the train route takes no B2)."""
     from x_detector_tpu_torch.tools import overfit
-    counters = learn_counters()
-    zero_counters(counters, device)
+    counters = path_counters()
+    reset_counters(counters, device)
     res = overfit.overfit(cfg, device, steps, dtype)
     res["launches"] = {name: fn.launches for name, fn in counters.items()}
     b1 = int(cfg.model.family == "lighthead")
@@ -3172,8 +3143,8 @@ def run_capstone(cfg, device, steps: int = LEARN_STEPS,
     batch (read after the counts)."""
     from x_detector_tpu_torch.tools import fast_nms_ab as ab
     from x_detector_tpu_torch.tools import quant_ab
-    counters = learn_counters()
-    zero_counters(counters, device)
+    counters = path_counters()
+    reset_counters(counters, device)
     state, info = ab.train_synthetic(cfg, steps, device, dtype,
                                      log_every=max(steps // 4, 1), log=log)
     b1 = int(cfg.model.family == "lighthead")
@@ -3192,7 +3163,7 @@ def run_capstone(cfg, device, steps: int = LEARN_STEPS,
     detects["int8"] = quant_ab.make_int8_detect(cfg, state.model, ranges,
                                                 dtype)
     for name, detect in detects.items():
-        zero_counters(counters, device)
+        reset_counters(counters, device)
         m = ab.eval_map(cfg, detect, eval_batches, device, batches)
         launches = {n: fn.launches for n, fn in counters.items()}
         per_batch = {**dict.fromkeys(counters, 0),
@@ -3255,12 +3226,11 @@ def phase_learn(device="cuda") -> dict:
     from x_detector_tpu_torch.tools import fast_nms_ab as ab
     from x_detector_tpu_torch.tools import overfit
     paths = {}
-    for size, cfg, dtype in (
-            ("small", overfit.small_config(), torch.float32),
-            ("lighthead", overfit.full_width_config("lighthead"),
-             torch.bfloat16),
-            ("ssd", overfit.full_width_config("ssd"), torch.bfloat16)):
+    for size, cfg in (("small", overfit.small_config()),
+                      ("lighthead", overfit.full_width_config("lighthead")),
+                      ("ssd", overfit.full_width_config("ssd"))):
         steps = LEARN_OVERFIT_STEPS[size]
+        dtype = overfit.train_dtype(cfg, device)
         torch.cuda.reset_peak_memory_stats()
         res = run_overfit(cfg, device, steps, dtype)
         paths[f"learn_overfit_{size}"] = {"launches": res["launches"]}

@@ -22,7 +22,7 @@ from x_detector_tpu_torch.inference import Model, build_eval_fn
 from x_detector_tpu_torch.parallel import mesh
 from x_detector_tpu_torch.train.checkpoint import CheckpointManager
 from x_detector_tpu_torch.train.trainer import create_model_and_state
-from x_detector_tpu_torch.utils.metrics_voc import VOCEvaluator
+from x_detector_tpu_torch.utils.metrics_voc import VOCEvaluator, add_batch
 
 SPAWN_TIMEOUT_S = mesh.GROUP_TIMEOUT_S
 
@@ -73,20 +73,7 @@ def run_eval(model: Model, cfg, batch_iter: Iterator, num_batches: int,
             outs = _gather_rows(outs, world)
         if rank:
             continue
-        boxes, scores, classes, valid = (t.cpu().numpy() for t in outs)
-        for i in range(n_real):
-            if "image_id" in raw:
-                iid = raw["image_id"][i]
-                image_id = iid.decode() if isinstance(iid, bytes) else str(iid)
-            else:
-                image_id = f"b{bi}_i{i}"
-            m = raw["gt_mask"][i]
-            diff = raw["difficult"][i][m] if "difficult" in raw else None
-            ev.add_ground_truth(image_id, raw["gt_boxes"][i][m],
-                                raw["gt_labels"][i][m], diff)
-            v = valid[i]
-            ev.add_detections(image_id, boxes[i][v], scores[i][v],
-                              classes[i][v])
+        add_batch(ev, raw, [t.cpu().numpy() for t in outs], bi)
     return None if rank else ev.evaluate()
 
 

@@ -124,7 +124,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                    "train_loss": info["train_loss"]}
     detect = ab.make_detect_fn(cfg, state.model, "exact", dtype)
     rows.append(ab.emit({**common_keys,
-                         "precision": quant_ab.FLOAT_NAMES[args.dtype],
+                         "precision": quant_ab.FLOAT_NAMES[dtype],
                          "calibration": None,
                          "held_out_mAP": ab.eval_map(
                              cfg, detect, args.eval_batches, device)}))

@@ -51,7 +51,7 @@ from x_detector_tpu_torch.inference import build_eval_fn, build_model
 from x_detector_tpu_torch.train.train_state import TrainState
 from x_detector_tpu_torch.train.trainer import (create_model_and_state,
                                                 make_train_step)
-from x_detector_tpu_torch.utils.metrics_voc import VOCEvaluator
+from x_detector_tpu_torch.utils.metrics_voc import VOCEvaluator, add_batch
 from x_detector_tpu_torch.utils.profiling import alternating_ms
 
 MODES = ("exact", "approx", "maxpool")
@@ -271,16 +271,10 @@ def held_out_result(cfg, detect: Detect, num_batches: int, device,
                    for bi in range(num_batches))
     ev = VOCEvaluator(num_classes=cfg.model.num_classes - 1)
     for bi, raw in enumerate(batches):
-        images = torch.as_tensor(raw["image"]).to(device)
-        boxes, scores, classes, valid = (t.cpu().numpy()
-                                         for t in detect(images))
-        gtb, gtl, gtm = (torch.as_tensor(raw[k]).cpu().numpy()
-                         for k in ("gt_boxes", "gt_labels", "gt_mask"))
-        for i in range(images.shape[0]):
-            ev.add_ground_truth(f"b{bi}i{i}", gtb[i][gtm[i]], gtl[i][gtm[i]])
-            v = valid[i]
-            ev.add_detections(f"b{bi}i{i}", boxes[i][v], scores[i][v],
-                              classes[i][v])
+        det = detect(torch.as_tensor(raw["image"]).to(device))
+        add_batch(ev, {k: torch.as_tensor(raw[k]).cpu().numpy()
+                       for k in ("gt_boxes", "gt_labels", "gt_mask")},
+                  [t.cpu().numpy() for t in det], bi)
     return ev.evaluate()
 
 
@@ -326,22 +320,22 @@ def add_harness_args(p: argparse.ArgumentParser, steps: int = 3000,
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda; a run that finds no "
                         "card fails rather than use the CPU)")
-    p.add_argument("--dtype", default=None, choices=sorted(common.DTYPES),
-                   help="training and detection precision (default: "
-                        "bfloat16 on the card, float32 on the CPU, where "
-                        "PyTorch's bf16 conv backward of a 1 x 1 map (the "
-                        "64 px SSD's last extras) reads uninitialized "
-                        "memory)")
+
+
+def harness_dtype(device) -> torch.dtype:
+    """The precision a harness trains and detects in: bf16 on a card, as
+    the JAX package's harnesses run; fp32 on the CPU, where PyTorch's bf16
+    conv backward of a 1 x 1 map (the 64 px SSD's last extras) reads
+    uninitialized memory."""
+    return (torch.bfloat16 if torch.device(device).type == "cuda"
+            else torch.float32)
 
 
 def resolve_harness(args) -> Tuple[torch.device, torch.dtype, str]:
     """A harness's device (``common.resolve_device``: no card raises),
-    its dtype (``args.dtype`` filled in with the device's default) and
-    the device's ``device_label``."""
+    its ``harness_dtype`` and the device's ``device_label``."""
     device = common.resolve_device(args)
-    if args.dtype is None:
-        args.dtype = "bfloat16" if device.type == "cuda" else "float32"
-    return device, common.DTYPES[args.dtype], device_label(device)
+    return device, harness_dtype(device), device_label(device)
 
 
 def emit(row: dict) -> dict:

@@ -37,7 +37,8 @@ from x_detector_tpu_torch.data.synthetic import synthetic_batches
 from x_detector_tpu_torch.inference import postprocess
 from x_detector_tpu_torch.train.trainer import (create_model_and_state,
                                                 make_train_step)
-from x_detector_tpu_torch.utils.metrics_voc import VOCEvaluator
+from x_detector_tpu_torch.tools.fast_nms_ab import harness_dtype
+from x_detector_tpu_torch.utils.metrics_voc import VOCEvaluator, add_batch
 
 NUM_IMAGES, NUM_CLASSES = 8, 4
 STEPS, LEARNING_RATE = 120, 1e-2
@@ -127,14 +128,17 @@ def score(cfg, model: torch.nn.Module, batch: dict) -> dict:
         model.load_state_dict(stats, strict=False)
         model.train(was_training)
     ev = VOCEvaluator(num_classes=cfg.model.num_classes - 1)
-    boxes, scores, classes, valid = (t.cpu().numpy() for t in det)
-    gtb, gtl, gtm = (batch[k].cpu().numpy()
-                     for k in ("gt_boxes", "gt_labels", "gt_mask"))
-    for i in range(gtb.shape[0]):
-        ev.add_ground_truth(f"i{i}", gtb[i][gtm[i]], gtl[i][gtm[i]])
-        v = valid[i]
-        ev.add_detections(f"i{i}", boxes[i][v], scores[i][v], classes[i][v])
+    add_batch(ev, {k: batch[k].cpu().numpy()
+                   for k in ("gt_boxes", "gt_labels", "gt_mask")},
+              [t.cpu().numpy() for t in det])
     return ev.evaluate()
+
+
+def train_dtype(cfg, device) -> torch.dtype:
+    """The precision of an overfit run: fp32 for the test's model (the
+    JAX test's), ``harness_dtype`` at full width (bf16 on a card)."""
+    return (torch.float32 if cfg.model.image_size == SOURCE_SIZE
+            else harness_dtype(device))
 
 
 def overfit(cfg, device, steps: int = STEPS,
@@ -175,13 +179,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda; a run that finds no "
                         "card fails rather than use the CPU)")
-    p.add_argument("--dtype", default="float32",
-                   choices=sorted(common.DTYPES))
     args = p.parse_args(argv)
     device = common.resolve_device(args)
     cfg = (full_width_config(args.family) if args.family
            else small_config())
-    res = overfit(cfg, device, args.steps, common.DTYPES[args.dtype])
+    res = overfit(cfg, device, args.steps, train_dtype(cfg, device))
     print(json.dumps({"preset": cfg.model.name,
                       "image_size": cfg.model.image_size,
                       "steps": args.steps, "total_loss": res["total_loss"],

@@ -35,8 +35,8 @@ from x_detector_tpu_torch.tools import fast_nms_ab as ab
 # the calibration stream: CALIB_STREAM of seed 777 (the JAX package's
 # PRNGKey(777)), keyed apart from every train stream (fast_nms_ab)
 CALIB_SEED, CALIB_STREAM = 777, 4
-# the float arm's name by --dtype
-FLOAT_NAMES = {"bfloat16": "bf16", "float32": "fp32"}
+# the float arm's name by its precision (fast_nms_ab.harness_dtype)
+FLOAT_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
 
 def int8_config(cfg):
@@ -107,7 +107,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             print(f"[{fam} seed {seed}] calibrated {len(ranges)} conv "
                   "ranges", flush=True)
             detects = {
-                FLOAT_NAMES[args.dtype]: ab.make_detect_fn(
+                FLOAT_NAMES[dtype]: ab.make_detect_fn(
                     scfg, state.model, "exact", dtype),
                 "int8": make_int8_detect(scfg, state.model, ranges, dtype)}
             maps = {k: ab.eval_map(scfg, d, args.eval_batches, device)

@@ -53,6 +53,29 @@ def _iou_one_to_many(box: np.ndarray, boxes: np.ndarray) -> np.ndarray:
     return np.where(union > 0, inter / np.maximum(union, 1e-9), 0.0)
 
 
+def add_batch(ev: "VOCEvaluator", raw, detections,
+              batch_index: int = 0) -> None:
+    """Register a batch with ``ev``: each image's ground truth (``raw``'s
+    numpy ``gt_boxes``, ``gt_labels`` and ``gt_mask``, and ``difficult``
+    where present) and its valid detections (``detections``: numpy boxes,
+    scores, classes and valid, with at least as many rows as ``raw``),
+    under ``raw``'s ``image_id`` where present, else "b{batch_index}_i{i}".
+    """
+    boxes, scores, classes, valid = detections
+    for i in range(len(raw["gt_mask"])):
+        if "image_id" in raw:
+            iid = raw["image_id"][i]
+            image_id = iid.decode() if isinstance(iid, bytes) else str(iid)
+        else:
+            image_id = f"b{batch_index}_i{i}"
+        m = raw["gt_mask"][i]
+        diff = raw["difficult"][i][m] if "difficult" in raw else None
+        ev.add_ground_truth(image_id, raw["gt_boxes"][i][m],
+                            raw["gt_labels"][i][m], diff)
+        v = valid[i]
+        ev.add_detections(image_id, boxes[i][v], scores[i][v], classes[i][v])
+
+
 class VOCEvaluator:
     """Accumulates per-image gt + detections; computes per-class AP / mAP.
 
