@@ -217,8 +217,35 @@ Phases; each raises on failure and the script then exits non-zero:
                 (B2 14 and B1's forward 1 a batch each) and int8
                 calibrated on the trained model (K1 20, K2 16, K3 20 a
                 batch).
+ 16. tools   -- the last tools, each path a fresh process of its own, each
+                phase timed (phase_tools): rehearse (tools.rehearse_config5
+                --full-width: config 5's model at its global batch of 128,
+                world 1 x 16 microbatches of 8, REHEARSE_STEPS steps, a
+                checkpoint every REHEARSE_CKPT_EVERY, run B killed after
+                step 2: runs A and C bitwise equal in every tensor of the
+                train state; each child's B1 16 times a step each way; its
+                step seconds and the ops warned as nondeterministic);
+                multihost (cli.train --preset lighthead_xception --steps 2
+                under torch.distributed.run --standalone with
+                XDET_MULTIHOST=1 over NCCL, world 1, and world 2 where two
+                cards are visible, each rank through counted_cli_train: rc
+                0, the checkpoint at step 2 and data position 2,
+                metrics.jsonl steps [1, 2], B1 twice each way a rank; at
+                world 1 the first-step loss equal to the same CLI run
+                plainly, and how far apart the final states are);
+                voc_pipeline (tools.rehearse_voc_pipeline with
+                lighthead_xception at 800 px, photo-sized JPEGs decoded by
+                nvJPEG, --fused-sepconv on export: every stage passes; the
+                reloaded program B2 14 times and B1's forward once on its
+                batch; seconds by stage); parity1 (config 1 trained
+                PARITY1_STEPS steps by cli.train, tools.config1_parity's
+                record on the card, fp32 with TF32 off, B1's forward once
+                and B2 never, then on the CPU with --compare against it:
+                PARITY OK).
 The line before the last is one JSON object with the kernels' results; the
-last line is {"ok": true, "device": {...}}.
+last line is {"ok": true, "device": {...}}. ``chip_smoke.py
+--counted-cli-train ARGS`` runs cli.train ARGS and prints its launch
+counts: the multihost phase's torchrun ranks.
 """
 
 from __future__ import annotations
@@ -229,6 +256,7 @@ import functools
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -237,6 +265,8 @@ import types
 
 import torch
 
+from x_detector_tpu_torch.train.train_state import (snapshot_differs,
+                                                    train_snapshot)
 from x_detector_tpu_torch.utils import roofline
 from x_detector_tpu_torch.utils.profiling import alternating_ms
 
@@ -327,6 +357,15 @@ CLI_STEPS, CLI_RESUME_STEPS = 4, 6
 # 8 images = 128; the gloo pair: 8 images a rank
 DP_MICROBATCH, DP_STEPS = 8, 2
 DP_PAIR_STEPS, DP_PAIR_TIMEOUT_S = 2, 300
+# rehearse: tools.rehearse_config5 at config 5's full width and global
+# batch on this card (world 1 x 16 microbatches of DP_MICROBATCH), a
+# checkpoint every 2 steps, so run B is killed after step 2
+REHEARSE_STEPS, REHEARSE_CKPT_EVERY, REHEARSE_TIMEOUT_S = 6, 2, 600
+MULTIHOST_TIMEOUT_S = 300
+# parity1: config 1 trained this many steps on the card (cli.train's
+# defaults: batch 8, bf16, warm-up 500) before its record is taken on the
+# card and on the CPU
+PARITY1_STEPS, PARITY1_TIMEOUT_S = 50, 300
 DATA_STEPS, DATA_RATE_BATCHES, DATA_CANVAS = 3, 10, 960
 # photo-sized JPEGs made here with PIL (500 x 375, 4:2:0, ~79 KB, as VOC's
 # photos are sized and sampled) for the loader's rate and the CLIs
@@ -938,19 +977,19 @@ def fused_blocks(model) -> int:
 
 
 def kernel_counters():
-    from x_detector_tpu_torch.ops import psroi_align as pa
-    from x_detector_tpu_torch.ops.fused_sepconv import fused_separable_conv
-    return {"fused_sepconv": fused_separable_conv,
-            "psroi_align": pa.batched_psroi_align,
-            "psroi_align_backward": pa.psroi_align_backward}
+    """B2's and B1's wrappers (``ops.library.kernel_wrappers``)."""
+    from x_detector_tpu_torch.ops.library import kernel_wrappers
+    wrappers = kernel_wrappers()
+    return {k: wrappers[k] for k in ("fused_sepconv", "psroi_align",
+                                     "psroi_align_backward")}
 
 
 def int8_counters():
     """The int8 kernels' wrappers, read on the int8 paths."""
-    from x_detector_tpu_torch.ops import int8_conv as q8
-    return {"int8_conv": q8.int8_conv2d,
-            "int8_dwconv": q8.int8_depthwise_conv2d,
-            "quantize_s8": q8.quantize_activation}
+    from x_detector_tpu_torch.ops.library import kernel_wrappers
+    wrappers = kernel_wrappers()
+    return {k: wrappers[k] for k in ("int8_conv", "int8_dwconv",
+                                     "quantize_s8")}
 
 
 def path_counters(int8: bool = True) -> dict:
@@ -1479,26 +1518,6 @@ def dp_pair_batch(cfg, device, step: int):
     pri = loss_lib.draw_rpn_priorities(gen, b, anchor_lib.rpn_anchors(
         size, cfg.model.anchors).shape[0])
     return batch, pri
-
-
-def train_snapshot(state) -> dict:
-    """Every tensor a train state carries, on the CPU, by name: parameters
-    and BatchNorm running stats, SGD's momentum buffers, the EMA shadow,
-    and the step."""
-    out = {"model." + k: v.detach().cpu().clone()
-           for k, v in state.model.state_dict().items()}
-    for i, s in state.optimizer.state_dict()["state"].items():
-        out[f"momentum.{i}"] = s["momentum_buffer"].cpu().clone()
-    for k, v in (state.ema_params or {}).items():
-        out["ema." + k] = v.detach().cpu().clone()
-    out["step"] = torch.tensor(state.step)
-    return out
-
-
-def snapshot_differs(a: dict, b: dict) -> list:
-    """Names whose tensors are not bitwise equal (or present in one)."""
-    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not
-                                      torch.equal(a[k], b[k])]
 
 
 def _dp_pair_rank(rank, world, cfg, device, steps, out_dir):
@@ -3277,6 +3296,278 @@ def phase_learn(device="cuda") -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The last tools: rehearse, multihost, voc_pipeline, parity1
+# ---------------------------------------------------------------------------
+
+def repo_run(argv, env_extra=None,
+             timeout=None) -> subprocess.CompletedProcess:
+    """``python argv`` from this checkout's root, with the root on
+    PYTHONPATH (and ``env_extra``), its output captured."""
+    from x_detector_tpu_torch.tools import REPO, repo_env
+    return subprocess.run([sys.executable, *argv], cwd=REPO,
+                          env=repo_env(**(env_extra or {})),
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def failed_run(tag: str, proc) -> AssertionError:
+    return AssertionError(f"{tag}: rc {proc.returncode}\n"
+                          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+
+
+def run_rehearse(steps: int = REHEARSE_STEPS,
+                 ckpt_every: int = REHEARSE_CKPT_EVERY) -> dict:
+    """``tools.rehearse_config5 --full-width`` at config 5's global batch
+    of 128 on this card (world 1 x DP_MICROBATCH x 16 microbatches): runs
+    A, B (killed) and C, each a fresh process. Fails unless the verdict is
+    bitwise and each child launched B1's forward and backward once a
+    microbatch. Returns the verdict, the children's launches and step
+    seconds (rank 0's lines) and the ops warned as nondeterministic."""
+    from x_detector_tpu_torch.ops.library import read_launch_lines
+    accum = 128 // DP_MICROBATCH
+    proc = repo_run(["-m", "x_detector_tpu_torch.tools.rehearse_config5",
+                     "--full-width", "--per-device-batch",
+                     str(DP_MICROBATCH), "--grad-accum", str(accum),
+                     "--steps", str(steps), "--ckpt-every", str(ckpt_every)],
+                    timeout=REHEARSE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise failed_run("rehearse", proc)
+    verdict = json.loads([line for line in proc.stdout.splitlines()
+                          if line.startswith("{")][-1])
+    kill_at = ckpt_every * max(1, steps // (2 * ckpt_every))
+    children = {"A": steps, "B": kill_at, "C": steps - kill_at}
+    launches = dict(zip(children, read_launch_lines(proc.stdout)))
+    if not verdict["bitwise_identical"] or verdict["global_batch"] != 128:
+        raise AssertionError(f"rehearse: verdict {verdict}")
+    for run, n in children.items():
+        got = launches.get(run, {})
+        if (got.get("psroi_align"), got.get("psroi_align_backward")) != (
+                accum * n, accum * n):
+            raise AssertionError(f"rehearse: run {run} ({n} steps) launched "
+                                 f"{got}, expected B1 {accum} a step each "
+                                 f"way")
+    step_s = [float(line.split(", ")[-1][:-2]) for line in
+              proc.stdout.splitlines() if line.startswith("step ")]
+    warned = [line.split(": ", 1)[1] for line in proc.stdout.splitlines()
+              if line.startswith("nondeterministic ops warned")]
+    total = {k: sum(r.get(k, 0) for r in launches.values())
+             for k in launches["A"]}
+    return {"verdict": verdict, "launches": total, "by_child": launches,
+            "step_s": step_s, "warned": warned}
+
+
+def counted_cli_train(argv) -> int:
+    """``cli.train.main(argv)`` in this process (one of torchrun's ranks in
+    the multihost phase), then its kernels' launch counts."""
+    from x_detector_tpu_torch.cli import train
+    from x_detector_tpu_torch.ops.library import launch_line
+    train.main(argv)
+    print(launch_line(), flush=True)
+    return 0
+
+
+def run_multihost(world: int, steps: int = 2) -> dict:
+    """``cli.train --preset lighthead_xception --steps 2`` under
+    ``torch.distributed.run --standalone`` with ``XDET_MULTIHOST=1`` (NCCL,
+    ``world`` ranks, one a card; world 1 on one card), through
+    ``counted_cli_train``; then, for world 1, the same CLI run plainly in a
+    fresh process of its own (so that both start from PyTorch's default
+    settings). Fails unless torchrun's run exits 0 with a checkpoint at
+    step 2 and data position 2, metrics.jsonl steps [1, 2], and B1 once
+    a step each way on every rank; for world 1, unless its first-step loss
+    equals the plain run's. Returns the launches, the losses and the
+    largest gap between the two runs' final checkpoints."""
+    from x_detector_tpu_torch.ops.library import read_launch_lines
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = ["--preset", "lighthead_xception", "--steps", str(steps),
+               "--log-every", "1", "--checkpoint-every", str(steps)]
+        proc = repo_run(["-m", "torch.distributed.run", "--standalone",
+                         "--nproc-per-node", str(world),
+                         os.path.abspath(__file__), "--counted-cli-train",
+                         *cli, "--model-dir", f"{tmp}/torchrun"],
+                        env_extra={"XDET_MULTIHOST": "1"},
+                        timeout=MULTIHOST_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise failed_run(f"multihost world {world}", proc)
+        ranks = read_launch_lines(proc.stdout)
+        want = {"psroi_align": steps, "psroi_align_backward": steps}
+        if len(ranks) != world or any(
+                {k: r[k] for k in want} != want for r in ranks):
+            raise AssertionError(f"multihost world {world}: launches by rank "
+                                 f"{ranks}, expected {want} each")
+        ckpt = torch.load(f"{tmp}/torchrun/ckpt/ckpt-{steps}.pt",
+                          weights_only=True)
+        with open(f"{tmp}/torchrun/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        if (ckpt["step"], ckpt["data_state"]) != (steps, {"position": steps}
+                                                  ) or [r["step"] for r in
+                                                        recs] != [1, 2]:
+            raise AssertionError(f"multihost world {world}: checkpoint step "
+                                 f"{ckpt['step']} {ckpt['data_state']}, "
+                                 f"metrics steps {[r['step'] for r in recs]}")
+        res = {"launches": {k: sum(r[k] for r in ranks) for k in ranks[0]},
+               "losses": [r["total_loss"] for r in recs]}
+        if world != 1:
+            return res
+        plain = f"{tmp}/plain"
+        proc = repo_run([os.path.abspath(__file__), "--counted-cli-train",
+                         *cli, "--model-dir", plain],
+                        timeout=MULTIHOST_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise failed_run("multihost: the plain run", proc)
+        with open(f"{plain}/metrics.jsonl") as f:
+            res["plain_losses"] = [json.loads(line)["total_loss"]
+                                   for line in f]
+        if res["plain_losses"][0] != res["losses"][0]:
+            raise AssertionError(f"multihost: torchrun's first-step loss "
+                                 f"{res['losses'][0]!r} differs from the "
+                                 f"plain run's {res['plain_losses'][0]!r}")
+        other = torch.load(f"{plain}/ckpt/ckpt-{steps}.pt",
+                           weights_only=True)["model"]
+        res["state_gap"] = max(
+            (a.float() - b.float()).abs().max().item()
+            for k, a in ckpt["model"].items()
+            for b in [other[k]] if a.is_floating_point())
+        res["state_differs"] = sum(not torch.equal(a, other[k])
+                                   for k, a in ckpt["model"].items())
+        res["state_tensors"] = len(ckpt["model"])
+    return res
+
+
+def run_voc_pipeline() -> dict:
+    """``tools.rehearse_voc_pipeline`` on this card with lighthead_xception
+    at 800 px (batch 2), photo-sized JPEGs (nvJPEG decodes them here) and
+    ``--fused-sepconv`` on export. Fails unless every stage passes and the
+    reloaded program launched B2 14 times and B1's forward once on its
+    batch of 1. Returns each stage's seconds and the reload's launches."""
+    import re
+    from x_detector_tpu_torch.ops.library import read_launch_lines
+    from x_detector_tpu_torch.tools import rehearse_voc_pipeline as voc
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out):
+        rc = voc.main(["--preset", "lighthead_xception", "--image-size",
+                       "800", "--fused-sepconv", "--workdir", tmp])
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"voc_pipeline: rc {rc}\n{text[-4000:]}")
+    launches = read_launch_lines(text)[-1]
+    want = {"fused_sepconv": 14, "psroi_align": 1, "psroi_align_backward": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"voc_pipeline: the reloaded program launched "
+                             f"{launches}, expected {want}")
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^--- (\w+) passed in ([\d.]+) s$", text, re.M)}
+    return {"launches": launches, "stages": stages}
+
+
+def run_parity1(steps: int = PARITY1_STEPS) -> dict:
+    """Config 1's parity record (``tools.config1_parity``) on this card (in
+    this process, TF32 off) and on the CPU (a fresh process, ``--compare``
+    against the card's), both from one checkpoint of ``cli.train --preset
+    lighthead_resnet50 --steps`` ``steps`` on the card. Fails unless the CPU
+    run prints PARITY OK and exits 0, and the card's record launched B1's
+    forward once and B2 never. Returns the launches, the detection count
+    and the compare's lines."""
+    from x_detector_tpu_torch.cli import train
+    from x_detector_tpu_torch.tools import config1_parity as c1
+    counters = kernel_counters()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.main(["--preset", "lighthead_resnet50", "--steps",
+                        str(steps), "--model-dir", tmp, "--log-every",
+                        str(steps)])
+        train_s = time.perf_counter() - t0
+        reset_counters(counters, "cuda")
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = c1.main(["--checkpoint-dir", tmp, "--out",
+                              f"{tmp}/card.json"])
+            torch.cuda.synchronize()
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+        launches = {name: fn.launches for name, fn in counters.items()}
+        with open(f"{tmp}/card.json") as f:
+            card = json.load(f)
+        t0 = time.perf_counter()
+        proc = repo_run(["-m", "x_detector_tpu_torch.tools.config1_parity",
+                         "--device", "cpu", "--checkpoint-dir", tmp,
+                         "--out", f"{tmp}/cpu.json", "--compare",
+                         f"{tmp}/card.json"], timeout=PARITY1_TIMEOUT_S)
+        cpu_s = time.perf_counter() - t0
+    want = {"fused_sepconv": 0, "psroi_align": 1, "psroi_align_backward": 0}
+    lines = [line for line in proc.stdout.splitlines()
+             if not line.startswith("wrote ")]
+    if rc != 0 or proc.returncode != 0 or "PARITY OK" not in proc.stdout:
+        raise failed_run("parity1: the CPU record against the card's", proc)
+    if launches != want:
+        raise AssertionError(f"parity1: the card's record launched "
+                             f"{launches}, expected {want}")
+    return {"launches": launches, "detections": len(card["scores"]),
+            "compare": lines, "train_s": train_s, "cpu_s": cpu_s}
+
+
+def phase_tools() -> dict:
+    """The last tools' phases, each timed: ``rehearse``, ``multihost``
+    (world 1, and world 2 where two cards are visible), ``voc_pipeline``
+    and ``parity1``. Returns the launches of each path for the kernels'
+    line."""
+    paths = {}
+    t0 = time.perf_counter()
+    res = run_rehearse()
+    paths["rehearse"] = res
+    a_steps = res["step_s"][:REHEARSE_STEPS]
+    log(f"rehearse: tools.rehearse_config5 --full-width, world 1 x "
+        f"{128 // DP_MICROBATCH} microbatches of {DP_MICROBATCH} = global "
+        f"batch 128 at 800 px: {json.dumps(res['verdict'])}; launches by "
+        f"run {res['by_child']}; run A's step seconds "
+        f"{[round(s, 3) for s in a_steps]} (deterministic algorithms, "
+        f"synced; median after the first "
+        f"{sorted(a_steps[1:])[len(a_steps[1:]) // 2]:.3f}); ops warned as "
+        f"having no deterministic version, by run: {res['warned']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for world in (1, 2):
+        if torch.cuda.device_count() < world:
+            log(f"multihost: world {world} skipped: "
+                f"{torch.cuda.device_count()} card visible")
+            continue
+        t0 = time.perf_counter()
+        res = run_multihost(world)
+        paths[f"multihost_world{world}"] = res
+        plain = ("" if world != 1 else
+                 f"; the plain run's losses {res['plain_losses']} (first "
+                 f"step equal); final states: {res['state_differs']} of "
+                 f"{res['state_tensors']} tensors differ, by at most "
+                 f"{res['state_gap']:.3g}")
+        log(f"multihost: cli.train --preset lighthead_xception --steps 2 "
+            f"under torch.distributed.run --standalone, XDET_MULTIHOST=1, "
+            f"NCCL, world {world}: checkpoint at step 2 (data position 2), "
+            f"metrics.jsonl steps [1, 2], losses {res['losses']}, launches "
+            f"{res['launches']}{plain}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = run_voc_pipeline()
+    paths["voc_pipeline"] = res
+    log(f"voc_pipeline: tools.rehearse_voc_pipeline --preset "
+        f"lighthead_xception --image-size 800 --fused-sepconv (12 "
+        f"photo-sized JPEGs, batch 2): every stage passed; seconds by stage "
+        f"{res['stages']}; the reloaded program's launches on a batch of 1 "
+        f"{res['launches']}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = run_parity1()
+    paths["parity1"] = res
+    log(f"parity1: config 1 trained {PARITY1_STEPS} steps on the card "
+        f"({res['train_s']:.1f} s), its record of the synthetic 600 x 800 "
+        f"image on the card (fp32, TF32 off; launches {res['launches']}; "
+        f"{res['detections']} detections) and on the CPU "
+        f"({res['cpu_s']:.1f} s, a fresh process): " + " | ".join(
+            res["compare"]) + f"; {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def fused(cfg):
     """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
     as config 3 runs it."""
@@ -3697,6 +3988,10 @@ def main() -> int:
     # MaxpoolNMS and int8 on the same held-out batches
     paths.update(phase_learn())
 
+    # the last tools: config 5's crash-and-resume rehearsal, the torchrun
+    # path, the VOC pipeline rehearsal and config 1's parity record
+    paths.update(phase_tools())
+
     for k in kernels:
         by_path = {path: run["launches"][k["name"]]
                    for path, run in paths.items()
@@ -3719,4 +4014,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--counted-cli-train"]:
+        sys.exit(counted_cli_train(sys.argv[2:]))
     sys.exit(main())

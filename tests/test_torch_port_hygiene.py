@@ -138,22 +138,6 @@ TOOLS_LEFT = {
         "bench_fused_sepconv.py", "bench_infer.py", "bench_int8.py",
         "bench_nms_tail.py", "bench_preproc.py", "bench_psroi.py",
         "bench_serving.py", "bench_train.py")},
-    "rehearse_config5.py": (
-        "a later slice: its parts are covered (data-parallel steps against "
-        "accumulation, tests/test_torch_parallel.py; resume bit for bit, "
-        "tests/test_torch_cli.py and chip_smoke.py's cli and dp phases), "
-        "not its hard-kill drill in one script"),
-    "rehearse_voc_pipeline.py": (
-        "a later slice: its stages are covered one by one (convert_voc, "
-        "train and evaluate on shards, tests/test_torch_data.py; resume, "
-        "tests/test_torch_cli.py; export, load and predict, "
-        "tests/test_torch_export.py and test_torch_serving.py; all of them "
-        "in chip_smoke.py's data, cli and serve phases), not chained in "
-        "one script"),
-    "config1_parity.py": (
-        "a later slice: config 1's detections of an image as canonical "
-        "JSON for a reference that the repo does not hold; cli.predict "
-        "runs the same path"),
     **{name: "drives the JAX package's TPU measurement queues"
        for name in ("tpu_queue.sh", "tpu_queue2.sh", "tpu_queue_r5.sh")},
 }
@@ -170,7 +154,7 @@ def test_every_jax_tool_has_a_counterpart_or_a_reason():
         assert (port_tools / name).exists() != (name in TOOLS_LEFT), name
     assert set(TOOLS_LEFT) <= set(jax_tools)
     ported = [p for p in port_tools.glob("*.py") if p.name in jax_tools]
-    assert len(ported) == 5
+    assert len(ported) == 8
     assert set(port_tools.glob("*.py")) <= set(_port_files())
 
 

@@ -197,6 +197,10 @@ def parse_args(argv: Optional[List[str]]):
     p.add_argument("--raw-rgb", action="store_true",
                    help="bake the eval preprocessing in, taking raw [0,255] "
                         "RGB of the model input size")
+    p.add_argument("--fused-sepconv", action="store_true",
+                   help="run the backbone's stride-1 separable blocks on "
+                        "the fused kernel (B2), as config 3 serves; an "
+                        "Xception-lite preset's weights load unchanged")
     p.add_argument("--quant", default="none", choices=("none", "int8"),
                    help="int8: the post-training-quantized backbone "
                         "(quant.py), calibrated here; per-channel int8 "
@@ -250,6 +254,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     buckets, bake = bake_buckets(p, args)
     device = common.resolve_device(args)
     cfg = common.resolve_config(args)
+    if args.fused_sepconv:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, backbone_fused_sepconv=True))
     dtype = common.DTYPES[args.dtype]
     model = common.restored_model(args, cfg, device, dtype, "exporting")
     if args.quant == "int8":

@@ -57,6 +57,8 @@ Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 # Running-stat momentum of BatchNorm, the JAX package's default
 # (x_detector_tpu/models/layers.py:205).
 _BN_MOMENTUM = 0.99
+# the dtypes whose CPU convs run in fp32 (rounded_conv)
+_CPU_WIDENED = (torch.bfloat16, torch.float16)
 
 
 def same_pads(size: Sequence[int], kernel: Sequence[int],
@@ -91,9 +93,25 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, pads: Union[str, Pads],
     ``pads`` is "SAME" or ((top, bottom), (left, right))."""
     x, padding = _conv_padding(x, conv, pads)
     bias = None if conv.bias is None else conv.bias.to(dtype)
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
-                 padding, conv.dilation, conv.groups)
+    y = rounded_conv(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
+                     padding, conv.dilation, conv.groups)
     return y.contiguous(memory_format=torch.channels_last)
+
+
+def rounded_conv(x: torch.Tensor, w: torch.Tensor, bias, stride, padding,
+                 dilation, groups) -> torch.Tensor:
+    """``F.conv2d`` of operands already rounded to their dtype. On the CPU
+    a bf16 or fp16 conv runs in fp32 on those values and rounds its result
+    back (and so does its backward, through the casts): only the
+    accumulation changes, and oneDNN accumulates bf16 in fp32 anyway.
+    PyTorch's CPU bf16 conv backward reads uninitialised memory on a 1 x 1
+    input with a 3 x 3 stride-2 kernel (the 64 px SSD's last extras); a
+    card runs the conv in its dtype."""
+    if x.device.type != "cpu" or x.dtype not in _CPU_WIDENED:
+        return F.conv2d(x, w, bias, stride, padding, dilation, groups)
+    y = F.conv2d(x.float(), w.float(), None if bias is None else
+                 bias.float(), stride, padding, dilation, groups)
+    return y.to(x.dtype)
 
 
 def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
@@ -269,7 +287,7 @@ class _Act8Conv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, dilation, groups):
-        y = F.conv2d(x, w, None, stride, padding, dilation, groups)
+        y = rounded_conv(x, w, None, stride, padding, dilation, groups)
         s = act8_scale(x)
         xq = int8_conv.quantize_activation(
             x.detach().permute(0, 2, 3, 1).contiguous(), s)
@@ -283,9 +301,15 @@ class _Act8Conv(torch.autograd.Function):
         stride, padding, dilation, groups, dtype = ctx.geometry
         xa = (xq.float() * s).to(dtype).permute(0, 3, 1, 2)
         pad = (padding, padding) if isinstance(padding, int) else padding
+        # in fp32 on the CPU, as rounded_conv's backward
+        wide = g.device.type == "cpu" and dtype in _CPU_WIDENED
+        if wide:
+            g, xa, w = g.float(), xa.float(), w.float()
         dx, dw, _ = torch.ops.aten.convolution_backward(
             g, xa, w, None, stride, pad, dilation, False, [0, 0], groups,
             [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        if wide:
+            dx, dw = (None if t is None else t.to(dtype) for t in (dx, dw))
         return dx, dw, None, None, None, None
 
 
@@ -362,8 +386,8 @@ class QuantConv(nn.Conv2d):
             y = _Act8Conv.apply(x, w, self.stride, padding, self.dilation,
                                 self.groups)
         else:             # nothing saved for a backward: the plain conv
-            y = F.conv2d(x, w, None, self.stride, padding, self.dilation,
-                         self.groups)
+            y = rounded_conv(x, w, None, self.stride, padding,
+                             self.dilation, self.groups)
         y = y.contiguous(memory_format=torch.channels_last)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[None, :, None, None]

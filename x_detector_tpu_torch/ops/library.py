@@ -31,6 +31,8 @@ registered whenever any module of ``ops`` is.
 
 from __future__ import annotations
 
+import json
+
 import torch
 
 from x_detector_tpu_torch.ops import fused_sepconv, int8_conv, nms
@@ -165,3 +167,38 @@ _define("self_suppress(Tensor mask) -> Tensor", _self_suppress_fake,
 OPERATORS = ("psroi_align_fwd", "psroi_align_bwd", "fused_sepconv",
              "int8_conv", "int8_dwconv", "int8_dwconv_q", "quantize_s8",
              "self_suppress")
+
+
+# ---- launch counts ----------------------------------------------------------
+
+# the line a process prints its kernels' launch counts on (launch_line), for
+# a parent that drove it as a subprocess
+LAUNCHES_PREFIX = "kernel launches: "
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches, by
+    the names ``chip_smoke.py``'s kernels line gives them."""
+    return {"fused_sepconv": fused_sepconv.fused_separable_conv,
+            "psroi_align": psroi_align.batched_psroi_align,
+            "psroi_align_backward": psroi_align.psroi_align_backward,
+            "int8_conv": int8_conv.int8_conv2d,
+            "int8_dwconv": int8_conv.int8_depthwise_conv2d,
+            "quantize_s8": int8_conv.quantize_activation}
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launch count in this process."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def launch_line() -> str:
+    """``LAUNCHES_PREFIX`` and :func:`launch_counts` as JSON."""
+    return LAUNCHES_PREFIX + json.dumps(launch_counts())
+
+
+def read_launch_lines(text: str) -> list:
+    """The launch counts of every :func:`launch_line` in ``text``."""
+    return [json.loads(line[len(LAUNCHES_PREFIX):])
+            for line in text.splitlines()
+            if line.startswith(LAUNCHES_PREFIX)]

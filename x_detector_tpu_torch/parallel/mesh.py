@@ -31,6 +31,16 @@ GROUP_TIMEOUT_S = 1800.0    # a collective that waits longer raises
 FAILURE_GRACE_S = 10.0      # for the other ranks to end after one failed
 
 
+class RanksFailed(RuntimeError):
+    """Ranks of :func:`run_ranks` ended with non-zero exit codes:
+    ``exit_codes`` maps each to its code."""
+
+    def __init__(self, exit_codes: Dict[int, int], world: int):
+        super().__init__(f"ranks {sorted(exit_codes)} of {world} failed "
+                         f"(exit codes {exit_codes})")
+        self.exit_codes = dict(exit_codes)
+
+
 def backend_for(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
 
@@ -109,7 +119,8 @@ def run_ranks(fn: Callable, world: int, backend: str, args: Sequence = (),
     rank 0's result must pickle). Returns rank 0's result. A rank that
     fails ends the others at once and raises here; so do ranks still
     running ``timeout_s`` after another ended (a collective waits at most
-    ``timeout_s`` too). Every process started has ended when it returns."""
+    ``timeout_s`` too); a failure raises :class:`RanksFailed`. Every
+    process started has ended when it returns."""
     init = f"tcp://localhost:{free_port()}"
     ctx = multiprocessing.get_context("spawn")
     receive, send = ctx.Pipe(duplex=False)
@@ -137,8 +148,7 @@ def run_ranks(fn: Callable, world: int, backend: str, args: Sequence = (),
                     p.join(max(0.0, grace - time.monotonic()))
                 failed = {r: p.exitcode for r, p in running.items()
                           if p.exitcode not in (None, 0)}
-                raise RuntimeError(f"ranks {sorted(failed)} of {world} "
-                                   f"failed (exit codes {failed})")
+                raise RanksFailed(failed, world)
             for rank, p in list(running.items()):
                 if p.exitcode == 0:
                     del running[rank]

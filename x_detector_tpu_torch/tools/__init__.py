@@ -16,4 +16,31 @@ is passed (``--smoke`` shrinks the models to the tests' size):
     hot-pixel noise;
   * ``overfit`` -- 8 fixed images trained to a near-perfect mAP (the body
     of ``tests/test_torch_overfit.py``, at any width).
+
+and the ports of its rehearsals and parity record:
+
+  * ``rehearse_config5`` -- config 5's data-parallel run, hard-killed
+    right after a checkpoint and resumed, bitwise equal to an
+    uninterrupted run;
+  * ``rehearse_voc_pipeline`` -- a generated VOCdevkit through every CLI,
+    each stage a fresh process, down to a reloaded exported program;
+  * ``config1_parity`` -- config 1's detections of one image as canonical
+    JSON, and ``--compare`` against another record.
 """
+
+import os
+
+# the checkout's root: the directory that holds the package
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def repo_env(**extra: str) -> dict:
+    """This process's environment and ``extra``, with the checkout's root
+    first on PYTHONPATH: for subprocesses that run ``python -m
+    x_detector_tpu_torch...`` from any directory."""
+    env = dict(os.environ, **extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return env

@@ -324,9 +324,9 @@ def add_harness_args(p: argparse.ArgumentParser, steps: int = 3000,
 
 def harness_dtype(device) -> torch.dtype:
     """The precision a harness trains and detects in: bf16 on a card, as
-    the JAX package's harnesses run; fp32 on the CPU, where PyTorch's bf16
-    conv backward of a 1 x 1 map (the 64 px SSD's last extras) reads
-    uninitialized memory."""
+    the JAX package's harnesses run; fp32 on the CPU, where the tests hold
+    the harnesses to the JAX package's in fp32 (chosen first for a CPU
+    bf16 conv fault that ``models.layers.rounded_conv`` now repairs)."""
     return (torch.bfloat16 if torch.device(device).type == "cuda"
             else torch.float32)
 

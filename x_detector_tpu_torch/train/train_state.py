@@ -10,7 +10,7 @@ backward left in ``.grad``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -50,3 +50,24 @@ class TrainState:
                     self.ema_params[name].mul_(d).add_(p, alpha=1.0 - d)
         self.step += 1
         return self
+
+
+def train_snapshot(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every tensor a train state carries, on the CPU, by name: parameters
+    and BatchNorm running stats (``model.``), SGD's momentum buffers
+    (``momentum.<index>``), the EMA shadow (``ema.``), and the step."""
+    out = {"model." + k: v.detach().cpu().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, s in state.optimizer.state_dict()["state"].items():
+        out[f"momentum.{i}"] = s["momentum_buffer"].cpu().clone()
+    for k, v in (state.ema_params or {}).items():
+        out["ema." + k] = v.detach().cpu().clone()
+    out["step"] = torch.tensor(state.step)
+    return out
+
+
+def snapshot_differs(a: Dict[str, torch.Tensor],
+                     b: Dict[str, torch.Tensor]) -> List[str]:
+    """Names whose tensors are not bitwise equal (or present in one)."""
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not
+                                      torch.equal(a[k], b[k])]
