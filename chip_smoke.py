@@ -242,6 +242,22 @@ Phases; each raises on failure and the script then exits non-zero:
                 record on the card, fp32 with TF32 off, B1's forward once
                 and B2 never, then on the CPU with --compare against it:
                 PARITY OK).
+ 17. bench   -- the eleven measurement tools (x_detector_tpu_torch/tools/
+                bench_*.py), each in this process through its main() at its
+                preset widths with few iterations, each a path of its own
+                on the kernels line (phase_bench): bench_cpu_config1 (config
+                1 at 800 px on this machine's CPU, --iters 3: no launch);
+                bench_detect and bench_infer on config 3 (B2 14 and B1 1 a
+                batch), bench_infer on config 1 (batch 1: B1 1) and config
+                2 (none); bench_train (config 4: B1 once each way a step);
+                bench_serving eager at buckets 1, 4, 8 and 16 and from a
+                container of buckets 4 and 8 (B2 14 and B1 1 a batch on
+                both); bench_preproc, bench_nms_tail, bench_psroi (B1 runs),
+                bench_fused_sepconv (B2 14 fused, 0 unfused, B1 1 a batch
+                end to end), bench_int8 (K1, K2 and K3 run) and
+                bench_depthwise (no kernel). Every row of a card tool names
+                the card's name and power limit; a tool that fails fails
+                the run.
 The line before the last is one JSON object with the kernels' results; the
 last line is {"ok": true, "device": {...}}. ``chip_smoke.py
 --counted-cli-train ARGS`` runs cli.train ARGS and prints its launch
@@ -265,17 +281,17 @@ import types
 
 import torch
 
+from x_detector_tpu_torch.ops.fused_sepconv import unfused_cudnn
 from x_detector_tpu_torch.train.train_state import (snapshot_differs,
                                                     train_snapshot)
-from x_detector_tpu_torch.utils import roofline
-from x_detector_tpu_torch.utils.profiling import alternating_ms
+from x_detector_tpu_torch.utils.profiling import (alternating_ms, card_label,
+                                                  cuda_ms)
 
 SEED = 0
 BATCH = 16
 SLICE_BATCHES = 3          # timed batches, after one warm-up batch
 TRAIN_STEPS = 3            # timed train steps, after one warm-up step
 CANVAS_SCALE = 1.2         # raw train canvases: 960 px for 800 px inputs
-WARMUP, REPS = 3, 20       # kernel timing
 
 # Kernel B2's calls per batch of config 3 at 800 px, B=16:
 # (H, W, Cin, Cout, dilation, calls without residual, calls with residual)
@@ -404,20 +420,6 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def cuda_ms(fn, warmup: int = WARMUP, reps: int = REPS) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events after warm-up."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def max_rel_err(got: torch.Tensor, ref: torch.Tensor):
     err = (got.float() - ref.float()).abs().max().item()
     scale = max(1.0, ref.float().abs().max().item())
@@ -427,10 +429,7 @@ def max_rel_err(got: torch.Tensor, ref: torch.Tensor):
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = card_label()
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
     return smi
@@ -494,7 +493,7 @@ def phase_kernels() -> list:
                  "device_ms": fwd_device_ms(fwd),
                  "plain_ms": cuda_ms(lambda: pa.psroi_align_reference(
                      feat, rois, grid)),
-                 "bound": psroi_bound(feat, rois)}
+                 "bound": pa.bound_ms(feat, rois)}
         ms, bound = b1[r]["device_ms"], b1[r]["bound"]
         log(f"B1 psroi_align [{BATCH},{size},{size},{grid * grid * c}] bf16 "
             f"x [{BATCH},{r},4]: max abs err {err:.3g} (scale {sc:.3g}; "
@@ -534,7 +533,7 @@ def phase_kernels() -> list:
         del got, again, ref
     bwd_plain_ms = cuda_ms(lambda: pa.psroi_align_backward_reference(
         g, rois, size, size, torch.bfloat16, grid))
-    bwd_bound = psroi_bound(feat, rois)
+    bwd_bound = pa.bound_ms(feat, rois)
     log(f"B1 psroi_align_backward, dense: kernel {bwd_ms['dense']:.4f} ms, "
         f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]}), "
         f"{bwd_bound[0] / bwd_ms['dense']:.1%} of it; plain "
@@ -562,7 +561,7 @@ def phase_kernels() -> list:
     c1 = {"err": err, "ms": cuda_ms(fwd1), "device_ms": fwd_device_ms(fwd1),
           "plain_ms": cuda_ms(lambda: pa.psroi_align_reference(
               feat1, rois1, grid)),
-          "bound": psroi_bound(feat1, rois1)}
+          "bound": pa.bound_ms(feat1, rois1)}
     log(f"B1 psroi_align [1,{size},{size},{grid * grid * c}] bf16 x [1,512,4]"
         f" (config 1): max abs err {err:.3g} against the plain version on "
         f"the CPU (scale {sc:.3g}); kernel {c1['device_ms']:.4f} ms device "
@@ -688,44 +687,6 @@ def time_b2(shapes, batch: int, randn, yardsticks: bool) -> dict:
     tot["by"] = ("bytes" if tot["bytes_bound_ms"] * 2 >= tot["bound_ms"]
                  else "operations")
     return tot
-
-
-def psroi_bound(feat, rois, samples: int = 2):
-    """roofline.bound_ms's pair for PSROIAlign at these shapes, forward or
-    backward: per fp32 bin, samples^2 bilinear points of 4 fp32
-    multiply-adds; the map (in or out) and the fp32 bins (out or in) each
-    move once, and the rois are read once."""
-    bins = rois.shape[0] * rois.shape[1] * feat.shape[-1]
-    return roofline.bound_ms(
-        bins * samples * samples * 4 * 2.0,
-        feat.numel() * feat.element_size() + rois.numel() * 4 + bins * 4,
-        roofline.FP32_FLOP_PER_S)
-
-
-def unfused_cudnn(x, wd, wp, scale, bias, *, dilation, relu, residual):
-    """The yardstick for B2: the model's unfused route at one shape, bf16
-    channels_last depthwise F.conv2d, then the 1x1 F.conv2d, then the
-    folded BN, the residual and the ReLU: several calls, which the port
-    does not take on this route. Returns a function of no arguments."""
-    import torch.nn.functional as F
-    cin, cout = wp.shape
-    d = int(dilation)
-    xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW
-    wdc = wd.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    wpc = wp.t()[:, :, None, None].to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    sc = scale.to(torch.bfloat16)[None, :, None, None]
-    bi = bias.to(torch.bfloat16)[None, :, None, None]
-    res = None if residual is None else residual.permute(0, 3, 1, 2)
-
-    def run():
-        y = F.conv2d(F.conv2d(xc, wdc, padding=d, dilation=d, groups=cin),
-                     wpc) * sc + bi
-        if res is not None:
-            y = y + res
-        return F.relu(y) if relu else y
-    return run
 
 
 def config_rois(gen, batch: int, r: int, dev) -> torch.Tensor:
@@ -3568,6 +3529,132 @@ def phase_tools() -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# bench: the measurement tools, each in this process at its preset widths
+# ---------------------------------------------------------------------------
+
+def run_tool(name: str, argv) -> dict:
+    """``tools.<name>.main(argv)`` in this process, the kernels' counts set
+    to 0 just before: its JSON rows, every kernel's launches over the run
+    and its seconds."""
+    import importlib
+    module = importlib.import_module(f"x_detector_tpu_torch.tools.{name}")
+    counters = path_counters()
+    reset_counters(counters, "cuda")
+    t0 = time.perf_counter()
+    rows = module.main(list(argv))
+    torch.cuda.synchronize()
+    return {"rows": rows, "seconds": time.perf_counter() - t0,
+            "launches": {k: fn.launches for k, fn in counters.items()}}
+
+
+def check_rows(tag: str, rows, smi: str) -> None:
+    """Fails unless ``tag`` printed rows and each names the card
+    (nvidia-smi's name and power limit)."""
+    if not rows or any(row.get("device") != smi for row in rows):
+        raise AssertionError(f"{tag}: rows without the card's name and "
+                             f"power ({smi!r}): {rows}")
+
+
+def check_per_batch(tag: str, got: dict, want: dict) -> None:
+    """Fails unless the launches a batch (or step) ``got`` are ``want``'s,
+    every other kernel's 0."""
+    full = {k: float(want.get(k, 0)) for k in got}
+    if got != full:
+        raise AssertionError(f"{tag}: launches a batch {got}, expected "
+                             f"{full}")
+
+
+B3_PER_BATCH = {"fused_sepconv": 14, "psroi_align": 1}
+# path -> (tool, its arguments, what it must launch): None nothing, a set
+# those kernels, a dict those launches a batch (a step) in the tool's rows
+BENCH_RUNS = {
+    # config 1 on this machine's CPU: 800 px, fp32 and bf16
+    "bench_cpu_config1": ("bench_cpu_config1", ["--iters", "3"], None),
+    "bench_detect": ("bench_detect", [
+        "--preset", "lighthead_xception", "--batch", "16", "--iters", "4"],
+        B3_PER_BATCH),
+    # per-stage FLOPs and MFU: configs 3, 1 (one image) and 2
+    "bench_infer_config3": ("bench_infer", [
+        "--preset", "lighthead_xception", "--batch", "16", "--iters", "4",
+        "--passes", "5"], B3_PER_BATCH),
+    "bench_infer_config1": ("bench_infer", [
+        "--preset", "lighthead_resnet50", "--batch", "1", "--iters", "4",
+        "--passes", "5"], {"psroi_align": 1}),
+    "bench_infer_config2": ("bench_infer", [
+        "--preset", "ssd_resnet50", "--batch", "8", "--iters", "4",
+        "--passes", "5"], {}),
+    "bench_train": ("bench_train", ["--steps", "5"],
+                    {"psroi_align": 1, "psroi_align_backward": 1}),
+    # eager at every bucket; a container of the buckets serve does not
+    # export
+    "bench_serving": ("bench_serving", ["--batches", "1,4,8,16"],
+                      B3_PER_BATCH),
+    "bench_serving_container": ("bench_serving", [
+        "--batches", "4,8", "--container"], B3_PER_BATCH),
+    "bench_preproc": ("bench_preproc", ["--iters", "4"], None),
+    "bench_nms_tail": ("bench_nms_tail", [], None),
+    "bench_psroi": ("bench_psroi", [], {"psroi_align"}),
+    # fused: B2 and B1 a batch as config 3; unfused: B1 alone
+    "bench_fused_sepconv": ("bench_fused_sepconv", [
+        "--iters", "4", "--passes", "3"], B3_PER_BATCH),
+    "bench_int8": ("bench_int8", [],
+                   {"int8_conv", "int8_dwconv", "quantize_s8"}),
+    "bench_depthwise": ("bench_depthwise", [], None),
+}
+
+
+def check_bench(path: str, name: str, res: dict, want) -> None:
+    """Fails unless ``path``'s run of tool ``name`` launched what ``want``
+    says (``BENCH_RUNS``): nothing, each kernel of a set, or a dict's
+    launches a batch (a step) in each row that counts them."""
+    rows, launched = res["rows"], res["launches"]
+    if want is None:
+        if any(launched.values()):
+            raise AssertionError(f"{path}: launched {launched}")
+    elif isinstance(want, set):
+        if not all(launched[k] > 0 for k in want):
+            raise AssertionError(f"{path}: launches {launched}, expected "
+                                 f"each of {sorted(want)}")
+    elif name == "bench_fused_sepconv":
+        check_per_batch(path, rows[-1]["fused_launches_per_batch"], want)
+        check_per_batch(path, rows[-1]["unfused_launches_per_batch"],
+                        dict(want, fused_sepconv=0))
+    else:
+        keys = ("launches_per_batch", "launches_per_step",
+                "container_launches_per_batch")
+        held = [row[k] for row in rows for k in keys if k in row]
+        if not held or ("container" in path) != any(
+                "container_launches_per_batch" in row for row in rows):
+            raise AssertionError(f"{path}: no launch counts in {rows}")
+        for got in held:
+            check_per_batch(path, got, want)
+
+
+def phase_bench(smi: str, runs=None) -> dict:
+    """The eleven measurement tools (``tools/bench_*``), each run in this
+    process (``run_tool``) as ``runs`` (``BENCH_RUNS``) says: at its
+    preset widths with few iterations, each a path of the kernels line,
+    each timed, each row of a card tool naming the card (``smi``), its
+    launches checked (``check_bench``); a tool that raises fails the run.
+    Returns the paths' readings."""
+    paths, t_all = {}, time.perf_counter()
+    for path, (name, argv, want) in (runs or BENCH_RUNS).items():
+        paths[path] = res = run_tool(name, argv)
+        if name == "bench_cpu_config1":
+            if any(row["threads"] < 1 or not row["host"].startswith(
+                    "nproc=") or not math.isfinite(row["latency_ms"])
+                   for row in res["rows"]):
+                raise AssertionError(f"{path}: {res['rows']}")
+        else:
+            check_rows(path, res["rows"], smi)
+        check_bench(path, name, res, want)
+        log(f"bench: {path} ({res['seconds']:.1f} s): launches "
+            f"{res['launches']}")
+    log(f"bench: the eleven tools in {time.perf_counter() - t_all:.1f} s")
+    return paths
+
+
 def fused(cfg):
     """``cfg`` with the backbone's stride-1 separable blocks on kernel B2,
     as config 3 runs it."""
@@ -3991,6 +4078,9 @@ def main() -> int:
     # the last tools: config 5's crash-and-resume rehearsal, the torchrun
     # path, the VOC pipeline rehearsal and config 1's parity record
     paths.update(phase_tools())
+
+    # the measurement tools, each at its preset widths
+    paths.update(phase_bench(smi))
 
     for k in kernels:
         by_path = {path: run["launches"][k["name"]]

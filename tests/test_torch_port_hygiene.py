@@ -128,19 +128,9 @@ def test_every_jax_module_has_a_counterpart_and_nothing_is_refused():
 
 # The JAX package's tools/ with no module of the same name in the port's
 # tools/, and why
-_BENCHMARK = ("a TPU measurement of the JAX package; the port's benchmark "
-              "(ROADMAP item 1) measures the card, and chip_smoke.py and "
-              "the port's *_variants.py / profile_* modules time its "
-              "kernels and paths until then")
 TOOLS_LEFT = {
-    **{name: _BENCHMARK for name in (
-        "bench_cpu_config1.py", "bench_depthwise.py", "bench_detect.py",
-        "bench_fused_sepconv.py", "bench_infer.py", "bench_int8.py",
-        "bench_nms_tail.py", "bench_preproc.py", "bench_psroi.py",
-        "bench_serving.py", "bench_train.py")},
-    **{name: "drives the JAX package's TPU measurement queues"
-       for name in ("tpu_queue.sh", "tpu_queue2.sh", "tpu_queue_r5.sh")},
-}
+    name: "drives the JAX package's TPU measurement queues"
+    for name in ("tpu_queue.sh", "tpu_queue2.sh", "tpu_queue_r5.sh")}
 
 
 def test_every_jax_tool_has_a_counterpart_or_a_reason():
@@ -154,7 +144,7 @@ def test_every_jax_tool_has_a_counterpart_or_a_reason():
         assert (port_tools / name).exists() != (name in TOOLS_LEFT), name
     assert set(TOOLS_LEFT) <= set(jax_tools)
     ported = [p for p in port_tools.glob("*.py") if p.name in jax_tools]
-    assert len(ported) == 8
+    assert len(ported) == 19
     assert set(port_tools.glob("*.py")) <= set(_port_files())
 
 

@@ -20,13 +20,12 @@ Two readings, after the card's name and power limit:
 
 from __future__ import annotations
 
-import subprocess
 import time
 
 import torch
 
 from x_detector_tpu_torch.ops import int8_conv as q8
-from x_detector_tpu_torch.utils.profiling import device_ms
+from x_detector_tpu_torch.utils.profiling import card_label, device_ms
 
 # (B, H, W, Cin, Cout, kernel, stride, pads) of configs 2 and 3 (dilation 1)
 SHAPES = [
@@ -79,9 +78,7 @@ def host_us() -> dict:
 
 
 def main() -> None:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    smi = card_label()
     print(f"card: {smi}", flush=True)
     us = host_us()
     print("host us a tiny K1 call (median of alternating rounds): " +

@@ -14,12 +14,11 @@ plans and under the best plan of each shape.
 
 from __future__ import annotations
 
-import subprocess
 
 import torch
 
 from x_detector_tpu_torch.ops import int8_conv as q8
-from x_detector_tpu_torch.utils.profiling import device_ms
+from x_detector_tpu_torch.utils.profiling import card_label, device_ms
 
 # config 3's depthwise calls a batch: (B, H, W, C, stride, dilation, pads,
 # calls)
@@ -78,9 +77,7 @@ def timed(fn) -> tuple:
 
 
 def main() -> None:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = card_label()
     print(smi, flush=True)
     sm = q8.sm_count(0)
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -155,16 +155,49 @@ def plan_launch(b: int, h: int, w: int, cin: int, cout: int, dilation: int,
                 min(units, sm_count), *tiles, units)
 
 
-def bound_ms(b: int, h: int, w: int, cin: int, cout: int,
-             residual: bool):
-    """(least ms on one H100, what binds it) for one call: 2 P Cin (9 +
-    Cout) operations at the bf16 tensor-core rate; bf16 x, out and residual,
-    bf16 wp and fp32 wd/scale/bias, each moved once."""
+def work(b: int, h: int, w: int, cin: int, cout: int, residual: bool):
+    """(operations, bytes) of one call: 2 P Cin (9 + Cout) operations (the
+    depthwise's 9 multiply-adds and the pointwise product's Cout an input
+    channel and pixel); bf16 x, out and residual, bf16 wp and fp32
+    wd/scale/bias, each moved once."""
     p = b * h * w
     flop = 2.0 * p * cin * (9 + cout)
     nbytes = (p * (cin + cout + (cout if residual else 0)) * 2
               + cin * cout * 2 + 9 * cin * 4 + 2 * cout * 4)
-    return roofline.bound_ms(flop, nbytes, roofline.BF16_TENSOR_FLOP_PER_S)
+    return flop, nbytes
+
+
+def bound_ms(b: int, h: int, w: int, cin: int, cout: int,
+             residual: bool):
+    """(least ms on one H100, what binds it) for one call: :func:`work`'s
+    operations at the bf16 tensor-core rate, its bytes at HBM's."""
+    return roofline.bound_ms(*work(b, h, w, cin, cout, residual),
+                             roofline.BF16_TENSOR_FLOP_PER_S)
+
+
+def unfused_cudnn(x, wd, wp, scale, bias, *, dilation, relu, residual):
+    """The yardstick for B2: the model's unfused route at one shape, bf16
+    channels_last depthwise F.conv2d, then the 1x1 F.conv2d, then the
+    folded BN, the residual and the ReLU: several calls, which the port
+    does not take on this route. Returns a function of no arguments."""
+    cin, cout = wp.shape
+    d = int(dilation)
+    xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW
+    wdc = wd.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    wpc = wp.t()[:, :, None, None].to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    sc = scale.to(torch.bfloat16)[None, :, None, None]
+    bi = bias.to(torch.bfloat16)[None, :, None, None]
+    res = None if residual is None else residual.permute(0, 3, 1, 2)
+
+    def run():
+        y = F.conv2d(F.conv2d(xc, wdc, padding=d, dilation=d, groups=cin),
+                     wpc) * sc + bi
+        if res is not None:
+            y = y + res
+        return F.relu(y) if relu else y
+    return run
 
 
 class SepConvWeights(NamedTuple):

@@ -969,33 +969,54 @@ def _input_bytes(b: int, h: int, w: int, c: int, geometry: Sequence[int]):
     return b * rows * cols * c, ho, wo
 
 
-def conv_bound_ms(b: int, h: int, w: int, cin: int, cout: int,
-                  geometry: Sequence[int], out_bytes: int):
-    """(least ms, what binds) of one K1 call: 2 M N K int8 operations at the
-    tensor cores' int8 rate (K = kh kw Cin); the input pixels that some tap
-    reads, the weight, the fp32 scale and the output each moved once."""
+def conv_work(b: int, h: int, w: int, cin: int, cout: int,
+              geometry: Sequence[int], out_bytes: int):
+    """(int8 operations, bytes) of one K1 call: 2 M N K (K = kh kw Cin);
+    the input pixels that some tap reads, the weight, the fp32 scale and
+    the output each moved once."""
     read, ho, wo = _input_bytes(b, h, w, cin, geometry)
     m, k = b * ho * wo, geometry[0] * geometry[1] * cin
     nbytes = read + cout * k + 4 * cout + m * cout * out_bytes
-    return roofline.bound_ms(2.0 * m * cout * k, nbytes,
+    return 2.0 * m * cout * k, nbytes
+
+
+def conv_bound_ms(b: int, h: int, w: int, cin: int, cout: int,
+                  geometry: Sequence[int], out_bytes: int):
+    """(least ms, what binds) of one K1 call: :func:`conv_work` at the
+    tensor cores' int8 rate."""
+    return roofline.bound_ms(*conv_work(b, h, w, cin, cout, geometry,
+                                        out_bytes),
                              roofline.INT8_TENSOR_OPS_PER_S)
+
+
+def depthwise_work(b: int, h: int, w: int, c: int, geometry: Sequence[int],
+                   out_bytes: int):
+    """(operations, bytes) of one K2 call: 9 multiply-adds an output; the
+    input pixels that some tap reads, the 9 x C taps, the scale and the
+    output each moved once."""
+    read, ho, wo = _input_bytes(b, h, w, c, geometry)
+    nbytes = read + 9 * c + 4 * c + b * ho * wo * c * out_bytes
+    return 2.0 * 9 * b * ho * wo * c, nbytes
 
 
 def depthwise_bound_ms(b: int, h: int, w: int, c: int,
                        geometry: Sequence[int], out_bytes: int):
-    """K2: 9 multiply-adds an output on the CUDA cores (at the fp32 rate,
-    the table's rate outside the tensor cores); the input pixels that some
-    tap reads, the 9 x C taps, the scale and the output each moved once."""
-    read, ho, wo = _input_bytes(b, h, w, c, geometry)
-    nbytes = read + 9 * c + 4 * c + b * ho * wo * c * out_bytes
-    return roofline.bound_ms(2.0 * 9 * b * ho * wo * c, nbytes,
+    """K2: :func:`depthwise_work` on the CUDA cores (at the fp32 rate, the
+    table's rate outside the tensor cores)."""
+    return roofline.bound_ms(*depthwise_work(b, h, w, c, geometry,
+                                             out_bytes),
                              roofline.FP32_FLOP_PER_S)
 
 
+def quantize_work(n: int, in_bytes: int):
+    """(operations, bytes) of one K3 call: one division an element; the
+    input read and the int8 written once."""
+    return float(n), n * (in_bytes + 1)
+
+
 def quantize_bound_ms(n: int, in_bytes: int):
-    """K3: one division an element; the input read and the int8 written
-    once."""
-    return roofline.bound_ms(float(n), n * (in_bytes + 1),
+    """K3: :func:`quantize_work` at the fp32 rate."""
+    return roofline.bound_ms(*quantize_work(n, in_bytes),
                              roofline.FP32_FLOP_PER_S)
 
 

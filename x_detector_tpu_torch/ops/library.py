@@ -16,14 +16,15 @@ Every hand kernel is reached only through its operator:
   ==========================  ==========================================
 
 Each operator has a fake implementation (output shapes and dtypes, which
-``torch.export`` traces through), a CPU implementation (the plain version)
-and a CUDA one (the kernel's launch, which counts it). The dispatcher picks
-the implementation from the tensors' device: a CUDA tensor always reaches
-the kernel, which launches or raises, and nothing falls back to the plain
-version. A graph exported from the model holds one opaque node per call, so
-a program loaded with ``torch.export.load`` launches the same kernels as
-eager code; the loading process must have imported this module first
-(``serving.py`` does).
+``torch.export`` traces through), a CPU implementation (the plain version),
+a CUDA one (the kernel's launch, which counts it) and, for a kernel, a FLOP
+formula (:func:`flop_formulas`, for ``utils/roofline.count``). The
+dispatcher picks the implementation from the tensors' device: a CUDA
+tensor always reaches the kernel, which launches or raises, and nothing
+falls back to the plain version. A graph exported from the model holds one
+opaque node per call, so a program loaded with ``torch.export.load``
+launches the same kernels as eager code; the loading process must have
+imported this module first (``serving.py`` does).
 
 The package's ``ops/__init__.py`` imports this module, so the operators are
 registered whenever any module of ``ops`` is.
@@ -169,6 +170,67 @@ OPERATORS = ("psroi_align_fwd", "psroi_align_bwd", "fused_sepconv",
              "self_suppress")
 
 
+# ---- FLOP formulas ----------------------------------------------------------
+
+# Each kernel's operations, the counts its bound takes (fused_sepconv.work,
+# psroi_align.work, int8_conv.conv_work / depthwise_work / quantize_work),
+# as torch.utils.flop_counter.FlopCounterMode takes them: a formula gets
+# the operator's arguments with every tensor replaced by its shape, and the
+# output's shape (utils/roofline.count registers them). NMS's fixpoint is
+# no kernel and counts none.
+
+def _sepconv_flop(x, *args, out_shape, **kwargs) -> int:
+    return int(fused_sepconv.work(*x, out_shape[-1], False)[0])
+
+
+def _psroi_fwd_flop(features, rois, grid, samples, *, out_shape,
+                    **kwargs) -> int:
+    return int(psroi_align.work(rois[0], rois[1], features[-1], 0,
+                                samples)[0])
+
+
+def _psroi_bwd_flop(grad, rois, height, width, dtype, grid, samples, *,
+                    out_shape, **kwargs) -> int:
+    return int(psroi_align.work(rois[0], rois[1], out_shape[-1], 0,
+                                samples)[0])
+
+
+def _conv_flop(xq, kernel, scale, geometry, out_dtype, *, out_shape,
+               **kwargs) -> int:
+    return int(int8_conv.conv_work(*xq, out_shape[-1], geometry, 0)[0])
+
+
+def _dwconv_flop(xq, kernel, scale, *args, out_shape, **kwargs) -> int:
+    geometry = args[-2]           # int8_dwconv's and int8_dwconv_q's
+    return int(int8_conv.depthwise_work(*xq, geometry, 0)[0])
+
+
+def _quantize_flop(x, sx, *, out_shape, **kwargs) -> int:
+    n = 1
+    for d in x:
+        n *= d
+    return int(int8_conv.quantize_work(n, 0)[0])
+
+
+# each kernel's operator (its OpOverloadPacket, as the dispatcher names
+# it) -> its formula
+_FLOP_FORMULAS = {
+    getattr(getattr(torch.ops, NAMESPACE), name): formula
+    for name, formula in (("fused_sepconv", _sepconv_flop),
+                          ("psroi_align_fwd", _psroi_fwd_flop),
+                          ("psroi_align_bwd", _psroi_bwd_flop),
+                          ("int8_conv", _conv_flop),
+                          ("int8_dwconv", _dwconv_flop),
+                          ("int8_dwconv_q", _dwconv_flop),
+                          ("quantize_s8", _quantize_flop))}
+
+
+def flop_formulas() -> dict:
+    """{operator: FLOP formula} for ``FlopCounterMode(custom_mapping=)``:
+    every kernel's operator."""
+    return dict(_FLOP_FORMULAS)
+
+
 # ---- launch counts ----------------------------------------------------------
 
 # the line a process prints its kernels' launch counts on (launch_line), for
@@ -190,6 +252,15 @@ def kernel_wrappers() -> dict:
 def launch_counts() -> dict:
     """Each kernel wrapper's launch count in this process."""
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def launches_since(before: dict, calls: int = 1) -> dict:
+    """Each kernel wrapper's launches since ``before`` (a
+    :func:`launch_counts`), over ``calls`` calls: a measurement reads its
+    own window's launches without resetting the counts that a caller may
+    be reading."""
+    return {name: (v - before[name]) / calls
+            for name, v in launch_counts().items()}
 
 
 def launch_line() -> str:

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from x_detector_tpu_torch import _build
+from x_detector_tpu_torch.utils import roofline
 
 # The backward kernel's compiled pixel tile (TH, TW) and limits; they
 # mirror csrc/psroi_align.cu.
@@ -357,6 +358,26 @@ def batched_psroi_align(features: torch.Tensor, rois: torch.Tensor,
     _check_forward_shapes(features, rois, grid)
     return torch.ops.xdt.psroi_align_fwd.default(features, rois, grid,
                                                  samples)
+
+
+def work(b: int, r: int, kkc: int, map_bytes: int, samples: int = 2):
+    """(operations, bytes) of the forward or the backward at B images of R
+    rois on a map of k*k*C channels: per fp32 bin, samples^2 bilinear
+    points of 4 fp32 multiply-adds; the map (``map_bytes``, read or
+    written) and the fp32 bins each move once, and the rois are read
+    once."""
+    bins = b * r * kkc
+    return bins * samples * samples * 4 * 2.0, map_bytes + b * r * 16 + (
+        bins * 4)
+
+
+def bound_ms(features: torch.Tensor, rois: torch.Tensor, samples: int = 2):
+    """``roofline.bound_ms``'s (least ms, what binds) of the forward or
+    the backward at these shapes (:func:`work`), at the fp32 rate."""
+    return roofline.bound_ms(
+        *work(rois.shape[0], rois.shape[1], features.shape[-1],
+              features.numel() * features.element_size(), samples),
+        roofline.FP32_FLOP_PER_S)
 
 
 batched_psroi_align.launches = 0

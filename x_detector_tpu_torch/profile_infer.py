@@ -34,9 +34,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import subprocess
 import time
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -44,6 +43,7 @@ from x_detector_tpu_torch.train.profile_step import (OUT_DIR, device_events,
                                                      family, forward_parts,
                                                      stage_breakdown, staged,
                                                      union_length)
+from x_detector_tpu_torch.utils.profiling import card_label
 
 TIMED_BATCHES = 6
 # preset -> (batch, raw image (H, W) or None for the canvas, fused B2)
@@ -53,11 +53,36 @@ PATHS = {"lighthead_xception": (16, None, True),
          "xdet_xception": (8, None, True)}
 
 
-def main(argv=None) -> None:
+def path_config(preset: str, backbone_quant: Optional[str] = None,
+                image_size: Optional[int] = None):
+    """A profiled path's config: the preset (at ``image_size`` if given)
+    with its backbone's separable blocks on B2 where ``PATHS`` says so (the
+    Xception-lite presets, as config 3 serves) and ``backbone_quant``."""
     from x_detector_tpu_torch.config import PRESETS
+    cfg = (PRESETS[preset](image_size) if image_size
+           else PRESETS[preset]())
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_fused_sepconv=PATHS[preset][2],
+        backbone_quant=backbone_quant))
+
+
+def build_path(cfg, device, calib: Iterable[torch.Tensor] = (),
+               dtype: torch.dtype = torch.bfloat16):
+    """(model, ``build_eval_fn``) of ``cfg`` on ``device``: seeded weights
+    (flax's default initialisation), and with ``backbone_quant`` the
+    backbone calibrated over ``calib`` (eval-preprocessed batches,
+    ``quant.calibrate_backbone``) before the eval function prepares it."""
+    from x_detector_tpu_torch.inference import build_eval_fn, build_model
+    model = build_model(cfg.model, device, seed=0, dtype=dtype)
+    if cfg.model.backbone_quant:
+        from x_detector_tpu_torch import quant
+        quant.calibrate_backbone(cfg, model, calib)
+    return model, build_eval_fn(model, cfg, device)
+
+
+def main(argv=None) -> None:
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
-    from x_detector_tpu_torch.inference import (build_eval_fn, build_model,
-                                                postprocess)
+    from x_detector_tpu_torch.inference import postprocess
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--preset", choices=sorted(PATHS),
                         default="lighthead_xception")
@@ -65,17 +90,11 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(card_label(), flush=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
-    batch, raw_hw, fused = PATHS[args.preset]
-    cfg = PRESETS[args.preset]()
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, backbone_fused_sepconv=fused,
-        backbone_quant=args.backbone_quant))
-    model = build_model(cfg.model, dev, seed=0)
+    batch, raw_hw, _ = PATHS[args.preset]
+    cfg = path_config(args.preset, args.backbone_quant)
     gen = torch.Generator(device=dev).manual_seed(0)
     size = cfg.model.image_size
     h, w = raw_hw or (size, size)
@@ -86,11 +105,9 @@ def main(argv=None) -> None:
         return torch.randint(0, 256, (batch, h, w, 3), generator=gen,
                              dtype=torch.uint8, device=dev)
 
-    if args.backbone_quant:
-        from x_detector_tpu_torch import quant
-        quant.calibrate_backbone(cfg, model, [
-            preprocess_for_eval(images(), cfg.data) for _ in range(2)])
-    detect = build_eval_fn(model, cfg, dev)
+    model, detect = build_path(cfg, dev, [
+        preprocess_for_eval(images(), cfg.data) for _ in range(
+            2 if args.backbone_quant else 0)])
 
     for _ in range(2):
         detect(preprocess_for_eval(images(), cfg.data))

@@ -32,10 +32,10 @@ import torch
 
 from x_detector_tpu_torch import _build
 from x_detector_tpu_torch.ops import psroi_align as pa
-from x_detector_tpu_torch.utils.profiling import kernel_device_ms
+from x_detector_tpu_torch.utils.profiling import (card_label, cuda_ms,
+                                                  kernel_device_ms)
 
 B, R, SIZE, GRID, C, SAMPLES, OHEM_KEEP = 16, 1000, 50, 7, 10, 2, 256
-WARMUP, REPS = 3, 20
 BUILD = pathlib.Path(__file__).resolve().parent.parent / "build"
 PARENT_DIR = BUILD / "psroi_bwd_parent"
 VARIANT_DIR = BUILD / "psroi_bwd_variants"
@@ -44,20 +44,6 @@ SWITCHES = {"prepare_only": "-DXDT_BWD_PREPARE_ONLY",
             "no_accumulate": "-DXDT_BWD_NO_ACCUMULATE",
             "cull_only": "-DXDT_BWD_CULL_ONLY"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def cuda_ms(fn) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events after warm-up."""
-    for _ in range(WARMUP):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
 
 
 def device_ms(fn, reps: int = 10) -> dict:
@@ -166,9 +152,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("psroi_bwd_variants needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card_label()
     print(smi, flush=True)
     lib = _build.build()
     for line in ptxas_lines((lib.parent / _build.LOG_NAME).read_text()):

@@ -165,9 +165,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("psroi_fwd_variants needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = profiling.card_label()
     print(smi, flush=True)
     lib = _build.build()
     for line in bwd.ptxas_lines((lib.parent / _build.LOG_NAME).read_text()):
@@ -193,7 +191,7 @@ def main() -> None:
         result["kernel"][name + "_err"] = check(fwd[name](), refs[name],
                                                 name)
         result["kernel"][name + "_device_ms"] = device_ms(fwd[name])
-        result["kernel"][name + "_event_ms"] = bwd.cuda_ms(fwd[name])
+        result["kernel"][name + "_event_ms"] = profiling.cuda_ms(fwd[name])
     print(f"kernel: {result['kernel']}", flush=True)
     for name, rois in inputs.items():
         out = torch.empty(B, rois.shape[1], GRID, GRID, C, device=dev)
@@ -248,7 +246,8 @@ def main() -> None:
             turns = [("parent", parent), ("this", fwd[name]),
                      ("this", fwd[name]), ("parent", parent)]
             result[f"turns_{name}"] = [
-                (who, device_ms(fn), bwd.cuda_ms(fn)) for who, fn in turns]
+                (who, device_ms(fn), profiling.cuda_ms(fn))
+                for who, fn in turns]
             print(f"turns, {name} (who, device ms, event ms): "
                   f"{result[f'turns_{name}']}", flush=True)
     print(json.dumps(result), flush=True)

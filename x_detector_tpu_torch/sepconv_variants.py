@@ -23,6 +23,7 @@ import torch
 
 from x_detector_tpu_torch import _build
 from x_detector_tpu_torch.ops import fused_sepconv as fs
+from x_detector_tpu_torch.utils.profiling import card_label, cuda_ms
 
 VARIANTS = {"full": (), "skip_depthwise": ("-DXDT_SKIP_DEPTHWISE",),
             "skip_products": ("-DXDT_SKIP_PRODUCTS",),
@@ -58,25 +59,10 @@ def build_variants():
     return libs
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sepconv_variants needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(card_label(), flush=True)
     libs = build_variants()
     for name, (_, report) in libs.items():
         print(f"{name}: {'; '.join(report)}", flush=True)

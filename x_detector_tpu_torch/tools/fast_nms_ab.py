@@ -31,7 +31,6 @@ import argparse
 import dataclasses
 import itertools
 import json
-import subprocess
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -48,11 +47,12 @@ from x_detector_tpu_torch.data.augment import (preprocess_batch_for_train,
                                                preprocess_for_eval)
 from x_detector_tpu_torch.data.synthetic import synthetic_batch_device
 from x_detector_tpu_torch.inference import build_eval_fn, build_model
+from x_detector_tpu_torch.tools import add_device_args
 from x_detector_tpu_torch.train.train_state import TrainState
 from x_detector_tpu_torch.train.trainer import (create_model_and_state,
                                                 make_train_step)
 from x_detector_tpu_torch.utils.metrics_voc import VOCEvaluator, add_batch
-from x_detector_tpu_torch.utils.profiling import alternating_ms
+from x_detector_tpu_torch.utils.profiling import alternating_ms, card_label
 
 MODES = ("exact", "approx", "maxpool")
 FAMILIES = {"both": ["lighthead", "ssd"], "all": ["lighthead", "ssd", "xdet"]}
@@ -72,23 +72,6 @@ LOG_EVERY = 500
 LOSS_WINDOW = 100
 
 Detect = Callable[[torch.Tensor], Tuple[torch.Tensor, ...]]
-
-
-def device_label(device) -> str:
-    """The card's name and power limit as ``nvidia-smi`` gives them (the
-    name CUDA gives the card where nvidia-smi is missing), or "cpu"."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return device.type
-    index = common.cuda_index(device)
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30, check=True).stdout.strip().splitlines()
-        return out[index].strip()
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(index)
 
 
 def capstone_config(fam: str, steps: int):
@@ -314,12 +297,7 @@ def add_harness_args(p: argparse.ArgumentParser, steps: int = 3000,
     """The flags every harness takes."""
     p.add_argument("--steps", type=int, default=steps)
     p.add_argument("--eval-batches", type=int, default=eval_batches)
-    p.add_argument("--smoke", action="store_true",
-                   help="the tests' 64 px models: the harness's whole path "
-                        "on the CPU, not a measurement")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default: cuda; a run that finds no "
-                        "card fails rather than use the CPU)")
+    add_device_args(p)
 
 
 def harness_dtype(device) -> torch.dtype:
@@ -333,9 +311,9 @@ def harness_dtype(device) -> torch.dtype:
 
 def resolve_harness(args) -> Tuple[torch.device, torch.dtype, str]:
     """A harness's device (``common.resolve_device``: no card raises),
-    its ``harness_dtype`` and the device's ``device_label``."""
+    its ``harness_dtype`` and the device's ``card_label``."""
     device = common.resolve_device(args)
-    return device, harness_dtype(device), device_label(device)
+    return device, harness_dtype(device), card_label(device)
 
 
 def emit(row: dict) -> dict:

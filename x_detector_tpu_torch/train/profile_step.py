@@ -33,13 +33,13 @@ import contextlib
 import dataclasses
 import json
 import pathlib
-import subprocess
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from x_detector_tpu_torch.config import PRESETS, config5
+from x_detector_tpu_torch.utils.profiling import card_label
 
 STAGE = "stage:"
 # Kernel families by substrings of the kernel's name, first match wins.
@@ -199,9 +199,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(card_label(), flush=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
     cfg = PATHS[args.preset]()

@@ -17,15 +17,22 @@ The port of ``x_detector_tpu/utils/profiling.py``:
     host-clock time of short calls reads instead;
   * :func:`alternating_ms` -- two or more paths timed by host clock in
     alternating rounds, so that each round of each path sees the same
-    state of a host that drifts between fast and slow.
+    state of a host that drifts between fast and slow;
+  * :func:`cuda_ms` -- the mean device time of a call by CUDA events, and
+    :func:`rounds_ms` / :func:`median_spread` -- rounds of calls timed by
+    CUDA events on a card (the host clock on the CPU), their median and
+    their spread, which the measurement tools report;
+  * :func:`card_label` -- the card's name and power limit, which every
+    measurement is printed beside.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, List, Sequence
 
 import torch
 
@@ -136,3 +143,58 @@ def alternating_ms(sides: Dict[str, Callable[[], object]], rounds: int = 10,
             ms[name].append((time.perf_counter() - t0) / batches * 1e3)
     return {name: {"median": sorted(v)[len(v) // 2], "best": min(v),
                    "rounds": v} for name, v in ms.items()}
+
+
+def cuda_ms(fn: Callable[[], object], warmup: int = 3,
+            reps: int = 20) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events around ``reps``
+    calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rounds_ms(fn: Callable[[], object], device, rounds: int = 5,
+              reps: int = 10, warmup: int = 2) -> List[float]:
+    """The mean ms a call of ``fn()`` in each of ``rounds`` rounds of
+    ``reps`` calls, after ``warmup`` calls: by CUDA events on a card
+    (:func:`cuda_ms`), by the host clock on the CPU (a call returns when
+    its work is done, :class:`DeviceTimer`)."""
+    if torch.device(device).type == "cuda":
+        return [cuda_ms(fn, warmup if i == 0 else 0, reps)
+                for i in range(rounds)]
+    timer = DeviceTimer(fn, [()], warmup)
+    return [timer.measure(reps) * 1e3 for _ in range(rounds)]
+
+
+def median_spread(ms: Sequence[float]) -> dict:
+    """{"median_ms": the median of ``ms``, "spread_ms": ``ms`` sorted}."""
+    ordered = sorted(ms)
+    return {"median_ms": ordered[len(ordered) // 2], "spread_ms": ordered}
+
+
+def card_label(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    name CUDA gives the card where nvidia-smi is missing), or the device
+    type for a device that is not a card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()
+        return out[index].strip()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(index)
