@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from x_detector_tpu_torch.ops import boxes as box_ops
+from x_detector_tpu_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 
@@ -282,11 +283,12 @@ def preprocess_batch_for_train(generator: torch.Generator, batch: Batch,
     augment as one device augments the whole batch."""
     rank, world = shard
     b = batch["image"].shape[0]
-    draws = _take_rows(draw_augment(generator, b * world, cfg),
-                       slice(rank * b, (rank + 1) * b))
-    out = preprocess_for_train(draws, batch["image"], batch["gt_boxes"],
-                               batch["gt_labels"], batch["gt_mask"], cfg,
-                               batch.get("box_scale"))
+    with profiling.span("augment"):
+        draws = _take_rows(draw_augment(generator, b * world, cfg),
+                           slice(rank * b, (rank + 1) * b))
+        out = preprocess_for_train(draws, batch["image"], batch["gt_boxes"],
+                                   batch["gt_labels"], batch["gt_mask"], cfg,
+                                   batch.get("box_scale"))
     if "difficult" in batch:
         out["difficult"] = batch["difficult"]
     return out

@@ -29,6 +29,7 @@ from x_detector_tpu_torch.ops import boxes as box_ops
 from x_detector_tpu_torch.ops import nms as nms_lib
 from x_detector_tpu_torch.ops.maxpool_nms import rpn_maxpool_scores
 from x_detector_tpu_torch.ops.psroi_align import batched_psroi_align
+from x_detector_tpu_torch.utils import profiling
 
 
 class LargeSeparableConv(nn.Module):
@@ -85,34 +86,35 @@ def generate_proposals(rpn_cls: torch.Tensor, rpn_loc: torch.Tensor,
     which needs ``anchor_cfg``, the grid's ``AnchorConfig``): per-scale
     local-max selection on the objectness maps, then one top-R of what
     survives; a slot whose score is 0 is invalid and its box zero."""
-    scores = torch.softmax(rpn_cls, dim=-1)[..., 1]             # [B, A]
-    boxes = box_ops.clip_boxes(box_ops.decode(rpn_loc, anchors[None]))
-    min_sz = cfg.min_size / float(image_size)
-    wh_ok = (((boxes[..., 2] - boxes[..., 0]) >= min_sz)
-             & ((boxes[..., 3] - boxes[..., 1]) >= min_sz))
-    scores = torch.where(wh_ok, scores, 0.0)
-    k_pre = min(cfg.pre_nms_topk if training else cfg.pre_nms_topk_eval,
-                scores.shape[1])
-    k_post = cfg.post_nms_topk if training else cfg.post_nms_topk_eval
-    if cfg.fast_nms:
-        if anchor_cfg is None:
-            # a silent exact-NMS fallback would report exact-path timings
-            # to a caller who asked for the fast path
-            raise ValueError("ProposalConfig.fast_nms=True requires "
-                             "anchor_cfg (grid geometry drives MaxpoolNMS "
-                             "windows); got None")
-        masked = rpn_maxpool_scores(scores, anchor_cfg, image_size,
-                                    cfg.nms_threshold)
-        top_s, top_i = nms_lib.topk_stable(masked, k_post)
-        valid = top_s > 0.0
+    with profiling.span("proposals"):
+        scores = torch.softmax(rpn_cls, dim=-1)[..., 1]             # [B, A]
+        boxes = box_ops.clip_boxes(box_ops.decode(rpn_loc, anchors[None]))
+        min_sz = cfg.min_size / float(image_size)
+        wh_ok = (((boxes[..., 2] - boxes[..., 0]) >= min_sz)
+                 & ((boxes[..., 3] - boxes[..., 1]) >= min_sz))
+        scores = torch.where(wh_ok, scores, 0.0)
+        k_pre = min(cfg.pre_nms_topk if training else cfg.pre_nms_topk_eval,
+                    scores.shape[1])
+        k_post = cfg.post_nms_topk if training else cfg.post_nms_topk_eval
+        if cfg.fast_nms:
+            if anchor_cfg is None:
+                # a silent exact-NMS fallback would report exact-path timings
+                # to a caller who asked for the fast path
+                raise ValueError("ProposalConfig.fast_nms=True requires "
+                                 "anchor_cfg (grid geometry drives MaxpoolNMS "
+                                 "windows); got None")
+            masked = rpn_maxpool_scores(scores, anchor_cfg, image_size,
+                                        cfg.nms_threshold)
+            top_s, top_i = nms_lib.topk_stable(masked, k_post)
+            valid = top_s > 0.0
+            top_b = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
+            return torch.where(valid[..., None], top_b, 0.0), top_s, valid
+        top_s, top_i = nms_lib.topk_stable(scores, k_pre)
         top_b = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
-        return torch.where(valid[..., None], top_b, 0.0), top_s, valid
-    top_s, top_i = nms_lib.topk_stable(scores, k_pre)
-    top_b = torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4))
-    res = nms_lib.nms_padded(top_b, top_s, k_post,
-                             iou_threshold=cfg.nms_threshold,
-                             score_threshold=0.0, presorted=True)
-    return res.boxes, res.scores, res.valid
+        res = nms_lib.nms_padded(top_b, top_s, k_post,
+                                 iou_threshold=cfg.nms_threshold,
+                                 score_threshold=0.0, presorted=True)
+        return res.boxes, res.scores, res.valid
 
 
 class RoIHead(nn.Module):
@@ -196,18 +198,19 @@ class LightHeadRCNN(nn.Module):
 def lighthead_postprocess(outputs: Dict[str, torch.Tensor],
                           config) -> nms_lib.MulticlassNMSResult:
     """Decode ROI-head boxes against their proposals, then per-class NMS."""
-    probs = torch.softmax(outputs["roi_cls"], dim=-1)
-    fg_probs = probs[..., 1:] * outputs["proposal_valid"][..., None]
-    roi_box = outputs["roi_box"]
-    if roi_box.dim() == 4:   # [B, R, C, 4] per-class: drop the background
-        decoded = box_ops.decode(roi_box[:, :, 1:, :],
-                                 outputs["proposals"][:, :, None, :])
-    else:                    # [B, R, 4] class-agnostic
-        decoded = box_ops.decode(roi_box, outputs["proposals"])
-    decoded = box_ops.clip_boxes(decoded)
-    ncfg = config.nms
-    return nms_lib.batched_multiclass_nms(
-        decoded, fg_probs, max_output=ncfg.max_output,
-        iou_threshold=ncfg.iou_threshold,
-        score_threshold=ncfg.score_threshold,
-        approx_prefilter=ncfg.approx_prefilter)
+    with profiling.span("postprocess"):
+        probs = torch.softmax(outputs["roi_cls"], dim=-1)
+        fg_probs = probs[..., 1:] * outputs["proposal_valid"][..., None]
+        roi_box = outputs["roi_box"]
+        if roi_box.dim() == 4:   # [B, R, C, 4] per-class: drop the background
+            decoded = box_ops.decode(roi_box[:, :, 1:, :],
+                                     outputs["proposals"][:, :, None, :])
+        else:                    # [B, R, 4] class-agnostic
+            decoded = box_ops.decode(roi_box, outputs["proposals"])
+        decoded = box_ops.clip_boxes(decoded)
+        ncfg = config.nms
+        return nms_lib.batched_multiclass_nms(
+            decoded, fg_probs, max_output=ncfg.max_output,
+            iou_threshold=ncfg.iou_threshold,
+            score_threshold=ncfg.score_threshold,
+            approx_prefilter=ncfg.approx_prefilter)

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from x_detector_tpu_torch.ops import boxes as box_ops
+from x_detector_tpu_torch.utils import profiling
 
 TILE = 128
 CHECK_EVERY = 4   # Jacobi steps between host checks for the fixpoint
@@ -63,19 +64,24 @@ def self_suppress(mask: torch.Tensor) -> torch.Tensor:
     Jacobi steps run in groups of ``CHECK_EVERY`` between host checks for a
     fixpoint: steps past the fixpoint leave it unchanged, and T steps always
     reach it (flag t is final after t steps), so only the number of host
-    syncs changes. Each call adds one to ``self_suppress.calls`` (on every
-    device: it is no kernel, but a host-synced stage worth counting)."""
+    syncs changes. Each call adds one to ``self_suppress.calls`` and each
+    host check one to ``self_suppress.checks`` (on every device: it is no
+    kernel, but a host-synced stage worth counting); a check is the span
+    ``xd/nms.host_check`` while the profiler records."""
     self_suppress.calls += 1
     s = mask.any(dim=1)
     for _ in range(0, mask.shape[-1], CHECK_EVERY):
         for _ in range(CHECK_EVERY):
             prev, s = s, (mask & ~s[:, :, None]).any(dim=1)
-        if torch.equal(s, prev):
-            break
+        self_suppress.checks += 1
+        with profiling.span("nms.host_check"):
+            if torch.equal(s, prev):
+                break
     return s
 
 
 self_suppress.calls = 0
+self_suppress.checks = 0
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, max_output: int,

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from x_detector_tpu_torch.train.schedule import Schedule
+from x_detector_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -39,15 +40,16 @@ class TrainState:
     def apply_gradients(self) -> "TrainState":
         """One optimizer update at ``schedule(step)``, then the EMA update
         ``d * e + (1 - d) * p``; the step count goes up by one."""
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        if self.ema_params is not None and self.ema_decay > 0:
-            d = self.ema_decay
-            with torch.no_grad():
-                for name, p in self.model.named_parameters():
-                    self.ema_params[name].mul_(d).add_(p, alpha=1.0 - d)
+        with profiling.span("optimizer"):
+            lr = self.schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            if self.ema_params is not None and self.ema_decay > 0:
+                d = self.ema_decay
+                with torch.no_grad():
+                    for name, p in self.model.named_parameters():
+                        self.ema_params[name].mul_(d).add_(p, alpha=1.0 - d)
         self.step += 1
         return self
 

@@ -37,6 +37,7 @@ from x_detector_tpu_torch.ops import matching
 from x_detector_tpu_torch.train import losses as loss_lib
 from x_detector_tpu_torch.train.schedule import make_optimizer
 from x_detector_tpu_torch.train.train_state import TrainState
+from x_detector_tpu_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -64,15 +65,16 @@ def make_ssd_loss_fn(model: SSDModel, cfg):
         del draws  # the SSD loss is deterministic given the batch
         model.train()
         cls_logits, box_codes = model(batch["image"])
-        m = matching.match_anchors(
-            model.anchors, batch["gt_boxes"], batch["gt_labels"],
-            _train_gt_mask(batch, cfg), pos_iou=tcfg.ssd_match_iou,
-            neg_iou=tcfg.ssd_match_iou, force_match=True)
-        total, metrics = loss_lib.ssd_loss(
-            cls_logits, box_codes, m.labels, m.reg_targets, m.fg_mask,
-            neg_pos_ratio=tcfg.neg_pos_ratio)
-        return total.mean(), {k: v.detach().mean()
-                              for k, v in metrics.items()}, {}
+        with profiling.span("loss"):
+            m = matching.match_anchors(
+                model.anchors, batch["gt_boxes"], batch["gt_labels"],
+                _train_gt_mask(batch, cfg), pos_iou=tcfg.ssd_match_iou,
+                neg_iou=tcfg.ssd_match_iou, force_match=True)
+            total, metrics = loss_lib.ssd_loss(
+                cls_logits, box_codes, m.labels, m.reg_targets, m.fg_mask,
+                neg_pos_ratio=tcfg.neg_pos_ratio)
+            return total.mean(), {k: v.detach().mean()
+                                  for k, v in metrics.items()}, {}
 
     return loss_fn
 
@@ -88,33 +90,35 @@ def make_lighthead_loss_fn(model: LightHeadRCNN, cfg):
                 ) -> Tuple[torch.Tensor, Metrics, Dict[str, torch.Tensor]]:
         model.train()
         out = model(batch["image"])
-        gt_mask = _train_gt_mask(batch, cfg)
-        gt_boxes, gt_labels = batch["gt_boxes"], batch["gt_labels"]
+        with profiling.span("loss"):
+            gt_mask = _train_gt_mask(batch, cfg)
+            gt_boxes, gt_labels = batch["gt_boxes"], batch["gt_labels"]
 
-        m = matching.match_anchors(model.anchors, gt_boxes, gt_labels,
-                                   gt_mask, pos_iou=tcfg.rpn_pos_iou,
-                                   neg_iou=tcfg.rpn_neg_iou, force_match=True)
-        rpn_total, rpn_metrics = loss_lib.rpn_loss(
-            priorities, out["rpn_cls"], out["rpn_loc"], m.fg_mask, m.bg_mask,
-            m.reg_targets, batch_size=tcfg.rpn_batch_size,
-            fg_fraction=tcfg.rpn_fg_fraction)
+            m = matching.match_anchors(
+                model.anchors, gt_boxes, gt_labels, gt_mask,
+                pos_iou=tcfg.rpn_pos_iou, neg_iou=tcfg.rpn_neg_iou,
+                force_match=True)
+            rpn_total, rpn_metrics = loss_lib.rpn_loss(
+                priorities, out["rpn_cls"], out["rpn_loc"], m.fg_mask,
+                m.bg_mask, m.reg_targets, batch_size=tcfg.rpn_batch_size,
+                fg_fraction=tcfg.rpn_fg_fraction)
 
-        # RoI targets over the (detached) proposals; the dead zone and rois
-        # below the background band are left out of the loss
-        mp = matching.match_proposals(
-            out["proposals"].detach(), out["proposal_valid"], gt_boxes,
-            gt_labels, gt_mask, fg_iou=tcfg.roi_fg_iou,
-            bg_iou_hi=tcfg.roi_bg_iou_hi, bg_iou_lo=tcfg.roi_bg_iou_lo)
-        roi_total, roi_metrics, keep = loss_lib.roi_loss_ohem(
-            out["roi_cls"], out["roi_box"], mp.labels, mp.reg_targets,
-            mp.fg_mask, mp.fg_mask | mp.bg_mask, ohem_topk=tcfg.ohem_topk)
+            # RoI targets over the (detached) proposals; the dead zone and rois
+            # below the background band are left out of the loss
+            mp = matching.match_proposals(
+                out["proposals"].detach(), out["proposal_valid"], gt_boxes,
+                gt_labels, gt_mask, fg_iou=tcfg.roi_fg_iou,
+                bg_iou_hi=tcfg.roi_bg_iou_hi, bg_iou_lo=tcfg.roi_bg_iou_lo)
+            roi_total, roi_metrics, keep = loss_lib.roi_loss_ohem(
+                out["roi_cls"], out["roi_box"], mp.labels, mp.reg_targets,
+                mp.fg_mask, mp.fg_mask | mp.bg_mask, ohem_topk=tcfg.ohem_topk)
 
-        total = rpn_total.mean() + roi_total.mean()
-        metrics = {k: v.detach().mean()
-                   for k, v in {**rpn_metrics, **roi_metrics}.items()}
-        aux = {"proposals": out["proposals"],
-               "proposal_valid": out["proposal_valid"], "ohem_keep": keep}
-        return total, metrics, aux
+            total = rpn_total.mean() + roi_total.mean()
+            metrics = {k: v.detach().mean()
+                       for k, v in {**rpn_metrics, **roi_metrics}.items()}
+            aux = {"proposals": out["proposals"],
+                   "proposal_valid": out["proposal_valid"], "ohem_keep": keep}
+            return total, metrics, aux
 
     return loss_fn
 
@@ -142,7 +146,8 @@ def make_grad_fn(model: torch.nn.Module, loss_fn, accum: int = 1):
 
     def run(batch, draws):
         total, metrics, _ = loss_fn(batch, draws)
-        total.backward()
+        with profiling.span("backward"):
+            total.backward()
         return dict(metrics, total_loss=total.detach())
 
     def grad_fn(batch: Batch, draws=None) -> Metrics:

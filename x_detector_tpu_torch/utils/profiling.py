@@ -6,6 +6,8 @@ The port of ``x_detector_tpu/utils/profiling.py``:
     where a card is present, CUDA activities) that writes a Chrome trace
     (``trace.json``, readable in Perfetto or ``chrome://tracing``) into
     ``logdir`` and hands back the profiler for ``key_averages()``;
+  * :func:`span` -- the program's own ranges (``xd/<name>``) around its
+    stages, recorded only while ``torch.profiler`` records;
   * :class:`DeviceTimer` -- the mean time a call of a function over
     distinct pre-staged argument sets, fenced by
     ``torch.cuda.synchronize()`` where the arguments live on the card (the
@@ -37,6 +39,21 @@ from typing import Callable, Dict, Iterator, List, Sequence
 import torch
 
 TRACE_FILE = "trace.json"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks a stage of the program: while
+    ``torch.profiler`` records, a ``record_function`` range named
+    ``xd/<name>``, on the profiler's clock, so that a trace ties each device
+    operation to the span its launch lies in. Otherwise, and while
+    ``torch.compile`` or ``torch.export`` traces (a graph gains no node), a
+    shared null context: the check costs a fraction of a microsecond, where
+    an idle ``record_function`` costs several."""
+    if (torch.compiler.is_compiling()
+            or not torch._C._autograd._profiler_enabled()):
+        return _NO_SPAN
+    return torch.profiler.record_function("xd/" + name)
 
 
 @contextlib.contextmanager
