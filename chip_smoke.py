@@ -43,6 +43,15 @@ Phases; each raises on failure and the script then exits non-zero:
                 yardstick is also timed by the profiler's device time,
                 which the small calls of config 2 need (CUDA events around
                 wrapper calls read the host).
+                N1, exact NMS's kernels (xdt::nms_suppress), at the shapes
+                config 3 gives them: the proposal stage's 16 rows of 1000
+                (serving) and 6000 (training) boxes and the serving tail's
+                16 x 20 rows of 256, a fifth of the boxes zero; the flags
+                bitwise the plain version's (the tile loop) on the same
+                boxes, both timed by events and the kernels by the
+                profiler's device time (mask and scan apart), beside the
+                bound from the boxes read, the flags written and the IoU of
+                every pair (ops.nms.bound_ms).
   4. slice   -- config 3 (Light-Head R-CNN + Xception-lite at 800 px, with
                 the fused separable conv) from seeded uint8 images through
                 build_eval_fn, batches of 16: launch counts, detection
@@ -67,8 +76,8 @@ Phases; each raises on failure and the script then exits non-zero:
                 proposals.fast_nms and config 2 with nms.fast_mode, each
                 beside its exact path on the same weights and images
                 (run_fast): launches (config 3: B2 14 and B1's forward 1 a
-                batch), NMS's host-checked fixpoint (xdt::self_suppress,
-                counted in ops.nms.self_suppress.calls) never in config 3's
+                batch), exact NMS (chip_smoke.exact_suppressions: the
+                launches of xdt::nms_suppress's kernels) never in config 3's
                 proposal stage (the model's forward) and never at all in
                 config 2's tail, where the exact paths ran it; both paths'
                 batch ms in alternating rounds; config 3's fast batch under
@@ -281,6 +290,9 @@ import types
 
 import torch
 
+from x_detector_tpu_torch.config import (lighthead_resnet50,
+                                         lighthead_xception)
+from x_detector_tpu_torch.ops import nms as nms_ops
 from x_detector_tpu_torch.ops.fused_sepconv import unfused_cudnn
 from x_detector_tpu_torch.train.train_state import (snapshot_differs,
                                                     train_snapshot)
@@ -689,6 +701,115 @@ def time_b2(shapes, batch: int, randn, yardsticks: bool) -> dict:
     return tot
 
 
+def nms_rows(gen, rows: int, n: int, dev, invalid: float = 0.2,
+             clusters: int = 8) -> torch.Tensor:
+    """[rows, n, 4] fp32 boxes as ``nms_padded`` hands them to
+    ``xdt::nms_suppress``: around ``clusters`` centres a row, so that many
+    overlap, in a random (score) order, a share ``invalid`` of them zero."""
+    centres = torch.rand(rows, clusters, 2, generator=gen, device=dev)
+    which = torch.randint(0, clusters, (rows, n), generator=gen, device=dev)
+    c = torch.gather(centres * 0.8 + 0.1, 1,
+                     which[..., None].expand(-1, -1, 2))
+    c = c + torch.randn(rows, n, 2, generator=gen, device=dev) * 0.03
+    hw = torch.rand(rows, n, 2, generator=gen, device=dev) * 0.2 + 0.05
+    boxes = torch.cat([c - hw / 2, c + hw / 2], dim=-1)
+    drop = torch.rand(rows, n, generator=gen, device=dev) < invalid
+    return torch.where(drop[..., None], 0.0, boxes).contiguous()
+
+
+def nms_shapes(model_cfg, batch: int = BATCH) -> dict:
+    """Exact NMS's (rows, boxes a row, IoU threshold) in ``model_cfg``'s
+    Light-Head: the proposal stage's in serving and in training, and the
+    serving tail's (an image x class a row, ``batched_multiclass_nms``'s
+    default of 256 candidates)."""
+    import inspect
+    p = model_cfg.proposals
+    tail = inspect.signature(nms_ops.batched_multiclass_nms).parameters[
+        "nms_candidates"].default
+    return {"serve": (batch, p.pre_nms_topk_eval, p.nms_threshold),
+            "train": (batch, p.pre_nms_topk, p.nms_threshold),
+            "tail": (batch * (model_cfg.num_classes - 1), tail,
+                     model_cfg.nms.iou_threshold)}
+
+
+def phase_nms_kernels(device="cuda", shapes=None, reps: int = 20) -> dict:
+    """N1, exact NMS's kernels, at ``shapes`` (by default config 3's,
+    ``nms_shapes``): on the same seeded boxes the operator's flags must
+    equal the plain version's (``suppress_plain``, the tile loop, on the
+    same device) bit for bit, and each call add ``nms_ops.KERNELS`` to
+    the launches. Each shape's CUDA-event ms of the operator and of the
+    plain version, the profiler's device ms of the mask and scan kernels
+    (on a card), the bound (``nms_ops.bound_ms``) and the share of boxes
+    suppressed."""
+    from x_detector_tpu_torch.utils.profiling import kernel_device_ms
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for tag, (rows, n, thr) in (shapes or nms_shapes(
+            lighthead_xception().model)).items():
+        boxes = nms_rows(gen, rows, n, dev)
+        before = nms_ops.nms_suppress.launches
+        got = nms_ops.nms_suppress(boxes, thr)
+        made = nms_ops.nms_suppress.launches - before
+        want = nms_ops.suppress_plain(boxes, thr)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"N1 nms_suppress {tag} [{rows},{n},4] at {thr}: "
+                f"{int((got != want).sum())} flags differ from the plain "
+                f"version's")
+        if made != (nms_ops.KERNELS if cuda else 0):
+            raise AssertionError(f"N1 nms_suppress {tag}: a call added "
+                                 f"{made} launches")
+        call = lambda: nms_ops.nms_suppress(boxes, thr)
+        ms = cuda_ms(call, reps=reps) if cuda else None
+        device_ms = ({k: v for k, v in kernel_device_ms(call, reps).items()
+                      if "nms_" in k} if cuda else {})
+        bound = nms_ops.bound_ms(boxes)
+        out[tag] = {
+            "shape": [rows, n], "threshold": thr, "ms": ms,
+            "plain_ms": (cuda_ms(lambda: nms_ops.suppress_plain(boxes, thr),
+                                 warmup=1, reps=5) if cuda else None),
+            "mask_device_ms": sum(v for k, v in device_ms.items()
+                                  if "mask" in k),
+            "scan_device_ms": sum(v for k, v in device_ms.items()
+                                  if "scan" in k),
+            "device_ms": sum(device_ms.values()),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "suppressed": float(want.float().mean()),
+            "invalid": float((boxes.abs().sum(-1) == 0).float().mean())}
+        t = out[tag]
+        log(f"N1 nms_suppress {tag} [{rows},{n},4] fp32 at IoU {thr}: flags "
+            f"bitwise the plain version's ({t['suppressed']:.1%} "
+            f"suppressed, {t['invalid']:.1%} of the boxes zero); kernels "
+            f"{t['device_ms']:.4f} ms device time (mask "
+            f"{t['mask_device_ms']:.4f}, scan {t['scan_device_ms']:.4f}; "
+            f"{t['ms'] or 0.0:.4f} ms by events around the wrapper), bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), "
+            f"{bound[0] / max(t['device_ms'], 1e-9):.1%} of it; plain "
+            f"{t['plain_ms'] or 0.0:.4f} ms")
+    return out
+
+
+def n1_kernel_line(n1: dict) -> dict:
+    """The kernels line's entry of N1: the serving proposal stage's shape
+    in the fields every entry has, the training stage's and the serving
+    tail's under their tags."""
+    s = n1["serve"]
+    row = {"name": "nms_suppress", "route": "cuda",
+           "source": "x_detector_tpu_torch/csrc/nms.cu",
+           "replaces": "x_detector_tpu/ops/nms.py:186", "max_abs_err": 0.0,
+           "ms": s["ms"], "plain_ms": s["plain_ms"],
+           "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+           "library_ms": None, "device_ms": s["device_ms"],
+           "mask_device_ms": s["mask_device_ms"],
+           "scan_device_ms": s["scan_device_ms"], "shape": s["shape"]}
+    for tag in ("train", "tail"):
+        row.update({f"{tag}_{k}": v for k, v in n1[tag].items()
+                    if k not in ("threshold", "suppressed", "invalid")})
+    return row
+
+
 def config_rois(gen, batch: int, r: int, dev) -> torch.Tensor:
     """[batch, r, 4] random normalized rois, the first six of each image
     the edge and zero-area cases."""
@@ -772,10 +893,10 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     one warm-up batch then ``batches`` timed ones, on ``model`` (by default
     ``slice_model``'s). Returns every kernel's launch count over all of
     them (and B2's by route; with ``backbone_quant`` also the int8
-    kernels', and K1's by route, ``int8_routes``; and ``suppress``, NMS's
-    fixpoint calls, ``suppress_counts``), what the model should give (B2
+    kernels', and K1's by route, ``int8_routes``; and ``suppress``, exact
+    NMS's suppressions, ``suppress_counts``), what the model should give (B2
     a fused block a batch, B1's forward one a batch for Light-Head, B1's
-    backward none; K1 a dense
+    backward none, exact NMS's kernels ``nms_launches``; K1 a dense
     QuantConv, K2 a depthwise one, K3 each), the timed seconds per batch,
     the anchor count and the detections of the last batch; with
     ``keep_path`` also the path (``detect``, uint8 images to detections)
@@ -813,7 +934,8 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     n = len(images)
     expected = {"fused_sepconv": fused_blocks(model) * n,
                 "psroi_align": n if cfg.model.family == "lighthead" else 0,
-                "psroi_align_backward": 0}
+                "psroi_align_backward": 0,
+                "nms_suppress": nms_launches(cfg.model) * n}
     if cfg.model.backbone_quant is not None:
         expected.update({k: v * n for k, v in int8_calls(model).items()})
     return {"launches": launches, "batches": n, "suppress": suppress,
@@ -830,30 +952,36 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
                 "u8": images[-1]} if keep_path else {})}
 
 
+def exact_suppressions() -> int:
+    """Exact NMS's work so far in this process: the calls of the plain
+    version's host-checked fixpoint (``xdt::self_suppress``, the CPU) and
+    the launches of ``xdt::nms_suppress``'s kernels (the card)."""
+    from x_detector_tpu_torch.ops import nms
+    return nms.self_suppress.calls + nms.nms_suppress.launches
+
+
 @contextlib.contextmanager
 def suppress_counts(model):
-    """Within: the calls of NMS's host-checked fixpoint
-    (``xdt::self_suppress``, counted in ``ops.nms.self_suppress.calls``)
-    counted, into the dict yielded, as "all" and as "forward", those made
-    inside ``model``'s forward (for Light-Head, the proposal stage's; the
-    rest are the final per-class NMS's)."""
-    from x_detector_tpu_torch.ops import nms
+    """Within: exact NMS's suppressions (``exact_suppressions``) counted,
+    into the dict yielded, as "all" and as "forward", those made inside
+    ``model``'s forward (for Light-Head, the proposal stage's; the rest are
+    the final per-class NMS's)."""
     counts = {"all": 0, "forward": 0}
     start = {}
 
     def pre(module, args):
-        start["calls"] = nms.self_suppress.calls
+        start["calls"] = exact_suppressions()
 
     def post(module, args, out):
-        counts["forward"] += nms.self_suppress.calls - start["calls"]
+        counts["forward"] += exact_suppressions() - start["calls"]
 
     hooks = (model.register_forward_pre_hook(pre),
              model.register_forward_hook(post))
-    before = nms.self_suppress.calls
+    before = exact_suppressions()
     try:
         yield counts
     finally:
-        counts["all"] = nms.self_suppress.calls - before
+        counts["all"] = exact_suppressions() - before
         for h in hooks:
             h.remove()
 
@@ -938,11 +1066,25 @@ def fused_blocks(model) -> int:
 
 
 def kernel_counters():
-    """B2's and B1's wrappers (``ops.library.kernel_wrappers``)."""
+    """B2's, B1's and exact NMS's wrappers
+    (``ops.library.kernel_wrappers``)."""
     from x_detector_tpu_torch.ops.library import kernel_wrappers
     wrappers = kernel_wrappers()
     return {k: wrappers[k] for k in ("fused_sepconv", "psroi_align",
-                                     "psroi_align_backward")}
+                                     "psroi_align_backward", "nms_suppress")}
+
+
+def nms_launches(model_cfg, train: bool = False) -> int:
+    """Exact NMS's kernel launches (``xdt::nms_suppress``, ``nms_ops.
+    KERNELS`` a call) in a forward of ``model_cfg``'s model in training
+    mode (``train``), or in a forward and its detections: Light-Head's
+    proposal stage unless ``proposals.fast_nms``; then the per-class tail,
+    which Light-Head always runs exactly and SSD unless ``nms.fast_mode``."""
+    lighthead = model_cfg.family == "lighthead"
+    calls = int(lighthead and not model_cfg.proposals.fast_nms)
+    if not train:
+        calls += int(lighthead or not model_cfg.nms.fast_mode)
+    return nms_ops.KERNELS * calls
 
 
 def int8_counters():
@@ -954,7 +1096,8 @@ def int8_counters():
 
 
 def path_counters(int8: bool = True) -> dict:
-    """The wrappers a path reads: B2's and B1's, and with ``int8`` K1-K3's."""
+    """The wrappers a path reads: B2's, B1's and exact NMS's, and with
+    ``int8`` K1-K3's."""
     return {**kernel_counters(), **(int8_counters() if int8 else {})}
 
 
@@ -1081,8 +1224,8 @@ def step_readings(cfg, state, before, steps: int, counters) -> dict:
     """After one warm-up and ``steps`` steps from parameters ``before``:
     the kernels' launches (``counters``, zeroed before the first step),
     what they should be (per microbatch, one forward, for Light-Head one
-    PSROIAlign each way, the fused blocks the model in training mode
-    takes and, with ``backbone_quant`` "act8", K3 once a backbone conv),
+    PSROIAlign each way and its proposal stage's exact NMS, the fused
+    blocks the model in training mode takes and, with ``backbone_quant`` "act8", K3 once a backbone conv),
     how many parameter tensors moved, and those that got a gradient in the
     last step and did not ("stuck")."""
     from x_detector_tpu_torch import quant
@@ -1092,7 +1235,9 @@ def step_readings(cfg, state, before, steps: int, counters) -> dict:
     forwards = (steps + 1) * cfg.train.grad_accum_steps
     b1 = forwards if cfg.model.family == "lighthead" else 0
     expected = {"fused_sepconv": forwards * fused_blocks(state.model),
-                "psroi_align": b1, "psroi_align_backward": b1}
+                "psroi_align": b1, "psroi_align_backward": b1,
+                "nms_suppress": forwards * nms_launches(cfg.model,
+                                                        train=True)}
     if cfg.model.backbone_quant is not None:
         expected.update(int8_conv=0, int8_dwconv=0, quantize_s8=forwards * len(
             quant.quant_convs(state.model)))
@@ -1424,7 +1569,9 @@ def run_cli(device, extra=()) -> dict:
         launches = {name: fn.launches for name, fn in counters.items()}
     return {"launches": launches, "evaluate": res,
             "expected": {"fused_sepconv": 0, "psroi_align": 2,
-                         "psroi_align_backward": 2},
+                         "psroi_align_backward": 2,
+                         "nms_suppress": 2 * nms_launches(
+                             lighthead_xception().model, train=True)},
             "wall_s": [r["wall_time_s"] for r in recs]}
 
 
@@ -1718,7 +1865,9 @@ def run_data(device, extra=(), steps: int = DATA_STEPS,
         out["train_s"] = time.perf_counter() - t0
         out["launches"] = {name: fn.launches for name, fn in counters.items()}
         out["expected"] = {"fused_sepconv": 0, "psroi_align": steps,
-                           "psroi_align_backward": steps}
+                           "psroi_align_backward": steps,
+                           "nms_suppress": steps * nms_launches(
+                               lighthead_xception().model, train=True)}
         with open(f"{tmp}/model/metrics.jsonl") as f:
             recs = [json.loads(line) for line in f]
         out["losses"] = [r["total_loss"] for r in recs]
@@ -2782,8 +2931,8 @@ def run_fast(cfg, device, batches: int = SLICE_BATCHES,
              profile: bool = False) -> dict:
     """``cfg``'s exact path and its MaxpoolNMS path (``maxpool_nms``), each
     through ``run_slice`` on the same seeded weights and images; the fast
-    path's readings (its ``suppress`` counts, NMS's fixpoint calls in the
-    forward and in all) with the exact path's fixpoint counts and both
+    path's readings (its ``suppress`` counts, exact NMS's suppressions in
+    the forward and in all) with the exact path's counts and both
     paths' batch ms in alternating rounds. With ``profile``, one fast batch
     under ``utils.profiling.trace`` (the device kernels it names) and the
     fast batch timed by ``utils.profiling.DeviceTimer``."""
@@ -2810,13 +2959,14 @@ def run_fast(cfg, device, batches: int = SLICE_BATCHES,
 
 
 def check_fast(tag: str, res: dict, family: str) -> None:
-    """MaxpoolNMS took NMS's fixpoint out of the proposal stage
-    (Light-Head) or out of the whole tail (SSD), where the exact path
-    ran it."""
+    """MaxpoolNMS took exact NMS (the plain version's fixpoint, or the
+    kernels) out of the proposal stage (Light-Head) or out of the whole
+    tail (SSD), where the exact path ran it."""
     stage = "forward" if family == "lighthead" else "all"
     if res["suppress"][stage] != 0 or res["exact_suppress"][stage] == 0:
         raise AssertionError(
-            f"{tag}: NMS's fixpoint ran {res['suppress'][stage]} times in "
+            f"{tag}: exact NMS (fixpoint or kernels) ran "
+            f"{res['suppress'][stage]} times in "
             f"the fast path's {'proposal stage' if stage == 'forward' else 'tail'}"
             f" (the exact path's: {res['exact_suppress'][stage]}); expected "
             f"0 (and the exact path's > 0)")
@@ -2949,7 +3099,9 @@ def run_remat_pair(cfg, device, stages: int = 2, steps: int = 3,
     return {"peak": peaks, "step_ms": step_ms, "tensors": len(snaps[0]),
             "launches": launches,
             "expected": {"fused_sepconv": 0, "psroi_align": b1,
-                         "psroi_align_backward": b1},
+                         "psroi_align_backward": b1,
+                         "nms_suppress": steps * nms_launches(
+                             cfg.model, train=True)},
             "nondeterministic": sorted({str(w.message).split(".")[0]
                                         for w in caught
                                         if "deterministic" in str(
@@ -3071,15 +3223,18 @@ def run_cli_rest(device, extra=(), steps: int = 2, batch_size: int = 4,
             "events": len(events),
             "losses": [r["total_loss"] for r in recs],
             "expected": {"fused_sepconv": 0, "psroi_align": steps,
-                         "psroi_align_backward": steps}}
+                         "psroi_align_backward": steps,
+                         "nms_suppress": steps * nms_launches(
+                             lighthead_resnet50().model, train=True)}}
 
 
 def run_overfit(cfg, device, steps: int, dtype) -> dict:
     """``tools/overfit.overfit`` of ``cfg`` for ``steps`` steps in ``dtype``,
     the kernels' counters zeroed just before: its readings, the launches
     and what they should be (for Light-Head B1's forward once a step and
-    once more for the scoring forward, its backward once a step; nothing
-    else: the train route takes no B2)."""
+    once more for the scoring forward, its backward once a step; exact
+    NMS's kernels in each step and in the scoring forward and its
+    detections; nothing else: the train route takes no B2)."""
     from x_detector_tpu_torch.tools import overfit
     counters = path_counters()
     reset_counters(counters, device)
@@ -3088,7 +3243,9 @@ def run_overfit(cfg, device, steps: int, dtype) -> dict:
     b1 = int(cfg.model.family == "lighthead")
     res["expected"] = {**dict.fromkeys(counters, 0),
                        "psroi_align": (steps + 1) * b1,
-                       "psroi_align_backward": steps * b1}
+                       "psroi_align_backward": steps * b1,
+                       "nms_suppress": steps * nms_launches(
+                           cfg.model, train=True) + nms_launches(cfg.model)}
     return res
 
 
@@ -3118,7 +3275,8 @@ def run_capstone(cfg, device, steps: int = LEARN_STEPS,
     zeroed just before the training and just before each evaluation.
     Returns the train readings and launches, and per side its mAP,
     launches, what they should be (B2 a fused block and B1's forward once
-    a batch; K1 a dense QuantConv, K2 a depthwise one, K3 each but the
+    a batch, exact NMS's kernels as the side's config runs them; K1 a
+    dense QuantConv, K2 a depthwise one, K3 each but the
     pointwise convs whose input K2 quantized) and its detections of each
     batch (read after the counts)."""
     from x_detector_tpu_torch.tools import fast_nms_ab as ab
@@ -3132,7 +3290,9 @@ def run_capstone(cfg, device, steps: int = LEARN_STEPS,
            "train_launches": {n: fn.launches for n, fn in counters.items()},
            "train_expected": {**dict.fromkeys(counters, 0),
                               "psroi_align": steps * b1,
-                              "psroi_align_backward": steps * b1},
+                              "psroi_align_backward": steps * b1,
+                              "nms_suppress": steps * nms_launches(
+                                  cfg.model, train=True)},
            "eval": {}}
     batches = [ab.held_out_batch(cfg, device, bi)
                for bi in range(eval_batches)]
@@ -3148,7 +3308,9 @@ def run_capstone(cfg, device, steps: int = LEARN_STEPS,
         launches = {n: fn.launches for n, fn in counters.items()}
         per_batch = {**dict.fromkeys(counters, 0),
                      "fused_sepconv": fused_blocks(detect.model),
-                     "psroi_align": b1}
+                     "psroi_align": b1,
+                     "nms_suppress": nms_launches(ab.detect_config(
+                         cfg, "exact" if name == "int8" else name).model)}
         if name == "int8":
             per_batch.update(int8_calls(detect.model))
         res["eval"][name] = {
@@ -3250,10 +3412,13 @@ def phase_learn(device="cuda") -> dict:
             f"{name} " + str({k: v for k, v in side["per_batch"].items()
                               if v}) for name, side in res["eval"].items())
         + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    bf16 = {"fused_sepconv": 14, "psroi_align": 1}
-    check_capstone(res, {"exact": bf16, "approx": bf16, "maxpool": bf16,
+    # exact NMS twice a batch (proposals, tail); MaxpoolNMS leaves the tail
+    bf16 = {"fused_sepconv": 14, "psroi_align": 1, "nms_suppress": 4}
+    check_capstone(res, {"exact": bf16, "approx": bf16,
+                         "maxpool": {**bf16, "nms_suppress": 2},
                          "int8": {"int8_conv": 20, "int8_dwconv": 16,
-                                  "quantize_s8": 20, "psroi_align": 1}})
+                                  "quantize_s8": 20, "psroi_align": 1,
+                                  "nms_suppress": 4}})
     return paths
 
 
@@ -3428,7 +3593,8 @@ def run_parity1(steps: int = PARITY1_STEPS) -> dict:
     against the card's), both from one checkpoint of ``cli.train --preset
     lighthead_resnet50 --steps`` ``steps`` on the card. Fails unless the CPU
     run prints PARITY OK and exits 0, and the card's record launched B1's
-    forward once and B2 never. Returns the launches, the detection count
+    forward once, exact NMS's kernels twice each (proposals, tail) and B2
+    never. Returns the launches, the detection count
     and the compare's lines."""
     from x_detector_tpu_torch.cli import train
     from x_detector_tpu_torch.tools import config1_parity as c1
@@ -3460,7 +3626,8 @@ def run_parity1(steps: int = PARITY1_STEPS) -> dict:
                          "--out", f"{tmp}/cpu.json", "--compare",
                          f"{tmp}/card.json"], timeout=PARITY1_TIMEOUT_S)
         cpu_s = time.perf_counter() - t0
-    want = {"fused_sepconv": 0, "psroi_align": 1, "psroi_align_backward": 0}
+    want = {"fused_sepconv": 0, "psroi_align": 1, "psroi_align_backward": 0,
+            "nms_suppress": nms_launches(lighthead_resnet50().model)}
     lines = [line for line in proc.stdout.splitlines()
              if not line.startswith("wrote ")]
     if rc != 0 or proc.returncode != 0 or "PARITY OK" not in proc.stdout:
@@ -3565,7 +3732,10 @@ def check_per_batch(tag: str, got: dict, want: dict) -> None:
                              f"{full}")
 
 
-B3_PER_BATCH = {"fused_sepconv": 14, "psroi_align": 1}
+# exact NMS's two kernels twice a Light-Head batch (the proposal stage and
+# the tail), once an SSD batch (its tail) and once a Light-Head train step
+# (proposals)
+B3_PER_BATCH = {"fused_sepconv": 14, "psroi_align": 1, "nms_suppress": 4}
 # path -> (tool, its arguments, what it must launch): None nothing, a set
 # those kernels, a dict those launches a batch (a step) in the tool's rows
 BENCH_RUNS = {
@@ -3580,12 +3750,13 @@ BENCH_RUNS = {
         "--passes", "5"], B3_PER_BATCH),
     "bench_infer_config1": ("bench_infer", [
         "--preset", "lighthead_resnet50", "--batch", "1", "--iters", "4",
-        "--passes", "5"], {"psroi_align": 1}),
+        "--passes", "5"], {"psroi_align": 1, "nms_suppress": 4}),
     "bench_infer_config2": ("bench_infer", [
         "--preset", "ssd_resnet50", "--batch", "8", "--iters", "4",
-        "--passes", "5"], {}),
+        "--passes", "5"], {"nms_suppress": 2}),
     "bench_train": ("bench_train", ["--steps", "5"],
-                    {"psroi_align": 1, "psroi_align_backward": 1}),
+                    {"psroi_align": 1, "psroi_align_backward": 1,
+                     "nms_suppress": 2}),
     # eager at every bucket; a container of the buckets serve does not
     # export
     "bench_serving": ("bench_serving", ["--batches", "1,4,8,16"],
@@ -3593,7 +3764,7 @@ BENCH_RUNS = {
     "bench_serving_container": ("bench_serving", [
         "--batches", "4,8", "--container"], B3_PER_BATCH),
     "bench_preproc": ("bench_preproc", ["--iters", "4"], None),
-    "bench_nms_tail": ("bench_nms_tail", [], None),
+    "bench_nms_tail": ("bench_nms_tail", [], {"nms_suppress"}),
     "bench_psroi": ("bench_psroi", [], {"psroi_align"}),
     # fused: B2 and B1 a batch as config 3; unfused: B1 alone
     "bench_fused_sepconv": ("bench_fused_sepconv", [
@@ -3664,11 +3835,11 @@ def fused(cfg):
 
 def main() -> int:
     smi = phase_device()
-    from x_detector_tpu_torch.config import (config5, lighthead_resnet50,
-                                             lighthead_xception,
-                                             ssd_resnet50, xdet_xception)
+    from x_detector_tpu_torch.config import (config5, ssd_resnet50,
+                                             xdet_xception)
     phase_build()
     kernels = phase_kernels()
+    kernels.append(n1_kernel_line(phase_nms_kernels()))
     kernels += int8_kernel_lines(phase_int8_kernels())
 
     paths = {}
@@ -3678,7 +3849,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     paths["slice"] = res = run_slice(cfg, "cuda", keep_path=True)
     check_slice("config 3", res, {"fused_sepconv": 14, "psroi_align": 1,
-                                  "psroi_align_backward": 0})
+                                  "psroi_align_backward": 0,
+                                  "nms_suppress": 4})
     report_slice("slice: config 3 at 800 px, fused sepconv", res, BATCH)
     report_boundary("slice: config 3", res)
     slice_reference_check(cfg.model, "cuda", ("rpn_cls", "rpn_loc"))
@@ -3692,7 +3864,8 @@ def main() -> int:
                                        batch_size=1, raw_hw=CONFIG1_RAW_HW,
                                        keep_path=True)
     check_slice("config 1", res, {"fused_sepconv": 0, "psroi_align": 1,
-                                  "psroi_align_backward": 0})
+                                  "psroi_align_backward": 0,
+                                  "nms_suppress": 4})
     report_slice(f"config1: Light-Head + ResNet-50 at 800 px from "
                  f"{CONFIG1_RAW_HW[0]} x {CONFIG1_RAW_HW[1]} uint8 images",
                  res, 1)
@@ -3701,13 +3874,16 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # config 2 (SSD + ResNet-50) and xdet_xception with the fused separable
-    # conv: no kernel, and B2 13 times a batch
+    # conv: exact NMS's kernels once (the tail), and B2 never or 13 times
+    # a batch
     for path, cfg, per_batch in (
             ("ssd", ssd_resnet50(512), {"fused_sepconv": 0, "psroi_align": 0,
-                                        "psroi_align_backward": 0}),
+                                        "psroi_align_backward": 0,
+                                        "nms_suppress": 2}),
             ("xdet", fused(xdet_xception(512)), {"fused_sepconv": 13,
                                                  "psroi_align": 0,
-                                                 "psroi_align_backward": 0})):
+                                                 "psroi_align_backward": 0,
+                                                 "nms_suppress": 2})):
         torch.cuda.reset_peak_memory_stats()
         paths[path] = res = run_slice(cfg, "cuda", batch_size=SSD_BATCH)
         check_slice(cfg.model.name, res, per_batch)
@@ -3718,14 +3894,14 @@ def main() -> int:
         torch.cuda.synchronize()
 
     # fast: MaxpoolNMS on config 3's proposal stage (B2 14 and B1 1 a
-    # batch, NMS's fixpoint never in the forward) and on config 2's tail
-    # (the fixpoint never), beside each exact path in alternating rounds
+    # batch, exact NMS never in the forward) and on config 2's tail (exact
+    # NMS never), beside each exact path in alternating rounds
     no_kernels = {"fused_sepconv": 0, "psroi_align": 0,
-                  "psroi_align_backward": 0}
+                  "psroi_align_backward": 0, "nms_suppress": 0}
     for path, cfg, batch, family, per_batch in (
             ("fast", fused(lighthead_xception(800)), BATCH, "lighthead",
              {"fused_sepconv": 14, "psroi_align": 1,
-              "psroi_align_backward": 0}),
+              "psroi_align_backward": 0, "nms_suppress": 2}),
             ("fast_config2", ssd_resnet50(512), SSD_BATCH, "ssd",
              no_kernels)):
         torch.cuda.reset_peak_memory_stats()
@@ -3734,7 +3910,7 @@ def main() -> int:
         check_slice(path, res, per_batch)
         check_fast(path, res, family)
         report_slice(f"{path}: {cfg.model.name} with MaxpoolNMS", res, batch)
-        log(f"{path}: NMS fixpoint calls over {res['batches']} batches, in "
+        log(f"{path}: exact NMS calls over {res['batches']} batches, in "
             f"the forward / in all: exact path {res['exact_suppress']}, "
             f"MaxpoolNMS {res['suppress']}; ms a batch "
             f"{rounds_text(res['ms'])}: fast / exact "
@@ -3761,7 +3937,8 @@ def main() -> int:
         cfg, "cuda", model=slice_model(cfg.model, "cuda", dense_stages=1),
         keep_path=True)
     check_slice("dense", res, {"fused_sepconv": 10, "psroi_align": 1,
-                               "psroi_align_backward": 0})
+                               "psroi_align_backward": 0,
+                               "nms_suppress": 4})
     report_slice("dense: config 3 at 800 px, fused, dense_stages=1", res,
                  BATCH)
     separable = run_slice(cfg, "cuda", batches=0, keep_path=True)
@@ -3787,11 +3964,11 @@ def main() -> int:
     for path, cfg, float_path, batch, per_batch, k1_routes, k2_modes, keys in (
             ("int8_config2", ssd_resnet50(512), "ssd", SSD_BATCH,
              {"int8_conv": 53, "int8_dwconv": 0, "quantize_s8": 53,
-              "psroi_align": 0}, {"tma": 52, "mma": 1},
+              "psroi_align": 0, "nms_suppress": 2}, {"tma": 52, "mma": 1},
              {"dequant": 0, "quantize": 0}, ("cls_logits", "box_codes")),
             ("int8_config3", fused(lighthead_xception(800)), "slice", BATCH,
              {"int8_conv": 20, "int8_dwconv": 16, "quantize_s8": 20,
-              "psroi_align": 1}, {"tma": 19, "mma": 1},
+              "psroi_align": 1, "nms_suppress": 4}, {"tma": 19, "mma": 1},
              {"dequant": 0, "quantize": 16}, ("rpn_cls", "rpn_loc"))):
         torch.cuda.reset_peak_memory_stats()
         res, model = run_int8(cfg, "cuda", batch_size=batch, keep_path=True)
@@ -3844,7 +4021,7 @@ def main() -> int:
         res = run_serve(cfg, "cuda", f"{work}/config3")
         paths["serve"] = res
         per_batch = {"fused_sepconv": 14, "psroi_align": 1,
-                     "psroi_align_backward": 0}
+                     "psroi_align_backward": 0, "nms_suppress": 4}
         for b, r in res["buckets"].items():
             for side in r["ms"]:
                 if r[side]["per_batch"] != per_batch:
@@ -3868,7 +4045,8 @@ def main() -> int:
         res = run_serve_int8(ssd_resnet50(512), "cuda", f"{work}/int8")
         paths["serve_int8"] = res
         per_batch = {"fused_sepconv": 0, "psroi_align": 0,
-                     "psroi_align_backward": 0, "int8_conv": 53,
+                     "psroi_align_backward": 0, "nms_suppress": 2,
+                     "int8_conv": 53,
                      "int8_dwconv": 0, "quantize_s8": 53}
         for side in ("eager", "loaded"):
             if res[side]["per_batch"] != per_batch:
@@ -3887,7 +4065,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     paths["train"] = res = run_train(cfg, "cuda")
     check_train("config 4", res, {"fused_sepconv": 0, "psroi_align": 1,
-                                  "psroi_align_backward": 1})
+                                  "psroi_align_backward": 1,
+                                  "nms_suppress": 2})
     if res["moved"] != res["params"]:
         raise AssertionError(f"config 4: only {res['moved']} of "
                              f"{res['params']} parameter tensors changed")
@@ -3905,7 +4084,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         paths[path] = res = run_train(cfg, "cuda")
         check_train(preset, res, {"fused_sepconv": 0, "psroi_align": 0,
-                                  "psroi_align_backward": 0})
+                                  "psroi_align_backward": 0,
+                                  "nms_suppress": 0})
         if not all(m["ssd_num_fg"] > 0 for m in res["losses"]):
             raise AssertionError(f"{preset}: a step matched no anchor")
         if ("ema" in res) != (cfg.train.ema_decay > 0):
@@ -3928,7 +4108,7 @@ def main() -> int:
     paths["train_act8"] = res = run_train(cfg, "cuda")
     check_train("config 4 act8", res, {
         "fused_sepconv": 0, "psroi_align": 1, "psroi_align_backward": 1,
-        "int8_conv": 0, "int8_dwconv": 0, "quantize_s8": 36})
+        "nms_suppress": 2, "int8_conv": 0, "int8_dwconv": 0, "quantize_s8": 36})
     if res["moved"] != res["params"]:
         raise AssertionError(f"config 4 act8: only {res['moved']} of "
                              f"{res['params']} parameter tensors changed")
@@ -3974,7 +4154,8 @@ def main() -> int:
                                            dense_stages=1)
     check_train("config 4 dense", res, {"fused_sepconv": 0,
                                         "psroi_align": 1,
-                                        "psroi_align_backward": 1})
+                                        "psroi_align_backward": 1,
+                                        "nms_suppress": 2})
     report_train(f"dense_train: config 4 with dense_stages=1, batch {BATCH} "
                  f"at 800 px", res, BATCH, torch.cuda.max_memory_allocated())
     torch.cuda.synchronize()
@@ -4018,7 +4199,8 @@ def main() -> int:
     paths["dp"] = res = run_dp(cfg, "cuda")
     accum = cfg.train.grad_accum_steps
     check_train("config 5", res, {"fused_sepconv": 0, "psroi_align": accum,
-                                  "psroi_align_backward": accum})
+                                  "psroi_align_backward": accum,
+                                  "nms_suppress": 2 * accum})
     if res["moved"] != res["params"]:
         raise AssertionError(f"config 5: only {res['moved']} of "
                              f"{res['params']} parameter tensors changed")

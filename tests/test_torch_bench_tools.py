@@ -230,17 +230,20 @@ def _kernel_calls():
 
 
 def test_every_kernel_operator_has_a_flop_formula():
-    """Every ``xdt`` operator but NMS's fixpoint (no kernel) has one."""
+    """Every ``xdt`` operator but NMS's two (no FLOPs to count) has one."""
     xdt = torch.ops.xdt
+    assert set(library.NO_FLOP_OPERATORS) == {"nms_suppress",
+                                              "self_suppress"}
     assert set(library.flop_formulas()) == {
         getattr(xdt, name).default._overloadpacket
-        for name in library.OPERATORS if name != "self_suppress"}
-    assert set(_kernel_calls()) == set(library.OPERATORS) - {
-        "self_suppress"}
+        for name in library.OPERATORS
+        if name not in library.NO_FLOP_OPERATORS}
+    assert set(_kernel_calls()) == set(library.OPERATORS) - set(
+        library.NO_FLOP_OPERATORS)
 
 
 @pytest.mark.parametrize("op", sorted(set(library.OPERATORS)
-                                      - {"self_suppress"}))
+                                      - set(library.NO_FLOP_OPERATORS)))
 def test_flop_counter_counts_each_kernel_as_its_bound(op):
     """``roofline.count`` of one call through the operator (its plain
     version on the CPU) counts the FLOPs the kernel's bound counts, and the
@@ -331,18 +334,21 @@ def test_depthwise_flipped_kernel_data_gradient_is_autograds(dilation):
 
 class _CountingKernels(TorchDispatchMode):
     """Counts each kernel operator's calls on the CPU into its wrapper's
-    launch count, as its CUDA implementation counts launches."""
+    launch count, as its CUDA implementation counts launches: one a call,
+    and ``nms.KERNELS`` a call of exact NMS's (its mask and scan)."""
 
     OWNERS = {"fused_sepconv": "fused_sepconv",
               "psroi_align_fwd": "psroi_align",
               "psroi_align_bwd": "psroi_align_backward",
               "int8_conv": "int8_conv", "int8_dwconv": "int8_dwconv",
-              "int8_dwconv_q": "int8_dwconv", "quantize_s8": "quantize_s8"}
+              "int8_dwconv_q": "int8_dwconv", "quantize_s8": "quantize_s8",
+              "nms_suppress": "nms_suppress"}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         ns, _, name = func._schema.name.partition("::")
         if ns == "xdt" and name in self.OWNERS:
-            library.kernel_wrappers()[self.OWNERS[name]].launches += 1
+            library.kernel_wrappers()[self.OWNERS[name]].launches += (
+                nms.KERNELS if name == "nms_suppress" else 1)
         return func(*args, **(kwargs or {}))
 
 
@@ -371,7 +377,7 @@ def test_cpu_rehearsal_of_chip_smoke_bench(monkeypatch, capsys):
     cfg = bench_detect.tool_config("lighthead_xception", True)
     b3 = {"fused_sepconv": chip_smoke.fused_blocks(
         build_model(cfg.model, "cpu", dtype=torch.float32)),
-        "psroi_align": 1}
+        "psroi_align": 1, "nms_suppress": 2 * nms.KERNELS}
     presets = {"bench_detect": "lighthead_xception",
                "bench_infer_config3": "lighthead_xception",
                "bench_infer_config1": "lighthead_resnet50",
@@ -408,6 +414,84 @@ def test_cpu_rehearsal_of_chip_smoke_bench(monkeypatch, capsys):
     with pytest.raises(AssertionError, match="launches a batch"):
         chip_smoke.phase_bench("cpu", {"bench_detect": (
             "bench_detect", runs["bench_detect"][1], {"psroi_align": 1})})
+
+
+def _thin_chip_smoke_config(preset, size=64, **kw):
+    cfg = getattr(C, preset)(size)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone_stages=(1, 1, 1, 1), **kw),
+        data=dataclasses.replace(cfg.data, image_size=size))
+
+
+@pytest.mark.parametrize("path", ["lighthead", "maxpool", "ssd", "train"])
+def test_cpu_rehearsal_of_chip_smoke_counts_exact_nms(monkeypatch, path):
+    """chip_smoke's slice, fast and train phases on thin models on the CPU,
+    the operators counting as on the card (exact NMS two kernels a call):
+    the launches equal what ``nms_launches`` and the rest expect from the
+    config, exact NMS's among them (Light-Head: proposals and tail a
+    batch, the tail alone with MaxpoolNMS, proposals a step; SSD: the
+    tail)."""
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    lighthead = dict(large_sep_mid=16, head_dim=32,
+                     backbone_widths=(16, 32, 48, 64),
+                     proposals=C.ProposalConfig(
+                         pre_nms_topk=300, post_nms_topk=64,
+                         pre_nms_topk_eval=128, post_nms_topk_eval=32,
+                         min_size=2.0),
+                     nms=C.NMSConfig(max_output=20))
+    with _CountingKernels():
+        if path == "train":
+            cfg = _thin_chip_smoke_config("lighthead_xception", **lighthead)
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, batch_size=2, warmup_steps=0))
+            res = chip_smoke.run_train(cfg, "cpu", steps=1)
+            per = {"psroi_align": 2, "psroi_align_backward": 2,
+                   "nms_suppress": 2 * nms.KERNELS}
+        elif path == "ssd":
+            cfg = _thin_chip_smoke_config("ssd_resnet50", 128)
+            res = chip_smoke.run_slice(cfg, "cpu", batches=1, batch_size=2)
+            per = {"nms_suppress": 2 * nms.KERNELS}
+        else:
+            cfg = _thin_chip_smoke_config("lighthead_xception", **lighthead)
+            if path == "maxpool":
+                cfg = chip_smoke.maxpool_nms(cfg)
+            res = chip_smoke.run_slice(cfg, "cpu", batches=1, batch_size=2)
+            per = {"psroi_align": 2, "nms_suppress": 2 * nms.KERNELS * (
+                2 if path == "lighthead" else 1)}
+    assert res["launches"] == res["expected"]
+    assert {k: v for k, v in res["launches"].items() if v} == per
+
+
+def test_cpu_rehearsal_of_chip_smoke_nms_kernels():
+    """chip_smoke's N1 lines on the CPU at small shapes (the operator's CPU
+    implementation is the plain version, and counts nothing): every shape
+    held, suppressing some boxes; the kernels line's entry carries the
+    fields every entry has and the other shapes' under their tags; the
+    bound counts a row's pairs at half the fp32 peak."""
+    chip_smoke = _chip_smoke()
+    shapes = {"serve": (2, 300, 0.7), "train": (2, 700, 0.7),
+              "tail": (6, 256, 0.45)}
+    n1 = chip_smoke.phase_nms_kernels("cpu", shapes)
+    assert set(n1) == set(shapes)
+    for tag, t in n1.items():
+        assert t["shape"] == list(shapes[tag][:2])
+        assert 0 < t["suppressed"] < 1 and 0.1 < t["invalid"] < 0.3
+        assert t["ms"] is None and t["device_ms"] == 0.0
+    assert chip_smoke.nms_shapes(C.lighthead_xception(800).model) == {
+        "serve": (16, 1000, 0.7), "train": (16, 6000, 0.7),
+        "tail": (16 * 20, 256, 0.45)}
+    row = chip_smoke.n1_kernel_line(n1)
+    json.dumps(row)
+    for key in ("name", "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert key in row
+    assert row["train_shape"] == [2, 700] and row["tail_shape"] == [6, 256]
+    ms, by = nms.bound_ms(torch.zeros(16, 6000, 4))
+    pairs = 16 * 6000 * 5999 / 2
+    assert by == "operations"
+    assert ms == pytest.approx(pairs * nms.IOU_OPS
+                               / (roofline.FP32_FLOP_PER_S / 2) * 1e3)
 
 
 def _chip_smoke():

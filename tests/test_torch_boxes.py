@@ -56,3 +56,12 @@ def test_decode_matches_jax_including_the_clamp(rng):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
                                rtol=1e-6)
+
+
+def test_clip_boxes_with_a_bound_matches_jax(rng):
+    """A bound other than the unit square's, [0, 1.5] on both axes: every
+    coordinate clamped as JAX's clip does, bit for bit."""
+    a = (_boxes(rng, 50) * 2.0 - 0.3).astype(np.float32)
+    ref = jax_boxes.clip_boxes(jnp.asarray(a), 1.5, 1.5)
+    got = boxes.clip_boxes(torch.from_numpy(a), 1.5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

@@ -12,6 +12,7 @@ import dataclasses
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -429,7 +430,8 @@ def test_psroi_backward_refuses_what_the_kernel_does_not_take(dev):
 
 def test_train_step_on_the_card_goes_through_the_kernels(dev):
     """chip_smoke's train phase at 64 px, batch 2, on the card: one
-    PSROIAlign forward and backward launch per step, no fused conv."""
+    PSROIAlign forward and backward launch per step, exact NMS's two
+    kernels, no fused conv."""
     chip_smoke = _chip_smoke()
     cfg = chip_smoke.train_config(64, batch_size=2)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -437,7 +439,8 @@ def test_train_step_on_the_card_goes_through_the_kernels(dev):
         backbone_widths=(32, 64, 96, 128), head_dim=64))
     res = chip_smoke.run_train(cfg, dev, steps=2)
     assert res["launches"] == res["expected"] == {
-        "fused_sepconv": 0, "psroi_align": 3, "psroi_align_backward": 3}
+        "fused_sepconv": 0, "psroi_align": 3, "psroi_align_backward": 3,
+        "nms_suppress": 3 * 2}
     assert res["moved"] == res["params"]
 
 
@@ -948,3 +951,136 @@ def test_int8_model_on_the_card_goes_through_the_kernels(dev):
         assert res["int8_routes"] == {
             "tma": res["launches"]["int8_conv"] - res["batches"],
             "mma": res["batches"]}
+
+
+# ---- exact greedy NMS: xdt::nms_suppress's mask and scan kernels -----------
+# Held bit for bit to the operator's plain version (the tile loop with its
+# host checks) run on the CPU: every IoU rounds as ops/boxes.py's does and
+# meets the fp32 threshold, so every decision is the plain version's.
+
+def _nms_boxes(rows, n, seed, invalid=0.2):
+    from _torch_nms_cases import cluttered_rows
+    return torch.from_numpy(cluttered_rows(np.random.default_rng(seed), rows,
+                                           n, invalid=invalid))
+
+
+def _suppress_on_card(boxes, thr):
+    from x_detector_tpu_torch.ops import nms
+    before = nms.nms_suppress.launches
+    got = nms.nms_suppress(boxes.cuda(), thr)
+    assert nms.nms_suppress.launches == before + nms.KERNELS == before + 2
+    assert got.dtype == torch.bool and got.is_cuda
+    return got.cpu()
+
+
+# (rows, boxes a row, threshold, share of invalid boxes): the proposal
+# stage's serving and training shapes, the serving tail's 16 x 20 rows of
+# 256, a few boxes off a multiple of 64, one partial word, invalid boxes
+# almost everywhere (the live words skip their rows)
+NMS_CASES = [(16, 1024, 0.7, 0.2), (16, 6016, 0.7, 0.2),
+             (320, 256, 0.45, 0.2), (3, 1000, 0.5, 0.2), (1, 70, 0.3, 0.2),
+             (2, 64, 0.7, 0.0), (16, 1024, 0.7, 0.97)]
+
+
+@pytest.mark.parametrize("rows,n,thr,invalid", NMS_CASES)
+def test_nms_suppress_kernel_matches_plain_bitwise(dev, rows, n, thr,
+                                                   invalid):
+    from x_detector_tpu_torch.ops import nms
+    boxes = _nms_boxes(rows, n, seed=rows * n, invalid=invalid)
+    want = nms.suppress_plain(boxes, thr)
+    got = _suppress_on_card(boxes, thr)
+    assert 0 < int(want.sum()) < rows * n * (1 - invalid)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("apart", [False, True])
+@pytest.mark.parametrize("thr", [0.3, 0.45, 0.5, 0.7])
+def test_nms_suppress_kernel_at_the_threshold(dev, thr, apart):
+    """Pairs whose fp32 IoU is the fp32 threshold or one ulp off it, in one
+    word of the mask or in two blocks apart: the kernel suppresses exactly
+    the pairs above fp32(thr), as the plain version does."""
+    from _torch_nms_cases import edge_rows
+    from x_detector_tpu_torch.ops import nms
+    boxes = torch.from_numpy(edge_rows(thr, apart=apart))
+    want = nms.suppress_plain(boxes, thr)
+    assert int(want.sum()) == len(boxes) // 3
+    assert torch.equal(_suppress_on_card(boxes, thr), want)
+
+
+def test_nms_suppress_kernel_with_nonfinite_boxes(dev):
+    """NaN, infinite and huge coordinates: a NaN makes every union its box
+    enters NaN, so its IoU is 0 in both versions, whatever min and max do."""
+    boxes = _nms_boxes(8, 300, seed=3)
+    flat = boxes.view(-1)
+    pick = torch.randperm(flat.numel(), generator=torch.Generator()
+                          .manual_seed(3))[:400]
+    flat[pick] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                               1e30]).repeat(100)
+    from x_detector_tpu_torch.ops import nms
+    for thr in (0.5, 0.0):
+        want = nms.suppress_plain(boxes, thr)
+        assert torch.equal(_suppress_on_card(boxes, thr), want), thr
+
+
+def test_nms_suppress_kernel_is_deterministic(dev):
+    """The same inputs give the same bits, call after call, and each call
+    adds its two kernels (mask, scan) to the wrapper's launches."""
+    boxes = _nms_boxes(16, 6016, seed=7)
+    first = _suppress_on_card(boxes, 0.7)
+    for _ in range(3):
+        assert torch.equal(_suppress_on_card(boxes, 0.7), first)
+
+
+def test_nms_suppress_refuses_what_the_kernel_does_not_take(dev):
+    from x_detector_tpu_torch.ops import nms
+    boxes = _nms_boxes(4, 200, seed=1).cuda()
+    with pytest.raises(ValueError, match="contiguous"):
+        nms.nms_suppress(boxes.transpose(0, 1), 0.5)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError, match="fp32"):
+            nms.nms_suppress(boxes.to(dtype), 0.5)
+    with pytest.raises(ValueError, match=r"\[R, N, 4\]"):
+        nms.nms_suppress(boxes[0], 0.5)
+    with pytest.raises(ValueError, match="at most"):
+        nms.nms_suppress(torch.zeros(1, nms.MAX_BOXES + 1, 4, device=dev),
+                         0.5)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_proposal_stage_and_nms_tail_make_no_host_sync(dev, training):
+    """Config 3's proposal stage at 800 px, batch 16, in serving's budget
+    (1000 candidates) and training's (6000), then the serving tail over
+    the proposals, all under ``torch.cuda.set_sync_debug_mode("error")``:
+    nothing in them waits on the card, and each exact NMS is one call of
+    the wrapper, its two kernels counted. The plain version raises there
+    (its host checks)."""
+    from x_detector_tpu_torch.models import lighthead
+    from x_detector_tpu_torch.ops import anchors as anchor_ops
+    from x_detector_tpu_torch.ops import nms
+    cfg = lighthead_xception(800).model
+    anchors = torch.from_numpy(anchor_ops.rpn_anchors(800, cfg.anchors)
+                               ).to(dev)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, a = 16, anchors.shape[0]
+    rpn_cls = _rand(gen, b, a, 2, scale=2.0)
+    rpn_loc = _rand(gen, b, a, 4, scale=0.5)
+    torch.cuda.synchronize()
+    before = nms.nms_suppress.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        props, scores, valid = lighthead.generate_proposals(
+            rpn_cls, rpn_loc, anchors, cfg.proposals, 800, training=training)
+        r = props.shape[1]
+        out = {"roi_cls": _rand(gen, b, r, cfg.num_classes + 1),
+               "roi_box": _rand(gen, b, r, 4, scale=0.1),
+               "proposals": props, "proposal_valid": valid}
+        det = lighthead.lighthead_postprocess(out, cfg)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            nms.suppress_plain(props[:, :128].contiguous(), 0.7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert nms.nms_suppress.launches == before + 2 * nms.KERNELS
+    want_r = (cfg.proposals.post_nms_topk if training
+              else cfg.proposals.post_nms_topk_eval)
+    assert props.shape == (b, want_r, 4) and int(valid.sum()) > 0
+    assert det.boxes.shape == (b, cfg.nms.max_output, 4)

@@ -128,7 +128,7 @@ def test_exported_program_equals_eager_bitwise(name):
               "xdet_fused": {"xdt.fused_sepconv.default"},
               "ssd_int8": {"xdt.int8_conv.default",
                            "xdt.quantize_s8.default"}}[name]
-    assert expect | {"xdt.self_suppress.default"} <= targets
+    assert expect | {"xdt.nms_suppress.default"} <= targets
     with torch.inference_mode():
         _equal(baked.module()(x), want)
         _equal(shared.module()(weights, x), want)
@@ -253,6 +253,9 @@ def _op_args(name):
                             .transpose(0, 1, 3, 2).reshape(1, 5, 4)
                             .astype(np.float32))
     mask = torch.from_numpy(rng.uniform(size=(2, 8, 8)) < 0.3).triu(1)
+    corners = np.sort(rng.uniform(0, 1, (2, 70, 2, 2)), axis=2)
+    boxes = torch.from_numpy(corners.transpose(0, 1, 3, 2).reshape(2, 70, 4)
+                             .astype(np.float32))
     kernel = Q.prepare_weight(i8(16, 3, 3, 8), False).kernel
     return {
         "psroi_align_fwd": (t(1, 6, 7, 98).requires_grad_(), rois, 7, 2),
@@ -271,6 +274,7 @@ def _op_args(name):
                           t(16).abs(), torch.tensor(0.05),
                           [3, 3, 2, 2, 1, 1, 0, 1, 0, 1], torch.bfloat16),
         "quantize_s8": (t(2, 3, 4) * 3, torch.tensor(0.05)),
+        "nms_suppress": (boxes, 0.5),
         "self_suppress": (mask,),
     }[name]
 

@@ -15,6 +15,8 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_nms_cases import (cluttered_rows, edge_rows,  # noqa: E402
+                              greedy_flags)
 from test_nms import np_greedy_nms, random_cluttered_boxes  # noqa: E402
 from x_detector_tpu.models import lighthead as jax_lighthead  # noqa: E402
 from x_detector_tpu.config import ProposalConfig  # noqa: E402
@@ -146,3 +148,79 @@ def test_generate_proposals_matches_jax(rng):
                              image_size=100)
     _assert_same(got, ref)
     assert 0 < int(got[2].sum()) < 300 * b   # some suppressed or filtered
+
+
+# ---- xdt::nms_suppress ------------------------------------------------------
+
+def _rows(case, rng):
+    """The operator's input for each case: score-sorted rows, invalid
+    boxes zero (``nms_padded``'s hand-off)."""
+    kind, rows, n = case
+    boxes = cluttered_rows(rng, rows, n)
+    if kind == "cluttered":
+        return boxes
+    if kind == "nonfinite":                 # NaN and infinite coordinates
+        flat = boxes.reshape(-1)
+        pick = rng.choice(flat.size, 40, replace=False)
+        flat[pick] = np.array([np.nan, np.inf, -np.inf, 1e30],
+                              np.float32)[np.arange(40) % 4]
+        return boxes
+    boxes[0] = 0.0                          # an all-zero row
+    boxes[1, 1:] = 0.0                      # a single box
+    boxes[2, 1:] = 0.0
+    boxes[2, 0] = 0.0
+    boxes[2, n - 1] = (0.1, 0.1, 0.5, 0.5)  # a single box in the last slot
+    boxes[3] = (0.2, 0.2, 0.6, 0.6)         # one box repeated: all but one go
+    return boxes
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.7])
+@pytest.mark.parametrize("case", [
+    ("cluttered", 2, 1000), ("cluttered", 20, 256),
+    ("cluttered", 3, 200),     # N off a multiple of 64 and of 128
+    ("cluttered", 4, 70), ("degenerate", 4, 130), ("nonfinite", 3, 150)])
+def test_nms_suppress_plain_equals_sequential_greedy(rng, case, thr):
+    """The operator's plain version (the CPU implementation) against
+    sequential greedy suppression written here in numpy fp32."""
+    boxes = _rows(case, rng)
+    got = torch.ops.xdt.nms_suppress(T(boxes), thr)
+    assert got.dtype == torch.bool and got.shape == boxes.shape[:2]
+    np.testing.assert_array_equal(got.numpy(), greedy_flags(boxes, thr))
+    if case[0] == "degenerate":
+        assert not got[:3].any() and got[3, 1:].all() and not got[3, 0]
+
+
+@pytest.mark.parametrize("apart", [False, True])
+@pytest.mark.parametrize("thr", [0.3, 0.45, 0.5, 0.7])
+def test_nms_suppress_plain_at_the_threshold(thr, apart):
+    """Pairs whose fp32 IoU is the fp32 threshold or one ulp off it: the
+    box is suppressed exactly where its IoU exceeds fp32(thr) (0.3 rounds
+    up in fp32, so a comparison in double would differ on it)."""
+    boxes = edge_rows(thr, apart=apart)
+    got = torch.ops.xdt.nms_suppress(T(boxes), thr).numpy()
+    want = greedy_flags(boxes, thr)
+    np.testing.assert_array_equal(got, want)
+    j = 100 if apart else 1
+    assert want[:, j].sum() == len(boxes) // 3     # the ulp above only
+
+
+def test_nms_padded_suppresses_through_the_operator_once(rng):
+    """``nms_padded`` makes one ``xdt::nms_suppress`` call (and no other
+    suppression), and its kept boxes are the sequential oracle's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Calls(TorchDispatchMode):
+        names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._schema.name.startswith("xdt::"):
+                self.names.append(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    boxes, scores = random_cluttered_boxes(rng, 700)
+    with Calls() as calls:
+        got = N.nms_padded(T(boxes), T(scores), 300, 0.5, 0.05)
+    assert calls.names == ["xdt::nms_suppress"]
+    kept = np_greedy_nms(boxes, scores, 0.5, 0.05)[:300]
+    assert int(got.valid.sum()) == len(kept)
+    np.testing.assert_array_equal(got.boxes[:len(kept)].numpy(), boxes[kept])

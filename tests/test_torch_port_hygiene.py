@@ -181,9 +181,11 @@ def test_cpu_rehearsal_of_chip_smoke_slice():
         cfg.data, image_size=64))
     res = chip_smoke.run_slice(cfg, "cpu", batches=1, batch_size=2)
     assert res["launches"] == {"fused_sepconv": 0, "psroi_align": 0,
-                               "psroi_align_backward": 0}
+                               "psroi_align_backward": 0, "nms_suppress": 0}
+    # exact NMS's two kernels for the proposals and for the tail
     assert res["expected"] == {"fused_sepconv": 2 * 14, "psroi_align": 2,
-                               "psroi_align_backward": 0}
+                               "psroi_align_backward": 0,
+                               "nms_suppress": 2 * 4}
     assert len(res["seconds"]) == 1
     assert res["detections"][3].any()
     assert _build.library.cache_info().currsize == 0   # nothing was built
@@ -214,11 +216,14 @@ def test_cpu_rehearsal_of_chip_smoke_new_paths(path):
             backbone_widths=(32, 64, 96, 128))), dict(batch_size=2),
                  ("cls_logits", "box_codes"), (5, 0)),
     }[path]
+    # exact NMS's two kernels a call: proposals and tail, or the tail
+    nms_calls = 2 if path == "config1" else 1
     res = chip_smoke.run_slice(cfg, "cpu", batches=1, **kw)
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
     assert res["expected"] == {"fused_sepconv": 2 * per_batch[0],
                                "psroi_align": 2 * per_batch[1],
-                               "psroi_align_backward": 0}
+                               "psroi_align_backward": 0,
+                               "nms_suppress": 2 * 2 * nms_calls}
     assert res["detections"][0].shape[0] == kw["batch_size"]
     assert res["anchors"] == (960 if path == "config1" else 2046)
     assert chip_smoke.slice_reference_check(cfg.model, "cpu", keys) <= (
@@ -254,7 +259,9 @@ def test_cpu_rehearsal_of_chip_smoke_int8(path):
     assert chip_smoke.quantizing_blocks(model) == per_batch[3]
     assert res["expected"] == {
         "fused_sepconv": 0, "psroi_align": 2 * per_batch[2],
-        "psroi_align_backward": 0, "int8_conv": 2 * per_batch[0],
+        "psroi_align_backward": 0,
+        "nms_suppress": 2 * 2 * (1 + per_batch[2]),
+        "int8_conv": 2 * per_batch[0],
         "int8_dwconv": 2 * per_batch[1],
         "quantize_s8": 2 * (per_batch[0] + per_batch[1] - per_batch[3])}
     assert all(float(v) > 0 for v in res["ranges"].values())
@@ -321,7 +328,8 @@ def test_cpu_rehearsal_of_chip_smoke_serve(tmp_path):
         assert tuple(r["ms"]) == sides
         for side in sides:
             assert r[side]["per_batch"] == dict.fromkeys(
-                ("fused_sepconv", "psroi_align", "psroi_align_backward"), 0)
+                ("fused_sepconv", "psroi_align", "psroi_align_backward",
+                 "nms_suppress"), 0)
             assert 0 < r["ms"][side]["best"] <= r["ms"][side]["median"]
     assert res["weights_mb"] > 0
     pred = chip_smoke.run_predict_artifact(str(tmp_path / "lh"), "cpu",
@@ -366,9 +374,11 @@ def test_cpu_rehearsal_of_chip_smoke_train():
                                              post_nms_topk=64, min_size=2.0)))
     res = chip_smoke.run_train(cfg, "cpu", steps=1)
     assert res["launches"] == {"fused_sepconv": 0, "psroi_align": 0,
-                               "psroi_align_backward": 0}
+                               "psroi_align_backward": 0, "nms_suppress": 0}
+    # exact NMS's two kernels in each step's proposal stage
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
-                               "psroi_align_backward": 2}
+                               "psroi_align_backward": 2,
+                               "nms_suppress": 2 * 2}
     assert len(res["seconds"]) == 1 and len(res["losses"]) == 2
     for metrics in res["losses"]:
         assert all(np.isfinite(v) for v in metrics.values()), metrics
@@ -376,7 +386,8 @@ def test_cpu_rehearsal_of_chip_smoke_train():
     accum = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, grad_accum_steps=2))
     assert chip_smoke.run_train(accum, "cpu", steps=0)["expected"] == {
-        "fused_sepconv": 0, "psroi_align": 2, "psroi_align_backward": 2}
+        "fused_sepconv": 0, "psroi_align": 2, "psroi_align_backward": 2,
+        "nms_suppress": 2 * 2}
     assert _build.library.cache_info().currsize == 0   # nothing was built
 
 
@@ -433,7 +444,8 @@ def test_cpu_rehearsal_of_chip_smoke_train_ssd(preset):
     chip_smoke = _chip_smoke()
     cfg = _thin_ssd_train(chip_smoke, preset, 128)
     res = chip_smoke.run_train(cfg, "cpu", steps=1)
-    zero = {"fused_sepconv": 0, "psroi_align": 0, "psroi_align_backward": 0}
+    zero = {"fused_sepconv": 0, "psroi_align": 0, "psroi_align_backward": 0,
+            "nms_suppress": 0}
     chip_smoke.check_train(preset, res, zero)
     assert all(m["ssd_num_fg"] > 0 for m in res["losses"])
     assert ("ema" in res) == (preset == "ssd_resnet50")
@@ -472,9 +484,10 @@ def test_cpu_rehearsal_of_chip_smoke_cli():
         "1,1,1,1", "--backbone-widths", "16,32,48,64", "--dtype",
         "float32"])
     assert res["launches"] == {"fused_sepconv": 0, "psroi_align": 0,
-                               "psroi_align_backward": 0}
+                               "psroi_align_backward": 0, "nms_suppress": 0}
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
-                               "psroi_align_backward": 2}
+                               "psroi_align_backward": 2,
+                               "nms_suppress": 2 * 2}
     assert res["evaluate"]["ema"] and res["evaluate"]["step"] == (
         chip_smoke.CLI_RESUME_STEPS)
 
@@ -500,7 +513,8 @@ def test_cpu_rehearsal_of_chip_smoke_dp():
     assert cfg.train.batch_size == 4 and cfg.train.grad_accum_steps == 2
     res = chip_smoke.run_dp(cfg, "cpu", steps=1)
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 4,
-                               "psroi_align_backward": 4}
+                               "psroi_align_backward": 4,
+                               "nms_suppress": 4 * 2}
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
     assert res["moved"] == res["params"] > 0 and not res["stuck"]
     assert res["allreduce_ms"] > 0 and res["allreduce_bytes"] > 4e5
@@ -573,7 +587,8 @@ def test_cpu_rehearsal_of_chip_smoke_data():
     assert all(r > 0 for r in res["images_per_s"].values())
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 3,
-                               "psroi_align_backward": 3}
+                               "psroi_align_backward": 3,
+                               "nms_suppress": 3 * 2}
     assert len(res["losses"]) == 3 and 0.0 <= res["mAP"] <= 1.0
     assert res["inspected"] == 6          # cli.inspect_data: a PNG an image
 
@@ -606,9 +621,12 @@ def test_cpu_rehearsal_of_chip_smoke_fast(family):
            else _thin(port_config.ssd_resnet50(128)))
     res = chip_smoke.run_fast(cfg, "cpu", batches=1, batch_size=2, rounds=2,
                               profile=family == "lighthead")
+    # exact NMS's two kernels in the Light-Head's tail, which MaxpoolNMS
+    # leaves exact; none in the SSD's
     per_batch = {"fused_sepconv": 6 if family == "lighthead" else 0,
                  "psroi_align": int(family == "lighthead"),
-                 "psroi_align_backward": 0}
+                 "psroi_align_backward": 0,
+                 "nms_suppress": 2 if family == "lighthead" else 0}
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
     assert res["expected"] == {k: 2 * v for k, v in per_batch.items()}
     chip_smoke.check_fast(family, res, family)
@@ -639,14 +657,16 @@ def test_cpu_rehearsal_of_chip_smoke_dense():
     res = chip_smoke.run_slice(cfg, "cpu", batches=1, batch_size=2,
                                model=model)
     assert res["expected"] == {"fused_sepconv": 2 * 4, "psroi_align": 2,
-                               "psroi_align_backward": 0}
+                               "psroi_align_backward": 0,
+                               "nms_suppress": 2 * 4}
     assert chip_smoke.slice_reference_check(
         cfg.model, "cpu", ("rpn_cls", "rpn_loc"), dense_stages=1) <= (
         chip_smoke.SLICE_REL_TOL)
     train_cfg = _thin_lighthead(chip_smoke.train_config(64, batch_size=2))
     res = chip_smoke.run_train(train_cfg, "cpu", steps=1, dense_stages=1)
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
-                               "psroi_align_backward": 2}
+                               "psroi_align_backward": 2,
+                               "nms_suppress": 2 * 2}
     assert res["moved"] == res["params"] > 0
     assert _build.library.cache_info().currsize == 0   # nothing was built
 
@@ -664,7 +684,8 @@ def test_cpu_rehearsal_of_chip_smoke_train_act8():
     res = chip_smoke.run_train(cfg, "cpu", steps=1)
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
-                               "psroi_align_backward": 2, "int8_conv": 0,
+                               "psroi_align_backward": 2,
+                               "nms_suppress": 2 * 2, "int8_conv": 0,
                                "int8_dwconv": 0, "quantize_s8": 2 * 20}
     assert res["moved"] == res["params"] > 0
     grads = chip_smoke.act8_grad_check("cpu", shape=(2, 8, 12, 12))
@@ -686,7 +707,8 @@ def test_cpu_rehearsal_of_chip_smoke_train_remat(family):
     res = chip_smoke.run_remat_pair(cfg, "cpu")
     b1 = 3 if family == "lighthead" else 0
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": b1,
-                               "psroi_align_backward": b1}
+                               "psroi_align_backward": b1,
+                               "nms_suppress": 2 * b1}
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
     assert res["tensors"] > 50 and res["nondeterministic"] == []
     assert set(res["step_ms"]) == {0, 2} and min(res["step_ms"].values()) > 0
@@ -718,7 +740,8 @@ def test_cpu_rehearsal_of_chip_smoke_cli_rest():
         batch_size=2, stage_sizes=(1, 1, 1, 1), widths=(8, 16, 24, 32))
     assert res["launches"] == dict.fromkeys(res["launches"], 0)
     assert res["expected"] == {"fused_sepconv": 0, "psroi_align": 2,
-                               "psroi_align_backward": 2}
+                               "psroi_align_backward": 2,
+                               "nms_suppress": 2 * 2}
     assert res["tensors"] == 5 + 4 * (3 * 5 + 5)
     assert res["scalars"] >= 2 * 8 and len(res["losses"]) == 2
     sd = chip_smoke.torchvision_resnet50_state()

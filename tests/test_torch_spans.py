@@ -193,7 +193,7 @@ def test_export_under_the_profiler_holds_no_span(serving):
         program = export.export_program(ServingModule(model, cfg), 2, "cpu")
     targets = {str(n.target) for n in program.graph.nodes}
     assert not [t for t in targets if "profiler" in t or "record" in t]
-    assert "xdt.self_suppress.default" in targets
+    assert "xdt.nms_suppress.default" in targets
     with torch.inference_mode():
         got = program.module()(images)
     for g, w in zip(got, want):

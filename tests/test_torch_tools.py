@@ -507,8 +507,11 @@ def test_cpu_rehearsal_of_chip_smoke_learn(monkeypatch):
                     (overfit._recipe(_configs("lighthead")[1]), 1)):
         res = chip_smoke.run_overfit(cfg, "cpu", 2, torch.float32)
         assert res["launches"] == dict.fromkeys(res["launches"], 0)
+        # exact NMS's two kernels: each Light-Head step's proposals, and
+        # the scoring forward's proposals (Light-Head) and tail
         assert res["expected"] == {**res["launches"], "psroi_align": 3 * b1,
-                                   "psroi_align_backward": 2 * b1}
+                                   "psroi_align_backward": 2 * b1,
+                                   "nms_suppress": 2 * (1 + 3 * b1)}
         assert len(res["losses"]) == 2 and 0.0 <= res["mAP"] <= 1.0
         with pytest.raises(AssertionError, match="did not overfit"):
             chip_smoke.check_overfit("rehearsal", dict(
@@ -517,12 +520,16 @@ def test_cpu_rehearsal_of_chip_smoke_learn(monkeypatch):
     res = chip_smoke.run_capstone(cfg, "cpu", steps=6, eval_batches=1,
                                   calib_batches=1, dtype=torch.float32)
     assert set(res["eval"]) == {"exact", "approx", "maxpool", "int8"}
-    float_side = {"fused_sepconv": 6, "psroi_align": 1}
+    # exact NMS's two kernels for the proposals and the tail; MaxpoolNMS
+    # takes the proposals'
+    float_side = {"fused_sepconv": 6, "psroi_align": 1, "nms_suppress": 4}
     per_batch = {"exact": float_side, "approx": float_side,
-                 "maxpool": float_side,
+                 "maxpool": {**float_side, "nms_suppress": 2},
                  "int8": {"int8_conv": 12, "int8_dwconv": 8,
-                          "quantize_s8": 12, "psroi_align": 1}}
+                          "quantize_s8": 12, "psroi_align": 1,
+                          "nms_suppress": 4}}
     assert res["train_expected"]["psroi_align"] == 6
+    assert res["train_expected"]["nms_suppress"] == 6 * 2
     as_on_card = dict(res, train_launches=res["train_expected"], eval={
         name: dict(side, launches=side["expected"])
         for name, side in res["eval"].items()})

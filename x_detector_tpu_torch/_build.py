@@ -67,6 +67,9 @@ SIGNATURES = {
     "xdt_int8_quantize_forms": [_P, _I, _P, _P, _P, _P],
     # x, sx, q, x_is_bf16, n, vec; stream
     "xdt_quantize_s8": [_P] * 3 + [_I] * 3 + [_P],
+    # boxes, scratch (the mask and the live words), flags, R, N,
+    # iou_threshold (fp32); stream
+    "xdt_nms_suppress": [_P] * 3 + [_I] * 2 + [ctypes.c_float, _P],
 }
 
 

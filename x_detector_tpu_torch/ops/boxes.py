@@ -47,11 +47,11 @@ def ioa(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(inter))
 
 
-def clip_boxes(boxes: torch.Tensor, ymax: float = 1.0,
-               xmax: float = 1.0) -> torch.Tensor:
-    """Clip corner boxes into [0, ymax] x [0, xmax]."""
-    hi = boxes.new_tensor([ymax, xmax, ymax, xmax])
-    return torch.minimum(boxes.clamp_min(0.0), hi)
+def clip_boxes(boxes: torch.Tensor, bound: float = 1.0) -> torch.Tensor:
+    """Clip corner boxes into [0, bound] on both axes (every caller clips
+    normalised boxes into the unit square), the bound a scalar: a bounds
+    tensor made from a list on the card is a blocking copy, a host sync."""
+    return boxes.clamp(0.0, bound)
 
 
 def _center(boxes: torch.Tensor):

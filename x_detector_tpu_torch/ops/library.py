@@ -11,14 +11,20 @@ Every hand kernel is reached only through its operator:
   ``xdt::int8_dwconv``        K2
   ``xdt::int8_dwconv_q``      K2 quantizing its output as K3 does
   ``xdt::quantize_s8``        K3
-  ``xdt::self_suppress``      NMS's host-checked fixpoint (``ops/nms.py``;
-                              plain PyTorch on both devices, no kernel)
+  ``xdt::nms_suppress``       exact greedy NMS's suppressed flags
+                              (``ops/nms.py``: on the CPU the plain tile
+                              loop, on the card ``csrc/nms.cu``'s mask and
+                              scan kernels, no host sync)
+  ``xdt::self_suppress``      NMS's host-checked fixpoint of one tile, which
+                              the plain tile loop calls (plain PyTorch on
+                              both devices, no kernel)
   ==========================  ==========================================
 
 Each operator has a fake implementation (output shapes and dtypes, which
 ``torch.export`` traces through), a CPU implementation (the plain version),
-a CUDA one (the kernel's launch, which counts it) and, for a kernel, a FLOP
-formula (:func:`flop_formulas`, for ``utils/roofline.count``). The
+a CUDA one (the kernel's launch, which counts it) and, for a kernel that
+adds to the reference's FLOPs (all but NMS's), a FLOP formula
+(:func:`flop_formulas`, for ``utils/roofline.count``). The
 dispatcher picks the implementation from the tensors' device: a CUDA
 tensor always reaches the kernel, which launches or raises, and nothing
 falls back to the plain version. A graph exported from the model holds one
@@ -158,16 +164,27 @@ _define("quantize_s8(Tensor x, Tensor sx) -> Tensor", _quantize_fake,
 
 # ---- NMS --------------------------------------------------------------------
 
+def _nms_suppress_fake(boxes, iou_threshold):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
 def _self_suppress_fake(mask):
     return mask.new_empty(mask.shape[:2], dtype=torch.bool)
 
 
+_define("nms_suppress(Tensor boxes, float iou_threshold) -> Tensor",
+        _nms_suppress_fake, nms.suppress_plain, nms.suppress_cuda)
+# kept registered for programs exported before xdt::nms_suppress, whose
+# graphs name it; the plain tile loop calls it on the CPU
 _define("self_suppress(Tensor mask) -> Tensor", _self_suppress_fake,
         nms.self_suppress, nms.self_suppress)
 
 OPERATORS = ("psroi_align_fwd", "psroi_align_bwd", "fused_sepconv",
              "int8_conv", "int8_dwconv", "int8_dwconv_q", "quantize_s8",
-             "self_suppress")
+             "nms_suppress", "self_suppress")
+# the operators with no FLOP formula: NMS compares boxes and adds no FLOPs
+# to a model's count
+NO_FLOP_OPERATORS = ("nms_suppress", "self_suppress")
 
 
 # ---- FLOP formulas ----------------------------------------------------------
@@ -176,8 +193,8 @@ OPERATORS = ("psroi_align_fwd", "psroi_align_bwd", "fused_sepconv",
 # psroi_align.work, int8_conv.conv_work / depthwise_work / quantize_work),
 # as torch.utils.flop_counter.FlopCounterMode takes them: a formula gets
 # the operator's arguments with every tensor replaced by its shape, and the
-# output's shape (utils/roofline.count registers them). NMS's fixpoint is
-# no kernel and counts none.
+# output's shape (utils/roofline.count registers them). NMS's operators
+# (``NO_FLOP_OPERATORS``) count none.
 
 def _sepconv_flop(x, *args, out_shape, **kwargs) -> int:
     return int(fused_sepconv.work(*x, out_shape[-1], False)[0])
@@ -246,7 +263,8 @@ def kernel_wrappers() -> dict:
             "psroi_align_backward": psroi_align.psroi_align_backward,
             "int8_conv": int8_conv.int8_conv2d,
             "int8_dwconv": int8_conv.int8_depthwise_conv2d,
-            "quantize_s8": int8_conv.quantize_activation}
+            "quantize_s8": int8_conv.quantize_activation,
+            "nms_suppress": nms.nms_suppress}
 
 
 def launch_counts() -> dict:

@@ -6,15 +6,20 @@ pairs) and runs them together:
 
   1. Boxes below the score floor are zeroed and scored -1: a zero-area box
      has IoU 0 with everything, so it can neither suppress nor survive.
-  2. Tiles of ``TILE`` score-sorted boxes are walked in order. A tile is
-     suppressed against the surviving earlier boxes (suppressed ones were
-     zeroed, so they drop out), then against itself by the Gauss-Jacobi
-     fixpoint of ``S[t] = any_{j<t}(~S[j] & IoU[j,t] > thr)``. The recurrence
-     has a unique solution, so the fixpoint is exact sequential greedy NMS.
-     The fixpoint runs for all rows at once until no row changes: one host
-     sync per few iterations, not one per row. It is the operator
-     ``xdt::self_suppress`` (``ops/library.py``), so that an exported
-     program runs the same host-checked loop as eager code.
+  2. The suppressed flags of the score-sorted boxes come from one operator,
+     ``xdt::nms_suppress`` (``ops/library.py``): exact sequential greedy
+     NMS, a box suppressed when a kept box before it has IoU above the
+     threshold. Its CPU implementation is the plain version
+     (:func:`suppress_plain`): tiles of ``TILE`` boxes walked in order, a
+     tile suppressed against the surviving earlier boxes (suppressed ones
+     were zeroed, so they drop out), then against itself by the
+     Gauss-Jacobi fixpoint of ``S[t] = any_{j<t}(~S[j] & IoU[j,t] > thr)``,
+     whose unique solution is sequential greedy NMS. The fixpoint runs for
+     all rows at once until no row changes, one host sync per few
+     iterations (the operator ``xdt::self_suppress``). Its CUDA
+     implementation (:func:`suppress_cuda`, ``csrc/nms.cu``) is a bitmask
+     IoU kernel and a greedy scan on the card: no host sync, ``KERNELS``
+     launches.
   3. Survivors keep their scores, the rest get -1, and a stable descending
      sort keeps the first ``max_output``. Ties go to the lower index, as
      ``lax.top_k`` breaks them (``torch.topk`` gives no tie order on CUDA).
@@ -30,11 +35,19 @@ from typing import NamedTuple
 
 import torch
 
+from x_detector_tpu_torch import _build
 from x_detector_tpu_torch.ops import boxes as box_ops
-from x_detector_tpu_torch.utils import profiling
+from x_detector_tpu_torch.utils import profiling, roofline
 
 TILE = 128
 CHECK_EVERY = 4   # Jacobi steps between host checks for the fixpoint
+WORD = 64         # boxes a word of the CUDA implementation's bit mask
+MAX_BOXES = WORD * 32 * 8   # a row's words must fit the scan's registers
+KERNELS = 2       # launches a call of the CUDA implementation: mask, scan
+# fp32 operations of one pair's IoU and decision in the mask kernel: min,
+# max, subtract and clamp on each axis, the product, the union's add and
+# subtract, its max with EPS, the division and the comparison
+IOU_OPS = 14
 
 
 class NMSResult(NamedTuple):
@@ -84,6 +97,96 @@ self_suppress.calls = 0
 self_suppress.checks = 0
 
 
+def suppress_plain(boxes: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
+    """boxes [R, N, 4] fp32, each row in descending score order with its
+    invalid boxes zero -> the exact greedy suppressed flags [R, N] bool: the
+    CPU implementation of ``xdt::nms_suppress``.
+
+    Tiles of ``TILE`` boxes in order (the last may be shorter). One IoU of
+    the tile against the earlier survivors and itself: a box that an
+    earlier survivor suppresses is zeroed, so it has IoU 0 with everything,
+    and masking its row is the same as recomputing the IoU. Then the
+    tile's own fixpoint, ``xdt::self_suppress``, with its host checks."""
+    boxes = boxes.clone()
+    flags = torch.zeros(boxes.shape[:2], dtype=torch.bool,
+                        device=boxes.device)
+    tri = torch.ones(TILE, TILE, dtype=torch.bool,
+                     device=boxes.device).triu(1)     # j < t
+    for start in range(0, boxes.shape[1], TILE):
+        tile = boxes[:, start:start + TILE]
+        t = tile.shape[1]
+        over = box_ops.iou(tile, boxes[:, :start + t]) > iou_threshold
+        prev = over[..., :start].any(dim=-1)
+        mask = over[..., start:] & tri[:t, :t] & ~prev[..., None]
+        sup = torch.ops.xdt.self_suppress.default(mask) | prev
+        boxes[:, start:start + t] = torch.where(sup[..., None], 0.0, tile)
+        flags[:, start:start + t] = sup
+    return flags
+
+
+def suppress_cuda(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """``xdt::nms_suppress`` on a CUDA tensor: checks what the kernels take
+    (raising on anything else: there is no fallback), then the mask and
+    scan kernels of ``csrc/nms.cu`` on the current stream, with the
+    threshold in fp32, as PyTorch compares an fp32 IoU with a Python
+    float. The scratch (the mask, ``R * N * ceil(N / 64) * 8`` bytes, and a
+    word of live rows a block) is freed on return; the caching allocator
+    keeps it for the next call on the stream. No host sync. Adds
+    ``KERNELS`` to ``nms_suppress.launches``, one a kernel launched, as
+    the benchmark's trace counts kernels under the operator."""
+    if boxes.device.type != "cuda":
+        raise ValueError(f"nms_suppress: boxes on {boxes.device}; the CUDA "
+                         "implementation needs a CUDA tensor")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"nms_suppress: boxes must be fp32, got "
+                        f"{boxes.dtype}")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"nms_suppress: boxes must be [R, N, 4], got "
+                         f"{tuple(boxes.shape)}")
+    if not boxes.is_contiguous():
+        raise ValueError("nms_suppress: boxes must be contiguous")
+    rows, n = boxes.shape[:2]
+    if n > MAX_BOXES:
+        raise ValueError(f"nms_suppress: {n} boxes a row; the kernel takes "
+                         f"at most {MAX_BOXES}")
+    flags = torch.empty((rows, n), dtype=torch.bool, device=boxes.device)
+    if flags.numel() == 0:
+        return flags
+    words = -(-n // WORD)
+    scratch = torch.empty(rows * (n + 1) * words, dtype=torch.int64,
+                          device=boxes.device)
+    _build.launch("xdt_nms_suppress", "nms_suppress", boxes,
+                  boxes.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+                  rows, n, iou_threshold)
+    nms_suppress.launches += KERNELS
+    return flags
+
+
+def bound_ms(boxes: torch.Tensor):
+    """``roofline.bound_ms``'s (least ms, what binds) of exact NMS over
+    ``boxes`` [R, N, 4]: the boxes read and the flags written, against the
+    IoU of every pair of a row, ``R * N (N - 1) / 2`` pairs of ``IOU_OPS``
+    fp32 operations, each one instruction, at half the fp32 peak
+    (which counts an fma as two). The mask is the design's scratch, not
+    the function's work, and is not counted."""
+    rows, n = boxes.shape[:2]
+    ops = rows * n * (n - 1) / 2 * IOU_OPS
+    return roofline.bound_ms(ops, boxes.numel() * 4 + rows * n,
+                             roofline.FP32_FLOP_PER_S / 2)
+
+
+def nms_suppress(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The exact greedy suppressed flags [R, N] of score-sorted boxes
+    [R, N, 4] (invalid boxes zero): ``xdt::nms_suppress``, the plain
+    version on the CPU, the kernels on the card. ``launches`` counts the
+    CUDA implementation's kernels, ``KERNELS`` a call."""
+    return torch.ops.xdt.nms_suppress.default(boxes, float(iou_threshold))
+
+
+nms_suppress.launches = 0
+
+
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
                iou_threshold: float = 0.5, score_threshold: float = 0.0,
                presorted: bool = False) -> NMSResult:
@@ -96,33 +199,20 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
     if single:
         boxes, scores = boxes[None], scores[None]
     rows, n = scores.shape
-    n_pad = -(-n // TILE) * TILE
     keep = scores > score_threshold
     boxes = torch.where(keep[..., None], boxes, 0.0).float()
     scores = torch.where(keep, scores, -1.0).float()
-    if n_pad > n:
-        boxes = torch.nn.functional.pad(boxes, (0, 0, 0, n_pad - n))
-        scores = torch.nn.functional.pad(scores, (0, n_pad - n), value=-1.0)
     if not presorted:
         scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
         boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
 
-    tri = torch.ones(TILE, TILE, dtype=torch.bool,
-                     device=boxes.device).triu(1)     # j < t
-    for start in range(0, n_pad, TILE):
-        tile = boxes[:, start:start + TILE]
-        # One IoU against the earlier survivors and the tile itself. A box
-        # that an earlier survivor suppresses is zeroed, so it has IoU 0 with
-        # everything: masking its row is the same as recomputing the IoU.
-        over = box_ops.iou(tile, boxes[:, :start + TILE]) > iou_threshold
-        prev = over[..., :start].any(dim=-1)
-        mask = over[..., start:] & tri & ~prev[..., None]
-        sup = torch.ops.xdt.self_suppress.default(mask) | prev
-        boxes[:, start:start + TILE] = torch.where(sup[..., None], 0.0, tile)
+    boxes = boxes.contiguous()
+    sup = nms_suppress(boxes, iou_threshold)
+    boxes = torch.where(sup[..., None], 0.0, boxes)
 
     alive = (box_ops.area(boxes) > 0) & (scores > score_threshold)
     masked = torch.where(alive, scores, -1.0)
-    k = min(max_output, n_pad)
+    k = min(max_output, n)
     out_scores, top_idx = topk_stable(masked, k)
     out_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
     if k < max_output:
