@@ -1,10 +1,13 @@
 """The port's program spans (``utils/profiling.span``) on the CPU with a
 tiny Light-Head: none with the profiler off, each stage's span once a
 batch, step or microbatch under ``torch.profiler``, NMS's host checks
-counted as the program counts them, the spans nested inside the
-benchmark's hook ranges, and no span in an exported program."""
+counted as the program counts them, the data-parallel exchange's span once
+a step over two gloo ranks, the spans nested inside the benchmark's hook
+ranges, and no span in an exported program."""
 
 import json
+import pathlib
+import tempfile
 
 import pytest
 
@@ -23,6 +26,8 @@ from x_detector_tpu_torch.data.synthetic import (  # noqa: E402
 from x_detector_tpu_torch.inference import (  # noqa: E402
     ServingModule, build_eval_fn, build_model)
 from x_detector_tpu_torch.ops import nms  # noqa: E402
+from x_detector_tpu_torch.parallel import mesh  # noqa: E402
+from x_detector_tpu_torch.parallel import data_parallel  # noqa: E402
 from x_detector_tpu_torch.train.trainer import (  # noqa: E402
     create_model_and_state, make_train_step)
 from x_detector_tpu_torch.utils import profiling  # noqa: E402
@@ -146,6 +151,56 @@ def test_training_spans_once_a_microbatch(accum, tmp_path):
         assert _spans(w, name) == 2 * accum, name
     assert _spans(w, "nms.host_check") == checks
     assert checks >= nms.self_suppress.calls - calls >= 2 * accum * 2
+
+
+def _sync_rank(rank, world):
+    """One data-parallel step with ``record_function`` made to raise, then
+    two under the profiler: (the counters' moves in each, the ``xd/sync``
+    ranges of the profiled steps, their count a step as the benchmark
+    reads it)."""
+    torch.set_num_threads(1)
+    cfg = _cfg()
+    state = create_model_and_state(cfg, "cpu", seed=0, dtype=torch.float32)
+    step = data_parallel.make_dp_train_step(state.model, cfg)
+    gen = torch.Generator().manual_seed(0)
+    raw = synthetic_batch_device(gen, 2, 80, max_gt=cfg.data.max_gt_boxes)
+    counters = data_parallel.all_reduce_mean_
+
+    def one():
+        batch = preprocess_batch_for_train(gen, raw, cfg.data,
+                                           shard=(rank, world))
+        return step(state, batch, gen)
+
+    def moved(run):
+        calls, elements = counters.calls, counters.elements
+        out = run()
+        return (counters.calls - calls, counters.elements - elements), out
+
+    record = torch.profiler.record_function
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with the profiler "
+                             f"off")
+
+    torch.profiler.record_function = refuse
+    try:
+        off, _ = moved(one)
+    finally:
+        torch.profiler.record_function = record
+    with tempfile.TemporaryDirectory() as tmp:
+        on, w = moved(lambda: _profiled(one, 2, pathlib.Path(tmp)))
+    return off, on, _spans(w, "sync"), program_spans.count(w, "sync")
+
+
+def test_sync_span_once_a_step_over_two_ranks():
+    """``xd/sync`` once a data-parallel step under the profiler, no
+    ``record_function`` without it; the exchange's counters move one
+    all-reduce (one dtype) a step either way."""
+    off, on, spans, per_step = mesh.run_ranks(_sync_rank, 2, "gloo",
+                                              timeout_s=300)
+    assert off[0] == 1 and off[1] > 0
+    assert on == (2, 2 * off[1])
+    assert spans == 2 and per_step == 1.0
 
 
 def _inside(span, outer) -> bool:

@@ -19,6 +19,9 @@ flattened buffer per dtype: not ``DistributedDataParallel``, whose
 them and which would reduce once per microbatch under accumulation.
 The Light-Head's RPN draws are the rank's own: the caller hands each rank a
 generator seeded with the rank folded in (or the draws themselves).
+
+The whole exchange (flatten, all-reduce, division, copy back) is the span
+``xd/sync`` while the profiler records.
 """
 
 from __future__ import annotations
@@ -31,19 +34,27 @@ import torch.distributed as dist
 from x_detector_tpu_torch.models.layers import BatchNorm2D
 from x_detector_tpu_torch.parallel import mesh
 from x_detector_tpu_torch.train.trainer import Metrics, make_train_step
+from x_detector_tpu_torch.utils import profiling
 
 
 def all_reduce_mean_(tensors: List[torch.Tensor], group=None) -> None:
     """Average ``tensors`` in place over the group's ranks: one flattened
     buffer per dtype, one all-reduce (sum) each, then a division by the
-    rank count."""
+    rank count. Each all-reduce adds one to ``all_reduce_mean_.calls`` and
+    its buffer's length to ``all_reduce_mean_.elements``."""
     world = dist.get_world_size(group)
 
     def mean(flat: torch.Tensor) -> None:
+        all_reduce_mean_.calls += 1
+        all_reduce_mean_.elements += flat.numel()
         dist.all_reduce(flat, group=group)
         flat.div_(world)
 
     mesh.flat_collective_(tensors, mean)
+
+
+all_reduce_mean_.calls = 0
+all_reduce_mean_.elements = 0
 
 
 def make_sync(model: torch.nn.Module,
@@ -56,10 +67,12 @@ def make_sync(model: torch.nn.Module,
              for t in (m.running_mean, m.running_var)]
 
     def sync(metrics: Metrics) -> Metrics:
-        names = sorted(metrics)
-        values = torch.stack([metrics[k].float() for k in names])
-        all_reduce_mean_([p.grad for p in params] + stats + [values], group)
-        return dict(zip(names, values.unbind()))
+        with profiling.span("sync"):
+            names = sorted(metrics)
+            values = torch.stack([metrics[k].float() for k in names])
+            all_reduce_mean_([p.grad for p in params] + stats + [values],
+                             group)
+            return dict(zip(names, values.unbind()))
 
     return sync
 
