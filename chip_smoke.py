@@ -13,8 +13,8 @@ Phases; each raises on failure and the script then exits non-zero:
                 PSROIAlign's backward, which must also give the same bits
                 twice), with the tolerance stated; both timed with CUDA
                 events, beside each kernel's bound (utils/roofline.py) and,
-                for B2 at config 3's shapes, its first design (the "wmma"
-                route) and the unfused cuDNN pair as yardsticks.
+                for B2 at config 3's shapes, the unfused cuDNN pair as a
+                yardstick.
                 B1's forward runs at config 3's R = 512, config 4's R =
                 1000 and config 1's B = 1 (held to the plain version run on
                 the CPU), each also timed by the profiler's device time of the
@@ -465,7 +465,6 @@ def phase_build() -> float:
 
 def phase_kernels() -> list:
     from x_detector_tpu_torch.ops import psroi_align as pa
-    from x_detector_tpu_torch.psroi_bwd_variants import ohem_shaped
     from x_detector_tpu_torch.utils.profiling import device_ms
     fwd_device_ms = lambda fn: device_ms(fn, 50, keep="psroi")
     torch.backends.cudnn.allow_tf32 = False
@@ -476,8 +475,7 @@ def phase_kernels() -> list:
 
     b2 = time_b2(B2_SHAPES, BATCH, randn, yardsticks=True)
     log(f"B2 per batch of config 3 (14 calls): kernel {b2['ms']:.4f} ms, "
-        f"first design (wmma route) {b2['wmma_ms']:.4f} ms, plain "
-        f"{b2['plain_ms']:.4f} ms, unfused cuDNN yardstick "
+        f"plain {b2['plain_ms']:.4f} ms, unfused cuDNN yardstick "
         f"{b2['cudnn_ms']:.4f} ms, bound {b2['bound_ms']:.4f} ms "
         f"({b2['bound_ms'] / b2['ms']:.1%} of it)")
     # B1's forward at config 3 (512 proposals per image) and config 4
@@ -518,7 +516,8 @@ def phase_kernels() -> list:
     # step's, where OHEM leaves ohem_topk = 256 non-zero rows per image
     g = randn(BATCH, r, grid, grid, c)
     bwd_err, bwd_ms = 0.0, {}
-    for tag, grad in (("dense", g), ("OHEM-shaped", ohem_shaped(gen, g)[0])):
+    for tag, grad in (("dense", g),
+                      ("OHEM-shaped", pa.ohem_shaped(gen, g)[0])):
         bwd = lambda: pa.psroi_align_backward(grad, rois, size, size,
                                               torch.bfloat16, grid)
         got, again = bwd(), bwd()
@@ -589,7 +588,6 @@ def phase_kernels() -> list:
          "max_abs_err": b2["err"], "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
          "bound_by": b2["by"], "library_ms": None,
-         "previous_design_ms": b2["wmma_ms"],
          "unfused_cudnn_yardstick_ms": b2["cudnn_ms"],
          "xdet_ms": xdet["ms"], "xdet_plain_ms": xdet["plain_ms"],
          "xdet_bound_ms": xdet["bound_ms"], "xdet_bound_by": xdet["by"],
@@ -623,15 +621,14 @@ def phase_kernels() -> list:
 def time_b2(shapes, batch: int, randn, yardsticks: bool) -> dict:
     """Kernel B2 at each of ``shapes`` (H, W, Cin, Cout, d, calls without
     residual, calls with it) and ``batch``: held to the plain version within
-    B2_REL_TOL of the output's scale on the "tma" route (and, with
-    ``yardsticks``, on the "wmma" route), then timed beside its bound, the
-    plain version and, with ``yardsticks``, the first design and the
-    unfused cuDNN pair. Returns the per-batch sums, weighted by the calls,
+    B2_REL_TOL of the output's scale, then timed beside its bound, the
+    plain version and, with ``yardsticks``, the unfused cuDNN pair. Returns
+    the per-batch sums, weighted by the calls,
     the worst error, and "by": the resource behind the larger part of the
     summed bound, since the shapes mix bytes-bound and operations-bound
     calls."""
     from x_detector_tpu_torch.ops import fused_sepconv as fs
-    tot = dict.fromkeys(("ms", "wmma_ms", "plain_ms", "cudnn_ms",
+    tot = dict.fromkeys(("ms", "plain_ms", "cudnn_ms",
                          "bound_ms", "bytes_bound_ms", "err"), 0.0)
     for h, w, cin, cout, d, n_plain, n_res in shapes:
         x = randn(batch, h, w, cin).to(torch.bfloat16)
@@ -640,51 +637,35 @@ def time_b2(shapes, batch: int, randn, yardsticks: bool) -> dict:
         scale = 1.0 + 0.1 * randn(cout)
         bias = 0.1 * randn(cout)
         res = randn(batch, h, w, cout).to(torch.bfloat16)
-        routes = fs.ROUTES if yardsticks else ("tma",)
-        ops = {route: fs.prepare_weights(wd, wp, scale, bias, route=route)
-               for route in routes}
+        ops = fs.prepare_weights(wd, wp, scale, bias)
         for residual, calls in ((None, n_plain), (res, n_res)):
             if not calls:
                 continue
             kw = dict(dilation=d, relu=True, residual=residual)
             tag = (f"B2 fused_sepconv [{batch},{h},{w}] {cin}->{cout} d={d} "
                    f"residual={residual is not None}")
-            before = dict(fs.fused_separable_conv.route_launches)
+            before = fs.fused_separable_conv.launches
             got = fs.fused_separable_conv(x, wd, wp, scale, bias, **kw)
-            if fs.fused_separable_conv.route_launches["tma"] != (
-                    before["tma"] + 1):
-                raise AssertionError(f"{tag}: did not take the tma route")
+            if fs.fused_separable_conv.launches != before + 1:
+                raise AssertionError(f"{tag}: did not launch the kernel")
             ref = fs.reference_separable_conv(x, wd, wp, scale, bias, **kw)
-            outs = {"tma": got}
-            if yardsticks:
-                outs["wmma"] = fs.fused_separable_conv_prepared(
-                    x, ops["wmma"], **kw)
             torch.cuda.synchronize()
-            errs = {route: max_rel_err(out, ref) for route, out in
-                    outs.items()}
-            err, sc = errs["tma"]
-            worst = max(e for e, _ in errs.values())
-            if not worst <= B2_REL_TOL * sc:
-                raise AssertionError(f"{tag}: max abs err by route "
-                                     f"{ {k: v[0] for k, v in errs.items()} }"
-                                     f" > {B2_REL_TOL} x scale {sc:.3g}")
+            err, sc = max_rel_err(got, ref)
+            if not err <= B2_REL_TOL * sc:
+                raise AssertionError(f"{tag}: max abs err {err:.3g} > "
+                                     f"{B2_REL_TOL} x scale {sc:.3g}")
             t = {"ms": cuda_ms(lambda: fs.fused_separable_conv_prepared(
-                     x, ops["tma"], **kw)),
+                     x, ops, **kw)),
                  "plain_ms": cuda_ms(lambda: fs.reference_separable_conv(
                      x, wd, wp, scale, bias, **kw))}
             if yardsticks:
-                t["wmma_ms"] = cuda_ms(
-                    lambda: fs.fused_separable_conv_prepared(
-                        x, ops["wmma"], **kw))
                 t["cudnn_ms"] = cuda_ms(unfused_cudnn(x, wd, wp, scale, bias,
                                                       **kw))
             bound, by = fs.bound_ms(batch, h, w, cin, cout,
                                     residual is not None)
             flop = 2.0 * batch * h * w * cin * (9 + cout)
-            extra = (f"; first design (wmma route) {t['wmma_ms']:.4f} ms "
-                     f"(max abs err {errs['wmma'][0]:.3g}); yardstick, "
-                     f"unfused cuDNN pair + epilogue (several calls, not "
-                     f"used by the port) {t['cudnn_ms']:.4f} ms"
+            extra = (f"; yardstick, unfused cuDNN pair + epilogue (several "
+                     f"calls, not used by the port) {t['cudnn_ms']:.4f} ms"
                      if yardsticks else "")
             log(f"{tag}: max abs err {err:.3g} (scale {sc:.3g}); kernel "
                 f"{t['ms']:.4f} ms ({flop / t['ms'] / 1e9:.1f} TFLOP/s), "
@@ -695,7 +676,7 @@ def time_b2(shapes, batch: int, randn, yardsticks: bool) -> dict:
             if by == "bytes":
                 tot["bytes_bound_ms"] += calls * bound
             tot["err"] = max(tot["err"], err)
-            del got, ref, outs
+            del got, ref
     tot["by"] = ("bytes" if tot["bytes_bound_ms"] * 2 >= tot["bound_ms"]
                  else "operations")
     return tot
@@ -892,8 +873,8 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     wide, the canvas by default) -> preprocess_for_eval -> build_eval_fn,
     one warm-up batch then ``batches`` timed ones, on ``model`` (by default
     ``slice_model``'s). Returns every kernel's launch count over all of
-    them (and B2's by route; with ``backbone_quant`` also the int8
-    kernels', and K1's by route, ``int8_routes``; and ``suppress``, exact
+    them (with ``backbone_quant`` also the int8 kernels', and K1's by
+    route, ``int8_routes``; and ``suppress``, exact
     NMS's suppressions, ``suppress_counts``), what the model should give (B2
     a fused block a batch, B1's forward one a batch for Light-Head, B1's
     backward none, exact NMS's kernels ``nms_launches``; K1 a dense
@@ -903,7 +884,6 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     and those images (``u8``)."""
     from x_detector_tpu_torch.data.augment import preprocess_for_eval
     from x_detector_tpu_torch.inference import build_eval_fn
-    from x_detector_tpu_torch.ops import fused_sepconv as fs
     device = torch.device(device)
     if model is None:
         model = slice_model(cfg.model, device, seed)
@@ -939,7 +919,6 @@ def run_slice(cfg, device, batches: int = SLICE_BATCHES,
     if cfg.model.backbone_quant is not None:
         expected.update({k: v * n for k, v in int8_calls(model).items()})
     return {"launches": launches, "batches": n, "suppress": suppress,
-            "routes": dict(fs.fused_separable_conv.route_launches),
             **({"int8_routes": dict(q8.int8_conv2d.route_launches),
                 "dw_routes": dict(q8.int8_depthwise_conv2d.route_launches),
                 "dw_modes": dict(q8.int8_depthwise_conv2d.mode_launches)}
@@ -988,8 +967,7 @@ def suppress_counts(model):
 
 def check_slice(tag: str, res: dict, per_batch: dict) -> None:
     """Fails unless the model gives ``per_batch`` launches of each kernel a
-    batch, the path launched exactly that many, and every B2 launch took
-    the "tma" route."""
+    batch and the path launched exactly that many."""
     want = {name: v * res["batches"] for name, v in per_batch.items()}
     if res["expected"] != want:
         raise AssertionError(f"{tag} should launch {per_batch} a batch; the "
@@ -998,17 +976,14 @@ def check_slice(tag: str, res: dict, per_batch: dict) -> None:
     if res["launches"] != want:
         raise AssertionError(f"{tag}: launches {res['launches']} on the main"
                              f" path, expected {want}")
-    if res["routes"] != {"tma": want["fused_sepconv"], "wmma": 0}:
-        raise AssertionError(f"{tag}: every B2 call must take the tma route;"
-                             f" the routes were {res['routes']}")
 
 
 def report_slice(tag: str, res: dict, batch: int) -> None:
     secs = res["seconds"]
     mean = sum(secs) / len(secs)
     n_valid = int(res["detections"][3].sum().item())
-    log(f"{tag}, batch {batch}: launches {res['launches']} (B2 by route "
-        f"{res['routes']}) over {res['batches']} batches; batch times "
+    log(f"{tag}, batch {batch}: launches {res['launches']} over "
+        f"{res['batches']} batches; batch times "
         f"{[round(t * 1e3, 2) for t in secs]} ms, mean {mean * 1e3:.2f} ms = "
         f"{batch / mean:.1f} images/s; peak memory "
         f"{res['peak'] / 2**30:.2f} GiB; "
@@ -1103,7 +1078,7 @@ def path_counters(int8: bool = True) -> dict:
 
 def reset_counters(counters, device=None) -> None:
     """After a sync on ``device`` (a card), every count of ``counters``
-    and B2's and the int8 kernels' counts by route and mode back to 0."""
+    and the int8 kernels' counts by route and mode back to 0."""
     from x_detector_tpu_torch.ops import fused_sepconv as fs
     from x_detector_tpu_torch.ops import int8_conv as q8
     if device is not None and torch.device(device).type == "cuda":

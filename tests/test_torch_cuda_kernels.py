@@ -20,10 +20,9 @@ torch = pytest.importorskip("torch")
 from x_detector_tpu_torch.config import lighthead_xception  # noqa: E402
 from x_detector_tpu_torch.inference import build_model  # noqa: E402
 from x_detector_tpu_torch.models.layers import (  # noqa: E402
-    prepare_for_inference)
+    SeparableConvBN, prepare_for_inference)
 from x_detector_tpu_torch.ops import fused_sepconv as F  # noqa: E402
 from x_detector_tpu_torch.ops import psroi_align as P  # noqa: E402
-from x_detector_tpu_torch.psroi_bwd_variants import ohem_shaped  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +52,6 @@ def _sepconv_args(gen, b, h, w, cin, cout, d, res):
 
 @pytest.mark.parametrize("b,h,w,cin,cout,d,res", [
     (2, 16, 11, 8, 16, 1, False),       # Cin, Cout below one chunk / slice
-    (1, 7, 5, 40, 130, 2, True),        # odd H/W, Cout % 8 != 0: wmma route
     (2, 9, 9, 64, 256, 2, True),
     (1, 1, 1, 32, 128, 1, False),       # every tap but the centre is padding
     # config 3's shape families, at batch 1-2
@@ -68,7 +66,7 @@ def _sepconv_args(gen, b, h, w, cin, cout, d, res):
     (1, 50, 50, 1024, 1024, 2, True),
     (1, 37, 53, 64, 96, 1, True),       # tiles ragged in H and W and Cout
     (2, 13, 29, 72, 24, 2, False),      # halos across both images' edges
-    (1, 20, 20, 1536, 256, 1, True),    # Cin above the wmma route's 1088
+    (1, 20, 20, 1536, 256, 1, True),    # 24 chunks of Cin
     # xdet_xception's stage shapes at 512 px: stage 4 at stride 32, d = 1,
     # the last at its batch of 8 (fewer work units than SMs)
     (1, 128, 128, 128, 128, 1, True),
@@ -79,18 +77,15 @@ def _sepconv_args(gen, b, h, w, cin, cout, d, res):
 ])
 def test_fused_sepconv_kernel_matches_plain(dev, b, h, w, cin, cout, d, res):
     """bf16 output: one bf16 step (2^-8 relative) apart at most, from fp32
-    sums taken in another order; held to 1e-2 of the output's scale. Each
-    call takes the route its channel counts give."""
+    sums taken in another order; held to 1e-2 of the output's scale. One
+    launch a call."""
     gen = torch.Generator(device=dev).manual_seed(0)
     args, kw = _sepconv_args(gen, b, h, w, cin, cout, d, res)
-    route = F.route_for(cin, cout)
     before = F.fused_separable_conv.launches
-    by_route = dict(F.fused_separable_conv.route_launches)
     got = F.fused_separable_conv(*args, **kw)
     ref = F.reference_separable_conv(*args, **kw)
     torch.cuda.synchronize()
     assert F.fused_separable_conv.launches == before + 1
-    assert F.fused_separable_conv.route_launches[route] == by_route[route] + 1
     assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, cout)
     scale = max(1.0, ref.float().abs().max().item())
     assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * scale
@@ -104,18 +99,32 @@ def test_fused_sepconv_ragged_shapes_are_ragged(dev):
     assert 13 % p.th or 29 % p.tw
 
 
-def test_fused_sepconv_wmma_route_matches_plain_at_a_config_shape(dev):
-    """The first design, asked for explicitly, at stage 3's shape."""
-    gen = torch.Generator(device=dev).manual_seed(1)
-    args, kw = _sepconv_args(gen, 2, 50, 50, 512, 512, 1, True)
-    before = F.fused_separable_conv.route_launches["wmma"]
-    got = F.fused_separable_conv_prepared(
-        args[0], F.prepare_weights(*args[1:], route="wmma"), **kw)
-    ref = F.reference_separable_conv(*args, **kw)
+@pytest.mark.parametrize("cin,cout", [(40, 130), (130, 40)])
+def test_fused_sepconv_odd_width_block_runs_unfused(dev, cin, cout):
+    """An eval block with the fused flag whose Cin or Cout is not a
+    multiple of 8 launches no B2 on the card and gives the bits of the
+    same block built unfused; the operator refuses the width."""
+    torch.manual_seed(1)
+    fused = SeparableConvBN(cin, cout, dilation=(2, 2), fused=True).to(dev)
+    fused.bn.running_mean.uniform_(-0.2, 0.2)
+    fused.bn.running_var.uniform_(0.5, 1.5)
+    unfused = SeparableConvBN(cin, cout, dilation=(2, 2)).to(dev).eval()
+    unfused.load_state_dict(fused.state_dict())
+    prepare_for_inference(fused.eval())
+    assert not fused.takes_fused_route and fused.fused_wp is None
+    x = torch.randn(1, cin, 7, 5, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    before = F.fused_separable_conv.launches
+    with torch.inference_mode():
+        got, want = fused(x), unfused(x)
     torch.cuda.synchronize()
-    assert F.fused_separable_conv.route_launches["wmma"] == before + 1
-    scale = max(1.0, ref.float().abs().max().item())
-    assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * scale
+    assert F.fused_separable_conv.launches == before
+    assert torch.equal(got, want)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    args, kw = _sepconv_args(gen, 1, 7, 5, cin, cout, 2, True)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        F.fused_separable_conv(*args, **kw)
+    assert F.fused_separable_conv.launches == before
 
 
 def test_fused_sepconv_kernel_is_bitwise_deterministic(dev):
@@ -364,7 +373,7 @@ def test_psroi_backward_kernel_ohem_shaped_gradient(dev, dtype):
     gen = torch.Generator(device=dev).manual_seed(8)
     b, r, keep = 2, 1000, 256
     rois = _rois(gen, b, r, dev)
-    g, kept = ohem_shaped(gen, _rand(gen, b, r, 7, 7, 10), keep)
+    g, kept = P.ohem_shaped(gen, _rand(gen, b, r, 7, 7, 10), keep)
     got = P.psroi_align_backward(g, rois, 50, 50, dtype, 7)
     ref = P.psroi_align_backward_reference(g, rois, 50, 50, dtype, 7)
     _assert_backward_close(got, ref, dtype)

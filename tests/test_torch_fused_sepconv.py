@@ -102,8 +102,8 @@ def test_module_fused_matches_jax_module(dilation):
     import jax
     rng = np.random.default_rng(3)
     x = rng.normal(0, 1, (2, 12, 12, 8)).astype(np.float32)
-    res = rng.normal(0, 1, (2, 12, 12, 12)).astype(np.float32)
-    jmod = jax_layers.SeparableConvBN(12, dilation=(dilation, dilation),
+    res = rng.normal(0, 1, (2, 12, 12, 16)).astype(np.float32)
+    jmod = jax_layers.SeparableConvBN(16, dilation=(dilation, dilation),
                                       relu=False, fused=True,
                                       dtype=jnp.float32)
     variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
@@ -113,7 +113,7 @@ def test_module_fused_matches_jax_module(dilation):
         variables)
     ref = np.asarray(jmod.apply(variables, jnp.asarray(x), train=False,
                                 residual=jnp.asarray(res)))
-    mod = SeparableConvBN(8, 12, dilation=(dilation, dilation), relu=False,
+    mod = SeparableConvBN(8, 16, dilation=(dilation, dilation), relu=False,
                           fused=True, dtype=torch.float32).eval()
     mod.load_state_dict(from_jax_variables(variables))
     mod.prepare_for_inference()
@@ -121,7 +121,7 @@ def test_module_fused_matches_jax_module(dilation):
         xt = torch.from_numpy(x).permute(0, 3, 1, 2)
         rt = torch.from_numpy(res).permute(0, 3, 1, 2)
         got = mod(xt, residual=rt).permute(0, 2, 3, 1).numpy()
-        unfused = SeparableConvBN(8, 12, dilation=(dilation, dilation),
+        unfused = SeparableConvBN(8, 16, dilation=(dilation, dilation),
                                   relu=False, dtype=torch.float32).eval()
         unfused.load_state_dict(mod.state_dict())
         got_unfused = unfused(xt, residual=rt).permute(0, 2, 3, 1).numpy()
@@ -145,7 +145,7 @@ def test_wrapper_rejects_non_cuda_device_without_fallback(monkeypatch):
                               for k in ("wd", "wp", "scale", "bias")))
     with pytest.raises(ValueError, match="CUDA"):
         F.launch_cuda(torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16),
-                      *ops[:4], None, 1, True, ops.route)
+                      *ops, None, 1, True, F.ROUTE)
     assert F.fused_separable_conv.launches == 0
 
 
@@ -166,7 +166,7 @@ def test_tma_plan_fits_one_block_per_sm(h, w, cin, cout, d):
     assert p.smem_bytes <= 232448 and 2 <= p.stages <= F.MAX_STAGES
     assert p.th * p.tw <= F.ROWS and p.bn in (F.BN, 2 * F.BN)
     assert p.grid == min(p.units, 132)
-    assert F.route_for(cin, cout) == "tma"
+    assert F.takes(cin, cout)
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout,d", [
@@ -240,19 +240,28 @@ def test_plan_constants_mirror_the_kernel_source():
 
 
 def test_tma_route_takes_only_channel_counts_that_tma_can_address():
-    assert F.route_for(128, 128) == "tma"
-    assert F.route_for(40, 130) == F.route_for(12, 16) == "wmma"
-    a = _inputs(0, 1, 4, 4, 8, 12)
+    """The kernel takes Cin and Cout that are multiples of 8; its CUDA
+    implementation refuses other widths before anything else."""
+    assert F.takes(128, 128) and F.takes(8, 16)
+    assert not F.takes(40, 130) and not F.takes(12, 16)
+    assert not F.takes(130, 40)
+    a = {k: torch.from_numpy(v) for k, v in _inputs(0, 1, 4, 4, 12, 16)
+         .items()}
+    ops = F.prepare_weights(a["wd"], a["wp"], a["scale"], a["bias"])
     with pytest.raises(ValueError, match="multiples of 8"):
-        F.prepare_weights(*(torch.from_numpy(a[k]) for k in
-                            ("wd", "wp", "scale", "bias")), route="tma")
+        F.launch_cuda(a["x"].bfloat16(), *ops, None, 1, True, F.ROUTE)
+    assert F.fused_separable_conv.launches == 0
 
 
-def test_prepared_weights_on_the_cpu_take_the_plain_version():
-    a = {k: torch.from_numpy(v) for k, v in _inputs(4, 2, 6, 7, 8, 16).items()}
+@pytest.mark.parametrize("cin,cout", [(8, 16), (24, 40), (40, 130)])
+def test_prepared_weights_on_the_cpu_take_the_plain_version(cin, cout):
+    """``wp`` is [Cout, Cin] for every width, and the operator's plain
+    version on the prepared operands is the plain function itself."""
+    a = {k: torch.from_numpy(v)
+         for k, v in _inputs(4, 2, 6, 7, cin, cout).items()}
     ops = F.prepare_weights(a["wd"], a["wp"], a["scale"], a["bias"],
                             dtype=torch.float32)
-    assert ops.route == "tma" and ops.wp.shape == (16, 8)
+    assert ops.wp.shape == (cout, cin) and torch.equal(ops.wp, a["wp"].t())
     assert ops.wp.dtype == torch.float32 and ops.wp.is_contiguous()
     got = F.fused_separable_conv_prepared(a["x"], ops, dilation=2,
                                           residual=a["residual"])
@@ -314,6 +323,48 @@ def test_module_caches_fused_operands_per_weight_version():
         unfused = SeparableConvBN(8, 16, dtype=torch.float32).eval()
         unfused.load_state_dict(mod.state_dict())
         torch.testing.assert_close(got, unfused(x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout", [(40, 130), (12, 16), (130, 40)])
+def test_block_of_a_width_the_kernel_does_not_take_runs_unfused(cin, cout):
+    """An eval block with the fused flag whose Cin or Cout is not a
+    multiple of 8 takes the unfused route: it holds no fused operands once
+    prepared and gives the bits of the same block built unfused."""
+    torch.manual_seed(cin + cout)
+    mod = SeparableConvBN(cin, cout, fused=True, dtype=torch.float32).eval()
+    mod.bn.running_mean.uniform_(-0.2, 0.2)
+    mod.bn.running_var.uniform_(0.5, 1.5)
+    assert not mod.takes_fused_route
+    mod.prepare_for_inference()
+    assert all(getattr(mod, name) is None for name in
+               ("fused_wd", "fused_wp", "fused_scale", "fused_bias"))
+    unfused = SeparableConvBN(cin, cout, dtype=torch.float32).eval()
+    unfused.load_state_dict(mod.state_dict())
+    x = torch.randn(2, cin, 5, 6)
+    with torch.inference_mode():
+        assert torch.equal(mod(x), unfused(x))
+
+
+def test_operator_schema_keeps_its_route_argument():
+    """``xdt::fused_sepconv`` is registered as programs exported with it
+    name it, trailing ``str route`` included; every implementation takes
+    only the one kernel's route and names the retired design otherwise."""
+    assert str(torch.ops.xdt.fused_sepconv.default._schema) == (
+        "xdt::fused_sepconv(Tensor x, Tensor wd, Tensor wp, Tensor scale, "
+        "Tensor bias, Tensor? residual, int dilation, bool relu, str route)"
+        " -> Tensor")
+    a = {k: torch.from_numpy(v) for k, v in _inputs(1, 1, 4, 4, 8, 16)
+         .items()}
+    ops = F.prepare_weights(a["wd"], a["wp"], a["scale"], a["bias"],
+                            dtype=torch.float32)
+    for device in ("cpu", "meta"):
+        args = [t.to(device) for t in (a["x"], *ops)]
+        op = torch.ops.xdt.fused_sepconv.default
+        assert op(*args, None, 1, True, "tma").shape == (1, 4, 4, 16)
+        with pytest.raises(ValueError, match="first design was retired"):
+            op(*args, None, 1, True, "wmma")
+    with pytest.raises(ValueError, match="first design was retired"):
+        F.launch_cuda(a["x"].bfloat16(), *ops, None, 1, True, "wmma")
 
 
 def test_unfused_cudnn_yardstick_computes_the_same_function():

@@ -426,6 +426,16 @@ def test_kernel_sources_use_no_atomic_add():
         assert "atomicAdd" not in path.read_text(), path.name
 
 
+def test_kernel_sources_compile_no_measurement_switches():
+    """The hand kernels compile one way: no source leaves code in or out
+    on a switch of its own (an ``XDT_`` macro)."""
+    sources = sorted((ROOT / "x_detector_tpu_torch" / "csrc").glob("*"))
+    assert sources
+    switch = re.compile(r"^\s*#\s*(if|ifdef|ifndef|elif)\b.*\bXDT_", re.M)
+    for path in sources:
+        assert not switch.search(path.read_text()), path.name
+
+
 def _thin_ssd_train(chip_smoke, preset, image_size):
     cfg = chip_smoke.ssd_train_config(preset, image_size, batch_size=2)
     return dataclasses.replace(cfg, model=dataclasses.replace(

@@ -37,10 +37,8 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (every entry returns a cudaError_t)
 SIGNATURES = {
     # x, wd, wp, scale, bias, residual (or NULL), out,
-    # B, H, W, Cin, Cout, dilation, relu, stream
-    "xdt_fused_sepconv_wmma": [_P] * 7 + [_I] * 7 + [_P],
-    # the same, then the plan: th, tw, stages, smem_bytes, bn, grid;
-    # stream
+    # B, H, W, Cin, Cout, dilation, relu, then the plan: th, tw, stages,
+    # smem_bytes, bn, grid; stream
     "xdt_fused_sepconv_tma": [_P] * 7 + [_I] * 13 + [_P],
     # features, rois, out, features_are_bf16,
     # B, H, W, R, grid, C, samples, then the plan: threads, rois per block,

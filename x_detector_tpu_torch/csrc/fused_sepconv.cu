@@ -11,8 +11,8 @@
 // What bounds it (batch 16, 800 px, config 3's 14 calls): stages 1-3 are
 // bound by HBM (x, out and the residual cross it once: 82-492 MB a call at
 // 3.35 TB/s), stage 4 (1024 channels, d = 2) by the tensor cores (42-85
-// GFLOP a call at 989 TFLOP/s). The first design (fused_sepconv_wmma.cu)
-// reached neither: it read every tap 9 times from L1/L2, ran its depthwise
+// GFLOP a call at 989 TFLOP/s). The first design (since retired) reached
+// neither: it read every tap 9 times from L1/L2, ran its depthwise
 // and product phases one after the other behind block barriers with one
 // block per SM, re-read all of wp per 64 pixels and used WMMA fragments.
 // This one reaches neither either: its depthwise, 9 fp32 FMAs and 9
@@ -57,11 +57,6 @@
 // (with 640 threads ptxas gave 96 registers a thread and spilled), and
 // clusters that share a tile's depthwise through distributed shared memory
 // (the per-chunk hand-over across CTAs costs more than it saves).
-//
-// Three compile-time switches, off in the library, leave parts out for the
-// measurements of sepconv_variants.py: XDT_SKIP_DEPTHWISE (A keeps what it
-// held), XDT_SKIP_PRODUCTS (one k-step of the first chunk only) and
-// XDT_ONE_TAP_ROW (one of the three tap rows read, the others derived).
 //
 // The mbarrier, TMA and wgmma helpers and the CUDA driver's tensor-map
 // encoder are shared with int8_conv_tma.cu (hopper.cuh). The host
@@ -317,7 +312,6 @@ sepconv_tma_kernel(const __grid_constant__ CUtensorMap x_map,
       // depthwise of chunk kc -> A (bf16), by column planes: y = plane[1] +
       // plane[0] + plane[2]; the product of chunk kc - 1 is still running
       // on the tensor cores
-#ifndef XDT_SKIP_DEPTHWISE
       float y[4][8];
 #pragma unroll
       for (int c3 = 0; c3 < 3; ++c3) {
@@ -338,17 +332,10 @@ sepconv_tma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           uint4 v[3];
-#ifndef XDT_ONE_TAP_ROW
 #pragma unroll
           for (int ti = 0; ti < 3; ++ti)
             v[ti] = *reinterpret_cast<const uint4*>(
                 st + pix_off[q] + ti * row_step + jj * col_step);
-#else
-          v[0] = *reinterpret_cast<const uint4*>(st + pix_off[q] +
-                                                 jj * col_step);
-          v[1] = make_uint4(v[0].y, v[0].z, v[0].w, v[0].x);
-          v[2] = make_uint4(v[0].w, v[0].x, v[0].y, v[0].z);
-#endif
           float plane[8];
 #pragma unroll
           for (int i = 0; i < 8; ++i) plane[i] = 0.0f;
@@ -374,7 +361,6 @@ sepconv_tma_kernel(const __grid_constant__ CUtensorMap x_map,
         *reinterpret_cast<uint4*>(A + a_off[q]) = make_uint4(
             pack_bf16(y[q][0], y[q][1]), pack_bf16(y[q][2], y[q][3]),
             pack_bf16(y[q][4], y[q][5]), pack_bf16(y[q][6], y[q][7]));
-#endif
       fence_async_shared();
       named_barrier(1 + wg, 128);     // this warpgroup's A half is written
       if (t == 0) mbar_arrive(bar(BAR_EMPTY_H + s));   // done with the halo
@@ -383,12 +369,8 @@ sepconv_tma_kernel(const __grid_constant__ CUtensorMap x_map,
       wgmma_fence();
       const uint64_t da = sw128_desc(smem_u32(A));
       const uint64_t db = sw128_desc(smem_u32(st + wp_off));
-#ifndef XDT_SKIP_PRODUCTS
 #pragma unroll
       for (int ks = 0; ks < KC / 16; ++ks)     // +32 bytes of K per step
-#else
-      for (int ks = 0; ks < (kc == 0); ++ks)
-#endif
 #pragma unroll
         for (int h = 0; h < NACC; ++h)         // + 128 rows of wp^T each
           wgmma_m64n128k16(acc[h], da + 2 * ks,

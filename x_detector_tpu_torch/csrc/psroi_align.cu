@@ -19,8 +19,8 @@
 // selector-matmul layout exists only to feed the MXU and is not carried
 // over: this is the direct gather.
 //
-// What bounded the first design (one thread an output element;
-// psroi_fwd_variants.py on an H100): not HBM (39.2 MB of map in and 16 MB
+// What bounded the first design (one thread an output element; measured
+// on an H100): not HBM (39.2 MB of map in and 16 MB
 // out at config 3, 0.0165 ms) but issue. Each thread decoded its index with
 // 64-bit divisions, and every thread of a roi recomputed the same sample
 // coordinates (four IEEE divisions a sample) and 64-bit addresses: with its
@@ -55,12 +55,6 @@
 // would be ~22 TB/s if L1 served none of it. Reading each distinct pixel of
 // a bin once (a table of distinct rows and columns with summed weights)
 // cost more issue than the reads it saved, and was dropped.
-//
-// Switches for psroi_fwd_variants.py's measurements, each giving wrong
-// results on purpose: XDT_FWD_NO_LOAD (a value from the tap's address in
-// place of each load), XDT_FWD_CONST_TABLE (taps from the cell and sample
-// alone: no roi loads, no divisions) and XDT_FWD_RUNTIME_SAMPLES (S = 2 not
-// fixed at compile time).
 //
 // Backward: dfeat[b,p,q,(i,j),c] = (1/S^2) sum_r wy[r,i,p] * (g[b,r,i,j,c] *
 // wx[r,j,q]), with wy[r,i,p] = sum_s relu(1 - |p - y_s|) (the same weights
@@ -115,12 +109,6 @@
 //     tile row of the map goes out in contiguous runs (staging it through
 //     shared memory in 4-byte words, or streaming stores, measured no
 //     faster).
-//
-// Switches for psroi_bwd_variants.py's measurements, each giving wrong
-// results on purpose: XDT_BWD_PREPARE_ONLY (the pre-pass alone),
-// XDT_BWD_NO_GRAD_LOAD (1.0 for every gradient), XDT_BWD_NO_ACCUMULATE (the
-// gradients are loaded and summed, the weights are not applied) and
-// XDT_BWD_CULL_ONLY (the list is built and never consumed).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -334,19 +322,11 @@ __device__ __forceinline__ void consume(const TileList<TH, TW>& L, int n,
         const int4 e = L.head[pos[u]];
         act[u] = t0 + u < todo && me.live &&
                  ((e.y >> me.bi) & (e.z >> me.bj) & 1);
-#ifdef XDT_BWD_NO_GRAD_LOAD
-        gv[u] = act[u] ? 1.0f : 0.0f;
-#else
         gv[u] = act[u] ? __ldg(g_col + (int64_t)e.x * g_stride) : 0.0f;
-#endif
       }
 #pragma unroll
       for (int u = 0; u < kPrefetch; ++u) {
         if (!act[u]) continue;
-#ifdef XDT_BWD_NO_ACCUMULATE
-        acc[0][0] += gv[u];
-        continue;
-#endif
         const float4* wy4 = reinterpret_cast<const float4*>(
             L.wy + (pos[u] * grid + me.bi) * kTHP);
         const float4* wx4 = reinterpret_cast<const float4*>(
@@ -459,11 +439,9 @@ __global__ void __launch_bounds__(kMaxBwdThreads, 1)
     listed += total;
     __syncthreads();           // the list is whole; the counts may be reused
   }
-#ifndef XDT_BWD_CULL_ONLY
   if (listed)
     consume<TH, TW>(L, listed, acc, rois_b, g_col, kkc, me, grid, samples,
                     subs, H, W, row0, col0);
-#endif
 
   const float inv = (float)(1.0 / (double)(samples * samples));
   if (me.live) {
@@ -520,17 +498,12 @@ struct Tap {
 __device__ __forceinline__ Tap make_tap(float lo, float hi, int cell, int s,
                                         int grid, int samples, int extent,
                                         long long stride) {
-#ifdef XDT_FWD_CONST_TABLE
-  const int p0 = min(cell * samples + s, extent - 1);
-  const float f = 0.5f;
-#else
   const float p = sample_coord_rn(lo, cell_span(lo, hi, grid), cell,
                                   __fdiv_rn((float)s + 0.5f, (float)samples),
                                   extent);
   const float p0f = floorf(p);
   const int p0 = (int)p0f;
   const float f = __fsub_rn(p, p0f);
-#endif
   Tap t;
   t.o0 = p0 * stride;
   t.o1 = min(p0 + 1, extent - 1) * stride;
@@ -543,24 +516,16 @@ __device__ __forceinline__ Tap make_tap(float lo, float hi, int cell, int s,
 // neighbours in one 4-byte (bf16) or 8-byte (fp32) load.
 template <bool kPaired>
 __device__ __forceinline__ float2 load_lane(const float* p) {
-#ifdef XDT_FWD_NO_LOAD
-  return make_float2((float)(reinterpret_cast<uintptr_t>(p) & 64), 1.0f);
-#else
   if constexpr (kPaired) return __ldg(reinterpret_cast<const float2*>(p));
   return make_float2(__ldg(p), 0.0f);
-#endif
 }
 
 template <bool kPaired>
 __device__ __forceinline__ float2 load_lane(const __nv_bfloat16* p) {
-#ifdef XDT_FWD_NO_LOAD
-  return make_float2((float)(reinterpret_cast<uintptr_t>(p) & 64), 1.0f);
-#else
   if constexpr (kPaired)
     return __bfloat1622float2(
         __ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
   return make_float2(__bfloat162float(__ldg(p)), 0.0f);
-#endif
 }
 
 // One block: rois [r0, r0 + n) of image b, n <= rois_per_block, where
@@ -672,11 +637,7 @@ int launch_fwd(const T* feat, const float* rois, float* out, int B, int H,
                int W, int R, int grid, int C, int samples, int threads,
                int rois_per_block, bool tabled, int smem_bytes,
                cudaStream_t s) {
-#ifdef XDT_FWD_RUNTIME_SAMPLES
-  const bool two = false;
-#else
   const bool two = samples == 2;
-#endif
   auto kernel = !tabled ? psroi_align_fwd_kernel<T, kPaired, false, 0>
                 : two   ? psroi_align_fwd_kernel<T, kPaired, true, 2>
                         : psroi_align_fwd_kernel<T, kPaired, true, 0>;
@@ -761,9 +722,6 @@ extern "C" int xdt_psroi_align_bwd(const void* grad, const void* rois,
       g, r, x, rows, grid * grid * C, H, W, grid, samples);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-#ifdef XDT_BWD_PREPARE_ONLY
-  return 0;
-#endif
   if (dfeat_is_bf16)
     return launch_tiles(g, r, x, static_cast<__nv_bfloat16*>(dfeat), B, H, W,
                         R, grid, C, samples, threads, cap, smem_bytes, s);

@@ -50,7 +50,7 @@ from x_detector_tpu_torch.config import (calibration_percentile,
                                          check_backbone_quant)
 from x_detector_tpu_torch.ops import int8_conv
 from x_detector_tpu_torch.ops.fused_sepconv import (
-    SepConvWeights, fused_separable_conv_prepared, prepare_weights, route_for)
+    SepConvWeights, fused_separable_conv_prepared, prepare_weights, takes)
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -558,12 +558,13 @@ class SeparableConvBN(nn.Module):
 
     ``fused=True`` routes stride-1 calls at inference through the fused
     kernel (``ops/fused_sepconv.py``); training, stride-2 and quantized
-    calls keep the two convs (with ``quant``, two :class:`QuantConv`).
+    calls, and blocks whose Cin or Cout is not a multiple of 8, keep the
+    two convs (with ``quant``, two :class:`QuantConv`).
     With both int8 (:attr:`quantizes_on_store`), the depthwise conv's
     kernel (K2) quantizes its output at the pointwise conv's scale, which
     then reads that int8 map without a quantize pass of its own (K3). The
     parameters are the same either way; the fused route's operands (taps,
-    ``wp`` in the compute dtype and the route's layout, the folded BN) are
+    ``wp`` as [Cout, Cin] in the compute dtype, the folded BN) are
     held in buffers by :meth:`prepare_for_inference`, which the fused
     route reads (raising without them).
     ``forward(x, residual)`` is the
@@ -602,7 +603,6 @@ class SeparableConvBN(nn.Module):
             self.Conv_1 = QuantConv(in_features, features, (1, 1),
                                     mode=quant, dtype=dtype)
         self.bn = BatchNorm2D(features)
-        self.route = route_for(in_features, features)
         for name in FUSED_OPERANDS:
             self.register_buffer(name, None, persistent=False)
 
@@ -612,7 +612,7 @@ class SeparableConvBN(nn.Module):
         if self.fused_wp is None:
             raise _unprepared(self)
         return SepConvWeights(self.fused_wd, self.fused_wp, self.fused_scale,
-                              self.fused_bias, self.route)
+                              self.fused_bias)
 
     def prepare_for_inference(self) -> None:
         """Hold the fused route's operands in buffers (``eval()`` only),
@@ -625,7 +625,7 @@ class SeparableConvBN(nn.Module):
                 operands = prepare_weights(
                     self.Conv_0.weight[:, 0].permute(1, 2, 0),
                     self.Conv_1.weight[:, :, 0, 0].t(), scale, bias,
-                    route=self.route, dtype=self.dtype)
+                    dtype=self.dtype)
             for name, t in zip(FUSED_OPERANDS, operands):
                 setattr(self, name, t.clone())   # no view of a parameter
 
@@ -644,9 +644,12 @@ class SeparableConvBN(nn.Module):
 
     @property
     def takes_fused_route(self) -> bool:
-        """Whether ``forward`` now launches the fused kernel."""
+        """Whether ``forward`` now launches the fused kernel: eval, not
+        quantized, the depthwise pair at stride 1, and channel counts the
+        kernel takes (``ops.fused_sepconv.takes``)."""
         return (self.fused and not self.training and self.quant is None
-                and not self.dense and self.strides == (1, 1))
+                and not self.dense and self.strides == (1, 1)
+                and takes(self.Conv_0.in_channels, self.Conv_1.out_channels))
 
     @property
     def quantizes_on_store(self) -> bool:

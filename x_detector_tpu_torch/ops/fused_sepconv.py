@@ -10,19 +10,16 @@ accumulate in fp32 and are rounded to ``x.dtype``; the pointwise product
 accumulates in fp32 over ``x.dtype`` operands; the affine, the residual and
 the ReLU apply in fp32; one rounding to ``x.dtype`` on store.
 
-Two kernels, two routes, chosen by the channel counts alone:
-  - ``"tma"`` (``csrc/fused_sepconv.cu``): Cin and Cout multiples of 8, as
-    every call of the model's backbone has. TMA halo tiles, a depthwise ->
-    wgmma pipeline, a persistent grid; :func:`plan_launch` chooses its
-    geometry here, on the host.
-  - ``"wmma"`` (``csrc/fused_sepconv_wmma.cu``): the first design, for
-    other channel counts (and Cin <= 1088).
-Each route counts its launches in ``fused_separable_conv.route_launches``;
-``fused_separable_conv.launches`` counts both.
+One kernel (``csrc/fused_sepconv.cu``) takes Cin and Cout that are
+multiples of 8 (:func:`takes`), as every call of the model's backbone has:
+TMA halo tiles, a depthwise -> wgmma pipeline, a persistent grid;
+:func:`plan_launch` chooses its geometry here, on the host. A block of
+other widths runs the unfused route (``models/layers.py``).
+``fused_separable_conv.launches`` counts the kernel's launches.
 
 :func:`prepare_weights` turns the layer's parameters into the operator's
-operands (``wp`` in the compute dtype, transposed for the ``"tma"``
-route); the model holds them as buffers (``models/layers.py``,
+operands (``wp`` transposed to [Cout, Cin] in the compute dtype); the model
+holds them as buffers (``models/layers.py``,
 ``SeparableConvBN.prepare_for_inference``).
 """
 
@@ -38,7 +35,7 @@ import torch.nn.functional as F
 from x_detector_tpu_torch import _build
 from x_detector_tpu_torch.utils import roofline
 
-# The "tma" kernel's fixed geometry; it mirrors csrc/fused_sepconv.cu.
+# The kernel's fixed geometry; it mirrors csrc/fused_sepconv.cu.
 KC = 64                  # input channels per chunk
 BN = 128                 # output channels per accumulator (and wp slice)
 ROWS = 128               # pixel rows of a unit: the tile holds at most 128
@@ -49,7 +46,9 @@ STAGING_BYTES = (BN // 64) * SLAB_BYTES
 BAR_BYTES = 256
 MAX_STAGES = 4           # ring stages wanted (the kernel takes up to 8)
 SMEM_LIMIT = 232448      # dynamic shared memory a block may use (sm_90)
-ROUTES = ("tma", "wmma")
+# the value of the operator's trailing ``route`` argument (see
+# :func:`check_route`)
+ROUTE = "tma"
 
 
 def reference_separable_conv(x, wd, wp, scale, bias, *, dilation=1,
@@ -73,9 +72,21 @@ def reference_separable_conv(x, wd, wp, scale, bias, *, dilation=1,
     return y.to(x.dtype)
 
 
-def route_for(cin: int, cout: int) -> str:
-    """The kernel that takes these channel counts on the card."""
-    return "tma" if cin % 8 == 0 and cout % 8 == 0 else "wmma"
+def takes(cin: int, cout: int) -> bool:
+    """Whether the kernel takes these channel counts: both multiples of 8
+    (16-byte rows of bf16 for its TMA boxes)."""
+    return cin % 8 == 0 and cout % 8 == 0
+
+
+def check_route(route: str) -> None:
+    """The operator's schema keeps the trailing ``str route`` argument that
+    once chose between this kernel and the first design ("wmma", since
+    retired), so that programs exported with it still load; it must now
+    be ``ROUTE``."""
+    if route != ROUTE:
+        raise ValueError(f"xdt::fused_sepconv: route {route!r} is gone: B2's "
+                         f"first design was retired and the one kernel is "
+                         f"route {ROUTE!r}")
 
 
 def _round_up(v: int, m: int) -> int:
@@ -84,7 +95,7 @@ def _round_up(v: int, m: int) -> int:
 
 def smem_bytes(th: int, tw: int, dilation: int, stages: int,
                bn: int = BN) -> int:
-    """Dynamic shared memory of the "tma" kernel (its ``Layout``): two A
+    """Dynamic shared memory of the kernel (its ``Layout``): two A
     buffers, the staging tile, ``stages`` x (halo box + the wp slices of
     ``bn`` channels), the mbarriers and 1024 bytes to align the base."""
     halo = (th + 2 * dilation) * (tw + 2 * dilation) * KC * 2
@@ -94,7 +105,7 @@ def smem_bytes(th: int, tw: int, dilation: int, stages: int,
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Launch geometry of the "tma" kernel for one call shape."""
+    """Launch geometry of the kernel for one call shape."""
     th: int                # output tile: th x tw pixels of one image
     tw: int
     stages: int            # ring stages (halo box + wp slices each)
@@ -146,7 +157,7 @@ def plan_launch(b: int, h: int, w: int, cin: int, cout: int, dilation: int,
         if best is None or key < best[0]:
             best = (key, th, tw, stages)
     if best is None:
-        raise ValueError(f"fused_separable_conv: no tile of the tma kernel "
+        raise ValueError(f"fused_separable_conv: no tile of the kernel "
                          f"fits H={h}, W={w}, dilation={d}")
     _, th, tw, stages = best
     tiles = (_ceil(h, th), _ceil(w, tw), _ceil(cout, bn))
@@ -202,40 +213,30 @@ def unfused_cudnn(x, wd, wp, scale, bias, *, dilation, relu, residual):
 
 class SepConvWeights(NamedTuple):
     """One layer's operands: ``wd`` [3, 3, Cin], ``scale`` and ``bias``
-    [Cout], all fp32, and ``wp`` in the compute dtype laid out for its
-    route: [Cout, Cin] for "tma", [Cin, Cout] for "wmma"."""
+    [Cout], all fp32, and ``wp`` [Cout, Cin] in the compute dtype."""
     wd: torch.Tensor
     wp: torch.Tensor
     scale: torch.Tensor
     bias: torch.Tensor
-    route: str
 
 
-def prepare_weights(wd, wp, scale, bias, *, route=None,
+def prepare_weights(wd, wp, scale, bias, *,
                     dtype: torch.dtype = torch.bfloat16) -> SepConvWeights:
     """The operands of :func:`fused_separable_conv_prepared` from ``wp``
     [Cin, Cout], rounded to ``dtype`` (the activations' dtype: bf16 for
-    the kernel), each contiguous. ``route`` None picks :func:`route_for`;
-    "wmma" may be asked for any shape."""
-    route = route or route_for(*wp.shape)
-    if route not in ROUTES:
-        raise ValueError(f"route {route!r} is not one of {ROUTES}")
-    if route == "tma" and route_for(*wp.shape) != "tma":
-        raise ValueError(f"the tma route takes Cin and Cout that are "
-                         f"multiples of 8, not {tuple(wp.shape)}")
-    wp = (wp.t() if route == "tma" else wp).to(dtype).contiguous()
-    return SepConvWeights(wd.float().contiguous(), wp,
+    the kernel), each contiguous."""
+    return SepConvWeights(wd.float().contiguous(),
+                          wp.t().to(dtype).contiguous(),
                           scale.float().contiguous(),
-                          bias.float().contiguous(), route)
+                          bias.float().contiguous())
 
 
 def plain_prepared(x, wd, wp, scale, bias, residual, dilation: int,
                    relu: bool, route: str):
     """``xdt::fused_sepconv`` on CPU tensors: the plain version on
-    :func:`prepare_weights`'s operands."""
-    if route == "tma":
-        wp = wp.t().contiguous()
-    return reference_separable_conv(x, wd, wp, scale, bias,
+    :func:`prepare_weights`'s operands, any channel counts."""
+    check_route(route)
+    return reference_separable_conv(x, wd, wp.t(), scale, bias,
                                     dilation=dilation, relu=relu,
                                     residual=residual)
 
@@ -263,12 +264,11 @@ def fused_separable_conv_prepared(x, weights: SepConvWeights, *, dilation=1,
                                   relu=True, residual=None):
     """:func:`fused_separable_conv` on operands from
     :func:`prepare_weights`: the operator ``xdt::fused_sepconv``."""
-    wd, wp, scale, bias, route = weights
+    wd, wp, scale, bias = weights
     b, h, w, cin = x.shape
-    cout = wp.shape[0] if route == "tma" else wp.shape[1]
+    cout = wp.shape[0]
     shapes = {"wd": (3, 3, cin), "scale": (cout,), "bias": (cout,),
-              "residual": (b, h, w, cout),
-              "wp": (cout, cin) if route == "tma" else (cin, cout)}
+              "residual": (b, h, w, cout), "wp": (cout, cin)}
     for name, t in (("wd", wd), ("wp", wp), ("scale", scale), ("bias", bias),
                     ("residual", residual)):
         if t is not None and tuple(t.shape) != shapes[name]:
@@ -278,16 +278,19 @@ def fused_separable_conv_prepared(x, weights: SepConvWeights, *, dilation=1,
         raise ValueError(f"x must be [B, H, W, C] and dilation >= 1; got "
                          f"{tuple(x.shape)}, {dilation}")
     return torch.ops.xdt.fused_sepconv.default(
-        x, wd, wp, scale, bias, residual, int(dilation), bool(relu), route)
+        x, wd, wp, scale, bias, residual, int(dilation), bool(relu), ROUTE)
 
 
 def launch_cuda(x, wd, wp, scale, bias, residual, dilation: int, relu: bool,
                 route: str):
-    """``xdt::fused_sepconv`` on CUDA tensors: checks what the kernels
-    take, plans the "tma" route's launch (:func:`plan_launch`) and launches
-    the route's kernel."""
+    """``xdt::fused_sepconv`` on CUDA tensors: checks what the kernel
+    takes, plans its launch (:func:`plan_launch`) and launches it."""
+    check_route(route)
     b, h, w, cin = x.shape
-    cout = wp.shape[0] if route == "tma" else wp.shape[1]
+    cout = wp.shape[0]
+    if not takes(cin, cout):
+        raise ValueError(f"fused_separable_conv: the kernel takes Cin and "
+                         f"Cout that are multiples of 8, not {cin}, {cout}")
     tensors = {"x": x, "wd": wd, "wp": wp, "scale": scale, "bias": bias}
     if residual is not None:
         tensors["residual"] = residual
@@ -305,8 +308,8 @@ def launch_cuda(x, wd, wp, scale, bias, residual, dilation: int, relu: bool,
         if t.dtype != want:
             raise TypeError(f"fused_separable_conv: {name} is {t.dtype}, "
                             f"the kernel takes {want}")
-    if route == "tma" and any(t.data_ptr() % 16 for t in tensors.values()):
-        raise ValueError("fused_separable_conv: the tma route needs 16-byte "
+    if any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError("fused_separable_conv: the kernel needs 16-byte "
                          "aligned operands")
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -315,22 +318,16 @@ def launch_cuda(x, wd, wp, scale, bias, residual, dilation: int, relu: bool,
     ptrs = (x.data_ptr(), wd.data_ptr(), wp.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), res_ptr, out.data_ptr())
     dims = (b, h, w, cin, cout, dilation, int(relu))
-    what = f"fused_sepconv ({route})"
-    if route == "tma":
-        p = plan_launch(b, h, w, cin, cout, dilation,
-                        _sm_count(x.device.index or 0))
-        _build.launch("xdt_fused_sepconv_tma", what, x, *ptrs, *dims, p.th,
-                      p.tw, p.stages, p.smem_bytes, p.bn, p.grid)
-    else:
-        _build.launch("xdt_fused_sepconv_wmma", what, x, *ptrs, *dims)
+    p = plan_launch(b, h, w, cin, cout, dilation,
+                    _sm_count(x.device.index or 0))
+    _build.launch("xdt_fused_sepconv_tma", "fused_sepconv", x, *ptrs, *dims,
+                  p.th, p.tw, p.stages, p.smem_bytes, p.bn, p.grid)
     fused_separable_conv.launches += 1
-    fused_separable_conv.route_launches[route] += 1
     return out
 
 
 def reset_launches() -> None:
     fused_separable_conv.launches = 0
-    fused_separable_conv.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 reset_launches()

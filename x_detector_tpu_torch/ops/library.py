@@ -107,8 +107,8 @@ torch.library.register_autograd(f"{NAMESPACE}::psroi_align_fwd",
 # ---- B2 ---------------------------------------------------------------------
 
 def _sepconv_fake(x, wd, wp, scale, bias, residual, dilation, relu, route):
-    cout = wp.shape[0] if route == "tma" else wp.shape[1]
-    return x.new_empty((*x.shape[:3], cout))
+    fused_sepconv.check_route(route)
+    return x.new_empty((*x.shape[:3], wp.shape[0]))
 
 
 _define("fused_sepconv(Tensor x, Tensor wd, Tensor wp, Tensor scale, "

@@ -224,6 +224,26 @@ def psroi_align_backward_reference(grad: torch.Tensor, rois: torch.Tensor,
     return dfeat.reshape(b, height, width, k * k * c).to(dtype)
 
 
+# rois per image that config 4's OHEM keeps (ohem_topk): the rows of the
+# backward's upstream gradient that are not zero in a train step
+OHEM_KEEP = 256
+
+
+def ohem_shaped(gen: torch.Generator, g: torch.Tensor, keep: int = OHEM_KEEP):
+    """``g`` [B, R, ...] with all but ``keep`` rows per image, chosen by
+    ``gen``, set to zero (+0.0 and -0.0 alternately by roi): the upstream
+    gradient of PSROIAlign in a train step, where OHEM keeps ``ohem_topk``
+    rois. Returns it and the kept rows' indices [B, keep], in order."""
+    b, r = g.shape[:2]
+    kept = torch.rand(b, r, generator=gen, device=g.device).argsort(dim=1)[
+        :, :keep].sort(dim=1).values
+    mask = torch.zeros(b, r, dtype=torch.bool, device=g.device)
+    mask.scatter_(1, kept, True)
+    zero = torch.where(torch.arange(r, device=g.device) % 2 == 0, 0.0, -0.0)
+    shape = (b, r) + (1,) * (g.dim() - 2)
+    return torch.where(mask.view(shape), g, zero.view((1,) + shape[1:])), kept
+
+
 def backward_smem_bytes(th: int, tw: int, grid: int, cap: int) -> int:
     """Dynamic shared memory of the backward kernel for a list of ``cap``
     rois: the warp counts and work lists, then per roi its index, its row
